@@ -1,0 +1,42 @@
+"""Architecture registry of the port (counterpart of ``repro.configs``).
+
+``get_config(arch_id)`` returns the full published config;
+``get_reduced(arch_id)`` the CPU-test variant of the same family.  Only the
+families the port serves are registered; the others join with their model
+code (ROADMAP.md, Queue A).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.models.config import ModelConfig
+
+_ARCHS = [
+    "qwen2_0p5b",
+]
+
+_ALIASES = {
+    "qwen2-0.5b": "qwen2_0p5b",
+}
+
+
+def _module(name: str):
+    mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "p")
+    if mod not in _ARCHS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (ROADMAP.md Queue A); "
+            f"ported: {sorted(_ALIASES)}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return _module(name).REDUCED
+
+
+def list_configs() -> List[str]:
+    return list(_ARCHS)

@@ -1,0 +1,145 @@
+"""Paged decode attention straight from the serving pool (counterpart of
+``repro.kernels.paged_attention``).
+
+The pool is the ``PagedKVStore``'s layer-major ``k_pages/v_pages:
+(L, n_pages, page, KV, hd)``.  A request's sequence is a list of *runs*,
+one per table entry ``j``: page ``tables[b, j]`` holds the ``counts[b, j]``
+consecutive tokens starting at absolute position ``starts[b, j]``, always
+beginning at slot 0.  ``counts[b, j] == 0`` marks an unused entry (point it
+at a valid scratch page).  GQA maps head ``h`` to KV head ``h // (H // KV)``;
+the logit softcap applies before the mask; the sliding window is on absolute
+positions (``pos > qpos - window``).  A row whose runs are all empty gives
+exact zeros.
+
+``paged_decode_attention`` is the wrapper of the hand-written CUDA kernel
+(``csrc/paged_decode.cu``); ``paged_decode_torch`` is its plain PyTorch
+version — a per-page gather + online softmax with the JAX twin's masking —
+which the wrapper runs for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+MAX_R = 16          # query heads per KV head the CUDA kernels take
+MAX_PAGE = 32       # page (block) size the CUDA kernels take
+
+
+def paged_decode_torch(q, k_pages, v_pages, tables, counts, starts, qpos,
+                       layer: int, window: int, *, logit_cap: float = 0.0):
+    """Per-page gather + online softmax in plain PyTorch (twin of
+    ``repro.kernels.paged_attention.paged_decode_jnp``).
+
+    q: (B, H, hd); k/v_pages: (L, n_pages, page, KV, hd); tables/counts/
+    starts: (B, n_slots) int32; qpos: (B,) int32.  Peak live memory per
+    step is one (B, page, KV, hd) tile.
+    """
+    paged_decode_torch.calls += 1
+    B, H, hd = q.shape
+    page, KV = k_pages.shape[2], k_pages.shape[3]
+    R = H // KV
+    qf = (q.float() * hd ** -0.5).reshape(B, KV, R, hd)
+    slot = torch.arange(page, device=q.device, dtype=torch.int32)
+    kl, vl = k_pages[layer], v_pages[layer]
+    m = torch.full((B, KV, R), NEG_INF, device=q.device)
+    l = torch.zeros((B, KV, R), device=q.device)
+    acc = torch.zeros((B, KV, R, hd), device=q.device)
+    for j in range(tables.shape[1]):
+        pid = tables[:, j].long()
+        k = kl[pid].float()                              # (B, page, KV, hd)
+        v = vl[pid].float()
+        s = torch.einsum("bgrd,bpgd->bgrp", qf, k)
+        if logit_cap:
+            s = logit_cap * torch.tanh(s / logit_cap)
+        live = slot[None] < counts[:, j, None]           # (B, page)
+        if window > 0:
+            pos = starts[:, j, None] + slot[None]
+            live &= pos > qpos[:, None] - window
+        lb = live[:, None, None, :]
+        s = torch.where(lb, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(lb, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bgrp,bpgd->bgrd", p, v)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+paged_decode_torch.calls = 0
+
+
+def check_pool_args(name, q, k_pages, v_pages, ints, *, q_rank: int):
+    """Validate what the CUDA kernels take; raise on anything else."""
+    if q.dim() != q_rank or k_pages.dim() != 5:
+        raise ValueError(f"{name}: q must be {q_rank}-D and the pool 5-D")
+    if k_pages.shape != v_pages.shape:
+        raise ValueError(f"{name}: k_pages and v_pages differ in shape")
+    dev = q.device
+    for t in (k_pages, v_pages, *ints):
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: dtype must be bfloat16 or float32, "
+                        f"got {q.dtype}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"{name}: q and the pool must share one dtype")
+    for t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: index tensors must be int32")
+    for t in (q, k_pages, v_pages, *ints):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous")
+    H, hd = q.shape[1], q.shape[-1]
+    page, KV = k_pages.shape[2], k_pages.shape[3]
+    if hd not in (64, 128) or k_pages.shape[4] != hd:
+        raise ValueError(f"{name}: head dim must be 64 or 128, got {hd}")
+    if H % KV or H // KV > MAX_R:
+        raise ValueError(f"{name}: need H % KV == 0 and H / KV <= {MAX_R}, "
+                         f"got H={H} KV={KV}")
+    if not 0 < page <= MAX_PAGE:
+        raise ValueError(f"{name}: page size must be in 1..{MAX_PAGE}")
+
+
+def paged_decode_attention(q, k_pages, v_pages, tables, counts, starts, qpos,
+                           layer: int, window: int, *,
+                           logit_cap: float = 0.0):
+    """Decode attention through the run tables: (B, H, hd) in q's dtype.
+
+    Replaces the TPU kernel ``repro/kernels/paged_attention.py::
+    paged_decode_attention``.  Bound on the H100 by bytes (the live K/V
+    pages); the kernel reads each page once per KV head for all of its
+    query heads and skips empty table entries (see csrc/paged_decode.cu).
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    on the current stream or raises.
+    """
+    if not q.is_cuda:
+        return paged_decode_torch(q, k_pages, v_pages, tables, counts, starts,
+                                  qpos, layer, window, logit_cap=logit_cap)
+    check_pool_args("paged_decode_attention", q, k_pages, v_pages,
+                    (tables, counts, starts, qpos), q_rank=3)
+    B, H, hd = q.shape
+    L, n_pages, page, KV, _ = k_pages.shape
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range for {L} layers")
+    if tables.shape != counts.shape or tables.shape != starts.shape \
+            or tables.shape[0] != B or qpos.shape != (B,):
+        raise ValueError("run tables must be (B, n_slots) and qpos (B,)")
+    out = torch.empty_like(q)
+    lib = _build.load("paged_decode")
+    code = lib.paged_decode_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        tables.data_ptr(), counts.data_ptr(), starts.data_ptr(),
+        qpos.data_ptr(), out.data_ptr(), B, H, KV, hd, n_pages, page,
+        tables.shape[1], int(layer), int(window), float(logit_cap),
+        hd ** -0.5, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "paged_decode", code)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

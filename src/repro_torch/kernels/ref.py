@@ -1,0 +1,86 @@
+"""Dense torch oracles for the paged attention kernels (counterparts of
+``repro.kernels.ref.reference_paged_prefill`` / ``reference_paged_decode``).
+
+They gather every table entry's page into a dense (B, n_slots * page, KV, hd)
+context and run a plain masked softmax over it — simple enough to trust,
+too big to serve with.  Tests hold the per-page plain versions and the CUDA
+kernels against them.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _dense_kv(k_pages, v_pages, tables, layer: int, R: int):
+    B, nb = tables.shape
+    page, KV, hd = k_pages.shape[2:]
+    idx = tables.long()
+    k = k_pages[layer][idx].reshape(B, nb * page, KV, hd)
+    v = v_pages[layer][idx].reshape(B, nb * page, KV, hd)
+    kf = k.repeat_interleave(R, dim=2).float()
+    vf = v.repeat_interleave(R, dim=2).float()
+    return kf, vf
+
+
+def _slot_live(counts, starts, page: int):
+    """(B, nb * page) live flags and absolute key positions of the runs."""
+    B, nb = counts.shape
+    slot = torch.arange(page, device=counts.device)
+    live = (slot[None, None] < counts[..., None]).reshape(B, nb * page)
+    kpos = (starts[..., None] + slot[None, None]).reshape(B, nb * page)
+    return live, kpos
+
+
+def reference_paged_prefill(q, k_pages, v_pages, tables, counts, starts,
+                            q_start, q_len, layer: int, window: int = 0,
+                            logit_cap: float = 0.0):
+    """Dense oracle for the layer-major paged prefill kernel.
+
+    q: (B, H, Sq, hd); k/v_pages: (L, n_pages, page, KV, hd); tables/counts/
+    starts: (B, n_slots) run descriptors (see paged_attention.py); q_start:
+    (B,) absolute position of query row 0; q_len: (B,) valid query rows —
+    invalid (ragged-padding) rows return exact zeros.
+    """
+    B, H, Sq, hd = q.shape
+    page, KV = k_pages.shape[2], k_pages.shape[3]
+    kf, vf = _dense_kv(k_pages, v_pages, tables, layer, H // KV)
+    s = torch.einsum("bhqd,bkhd->bhqk", q.float(), kf) * hd ** -0.5
+    if logit_cap:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    live, kpos = _slot_live(counts, starts, page)
+    rows = torch.arange(Sq, device=q.device)
+    qpos = q_start[:, None] + rows[None]                     # (B, Sq)
+    mask = live[:, None] & (kpos[:, None] <= qpos[..., None])
+    mask &= (rows[None] < q_len[:, None])[..., None]
+    if window:
+        mask &= kpos[:, None] > qpos[..., None] - window
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask[:, None], p, 0.0)   # all-masked row -> 0, not NaN
+    return torch.einsum("bhqk,bkhd->bhqd", p, vf).to(q.dtype)
+
+
+def reference_paged_decode(q, k_pages, v_pages, tables, counts, starts, qpos,
+                           layer: int, window: int = 0,
+                           logit_cap: float = 0.0):
+    """Dense oracle for the layer-major paged decode kernel.
+
+    q: (B, H, hd); k/v_pages: (L, n_pages, page, KV, hd); tables/counts/
+    starts: (B, n_slots) run descriptors; qpos: (B,) absolute query
+    position; layer selects the page plane.
+    """
+    B, H, hd = q.shape
+    page, KV = k_pages.shape[2], k_pages.shape[3]
+    kf, vf = _dense_kv(k_pages, v_pages, tables, layer, H // KV)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), kf) * hd ** -0.5
+    if logit_cap:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    live, kpos = _slot_live(counts, starts, page)
+    if window:
+        live &= kpos > qpos[:, None] - window
+    s = torch.where(live[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(live[:, None], p, 0.0)   # all-masked row -> 0, not NaN
+    return torch.einsum("bhk,bkhd->bhd", p, vf).to(q.dtype)

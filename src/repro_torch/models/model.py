@@ -1,0 +1,205 @@
+"""Dense decoder model and its paged serving steps (counterpart of the parts
+of ``repro.models.model`` that the continuous runtime runs).
+
+Params are a plain dict of tensors in ``cfg.tdtype``, with the per-layer
+weights stacked on a leading layer axis under ``params["blocks"]``, the
+same tree as the JAX package's (``params_from_numpy`` loads that tree from
+its flat checkpoint).  The two paged steps run eagerly, layer by layer, and
+write each layer's new K/V into the pool tensors IN PLACE before attention.
+
+Only the dense family (GQA with an optional QKV bias) is ported; MoE, VLM,
+audio and the recurrent families wait (ROADMAP.md Queue A).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.moe_experts or cfg.n_codebooks:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A); "
+            f"the port serves the dense family")
+
+
+def init_params(cfg: ModelConfig, seed: int,
+                device="cpu") -> Dict[str, Any]:
+    """Seeded random params of the dense family (the JAX package's init
+    scheme — normal(0, 0.02), output projections scaled by 1/sqrt(2L),
+    zero norms and biases — drawn from one ``torch.Generator``)."""
+    _check_family(cfg)
+    D, F, V, nl = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.tdtype
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    scale = 0.02
+    out_scale = scale / (2 * nl) ** 0.5
+
+    def mk(shape, s=scale):
+        w = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (w * s).to(dt)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    params: Dict[str, Any] = {"embed": mk((V, D)),
+                              "final_norm": zeros((D,))}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = mk((D, V))
+    blk = {
+        "ln1": zeros((nl, D)),
+        "wq": mk((nl, D, H * hd)),
+        "wk": mk((nl, D, KV * hd)),
+        "wv": mk((nl, D, KV * hd)),
+        "wo": mk((nl, H * hd, D), out_scale),
+        "ln2": zeros((nl, D)),
+        "wg": mk((nl, D, F)),
+        "wu": mk((nl, D, F)),
+        "wd": mk((nl, F, D), out_scale),
+    }
+    if cfg.qkv_bias:
+        blk["bq"] = zeros((nl, H * hd))
+        blk["bk"] = zeros((nl, KV * hd))
+        blk["bv"] = zeros((nl, KV * hd))
+    params["blocks"] = blk
+    return params
+
+
+def params_from_numpy(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
+                      device="cpu") -> Dict[str, Any]:
+    """Params from the flat dict that ``repro/training/checkpoint.py::save``
+    writes: ``/``-joined keys (``"blocks/wq"``), bf16 stored as f32.  The
+    cast to ``cfg.tdtype`` is lossless for bf16-representable values."""
+    _check_family(cfg)
+    out: Dict[str, Any] = {}
+    for key, arr in flat.items():
+        if key.startswith("__"):            # checkpoint metadata (__step__)
+            continue
+        node = out
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        t = torch.tensor(np.asarray(arr, dtype=np.float32))
+        node[leaf] = t.to(device=device, dtype=cfg.tdtype)
+    return out
+
+
+def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor):
+    """(B, S) token ids -> (B, S, D) embeddings."""
+    return params["embed"][tokens]
+
+
+def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = torch.matmul(x, params["embed"].t())
+    else:
+        logits = L.dense(x, params["lm_head"])
+    if cfg.final_logit_softcap:
+        logits = L.softcap(logits.float(), cfg.final_logit_softcap)
+    return logits.float()
+
+
+def _layer(params, li: int) -> Dict[str, torch.Tensor]:
+    return {k: w[li] for k, w in params["blocks"].items()}
+
+
+def _ffn(cfg: ModelConfig, p, x):
+    return L.swiglu(x, p["wg"], p["wu"], p["wd"])
+
+
+def _qkv(cfg: ModelConfig, p, h):
+    B, S, _ = h.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = L.dense(h, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+    k = L.dense(h, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
+    v = L.dense(h, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+    return q, k, v
+
+
+def paged_decode_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
+                      tables, counts, starts, write_blk, write_slot, pos,
+                      *, attn_impl: str | None = None) -> torch.Tensor:
+    """One decode iteration straight against the paged pool.
+
+    tokens: (B, 1).  k_pages/v_pages: the ``PagedKVStore`` tensors,
+    (L, n_blocks, block, KV, hd) — MUTATED IN PLACE: each layer writes the
+    new token's K/V at (write_blk, write_slot), (B,) each, before its
+    attention reads the pool.  tables/counts/starts: (B, n_slots) int32 run
+    descriptors whose counts already include that token.  pos: (B,) int32
+    sequence length including it.  Returns the (B, 1, V) f32 logits.
+    """
+    _check_family(cfg)
+    x = embed_inputs(cfg, params, tokens)
+    B = x.shape[0]
+    windows = cfg.layer_windows()
+    rope_pos = (pos - 1)[:, None]
+    wb, ws = write_blk.long(), write_slot.long()
+    for li in range(cfg.n_layers):
+        p = _layer(params, li)
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, p, h)                          # S == 1
+        q = L.apply_rope(q, rope_pos, cfg.rope_theta)
+        k = L.apply_rope(k, rope_pos, cfg.rope_theta)
+        k_pages[li].index_put_((wb, ws), k[:, 0].to(k_pages.dtype))
+        v_pages[li].index_put_((wb, ws), v[:, 0].to(v_pages.dtype))
+        o = ops.paged_decode_attention(
+            q[:, 0].contiguous(), k_pages, v_pages, tables, counts, starts,
+            pos - 1, li, windows[li], logit_cap=cfg.attn_logit_softcap,
+            impl=attn_impl)
+        x = x + L.dense(o.reshape(B, 1, -1), p["wo"])
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + _ffn(cfg, p, h2)
+    return lm_logits(cfg, params, x)
+
+
+def paged_prefill_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
+                       tables, counts, starts, q_start, q_len, write_blk,
+                       write_slot, *,
+                       attn_impl: str | None = None) -> torch.Tensor:
+    """One ragged prefill chunk computed straight against the paged pool.
+
+    tokens: (B, Sq) right-padded rows; row ``b`` holds ``q_len[b]`` valid
+    tokens whose first sits at absolute position ``q_start[b]``.
+    k_pages/v_pages: the pool tensors — MUTATED IN PLACE: each layer
+    scatters the chunk's K/V at (write_blk, write_slot), (B, Sq) each,
+    before attention (padding rows point at the store's scratch block,
+    which no live run reads).  tables/counts/starts: (B, n_slots) run
+    descriptors covering the cached prefix plus this chunk.  Returns the
+    (B, 1, V) f32 logits at each row's last valid token.
+    """
+    _check_family(cfg)
+    x = embed_inputs(cfg, params, tokens)
+    B, Sq = tokens.shape
+    windows = cfg.layer_windows()
+    positions = q_start[:, None] + torch.arange(
+        Sq, dtype=torch.int32, device=tokens.device)[None]
+    wb, ws = write_blk.long(), write_slot.long()
+    for li in range(cfg.n_layers):
+        p = _layer(params, li)
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, p, h)                          # (B, Sq, ., hd)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        k_pages[li].index_put_((wb, ws), k.to(k_pages.dtype))
+        v_pages[li].index_put_((wb, ws), v.to(v_pages.dtype))
+        o = ops.paged_prefill_attention(
+            q.transpose(1, 2).contiguous(), k_pages, v_pages, tables, counts,
+            starts, q_start, q_len, li, windows[li],
+            logit_cap=cfg.attn_logit_softcap, impl=attn_impl)
+        x = x + L.dense(o.transpose(1, 2).reshape(B, Sq, -1), p["wo"])
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + _ffn(cfg, p, h2)
+    last = torch.clamp(q_len.long() - 1, 0, Sq - 1)
+    x_last = torch.gather(x, 1, last[:, None, None].expand(B, 1, x.shape[-1]))
+    return lm_logits(cfg, params, x_last)

@@ -1,0 +1,1047 @@
+"""Continuous-batching async serving runtime (counterpart of
+``repro.serving.runtime`` on the paged / prefix / rag / tp=1 path).
+
+The event-loop engine of the paper's serving numbers: iteration-level
+scheduling over many concurrent requests, with
+
+  * staged vector search running OFF the engine's critical path — each
+    request's search stages are events on the runtime clock, and the
+    ``SpeculativeController``'s per-stage decisions launch and terminate
+    speculative prefills that overlap the remaining search (paper §5.3);
+  * one engine iteration at a time: a chunked, ragged-batched paged
+    prefill iteration — continuations of in-flight chunked prefills plus
+    newly admitted jobs picked by the cache-aware ``ReorderQueue`` — or ONE
+    batched paged decode step for every running request.  Both steps run
+    straight against the ``PagedKVStore`` pool through run tables and the
+    hand-written CUDA kernels (plain PyTorch on the CPU), writing new K/V
+    into the pool in place;
+  * admission control and preemption by paged-block / tree-pin budget via
+    the shared ``ContinuousBatchScheduler``;
+  * the knowledge tree's GPU -> host -> disk cascade, with disk reads for a
+    matched prefix prefetched into host memory during the remaining
+    retrieval stages.
+
+Clock semantics: the runtime keeps a virtual clock (seconds).  Engine
+iterations advance it by their measured wall time, and every iteration
+ends in a device synchronise, so the time covers the device work and not
+just the launches.  Retrieval stages advance their own per-request lanes by
+max(measured stage wall time, analytic stage cost).  TTFT is therefore
+max(search_end, prefill_end) - arrival.
+
+Not ported yet (ROADMAP.md Queue A): ``attn="dense"``, ``reuse="chunk"``,
+``mode="cag"`` and tensor parallelism; asking for one raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import itertools
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.controller import RAGController
+from repro_torch.core.knowledge_tree import (CacheBackend, EvictionError,
+                                             KnowledgeTree)
+from repro_torch.core.profiler import CostProfiler
+from repro_torch.core.speculative import SpecState, SpeculativeController
+from repro_torch.kvcache.paged import (DiskSegmentStore, OutOfBlocks,
+                                       PagedKVStore, PagedSegment,
+                                       make_disk_store, to_host)
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.retrieval.corpus import Corpus, Request
+from repro_torch.serving.config import EngineConfig, reject_legacy_kwargs
+from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.scheduler import (DECODE, PREEMPT, PREFILL,
+                                           ContinuousBatchScheduler,
+                                           PagedAdmission, SchedulerConfig,
+                                           prefill_piece_sizes)
+
+WAITING, RUNNING, FINISHED = "waiting", "running", "finished"
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; the CPU only when asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return dev
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class PagedBackend(CacheBackend):
+    """Tree payloads are PagedSegments in the shared device store; the host
+    tier holds dense (pinned, on a CUDA store) CPU tensor copies; the
+    optional disk tier holds one file per node.  Transfer seconds are
+    measured."""
+
+    def __init__(self, store: PagedKVStore,
+                 disk: Optional[DiskSegmentStore] = None):
+        self.store = store
+        self.disk = disk
+
+    def swap_out(self, node):
+        t0 = time.perf_counter()
+        k, v = self.store.gather(node.payload_gpu)
+        node.payload_host = {"k": to_host(k), "v": to_host(v)}
+        return time.perf_counter() - t0
+
+    def load(self, node):
+        t0 = time.perf_counter()
+        try:
+            node.payload_gpu = self.store.put(node.payload_host["k"],
+                                              node.payload_host["v"])
+        except OutOfBlocks as e:
+            raise EvictionError(str(e))   # promote() degrades to recompute
+        sync(self.store.device)
+        return time.perf_counter() - t0
+
+    def spill(self, node):
+        t0 = time.perf_counter()
+        node.payload_disk = self.disk.write(node.payload_host["k"],
+                                            node.payload_host["v"])
+        return time.perf_counter() - t0
+
+    def fetch(self, node):
+        t0 = time.perf_counter()
+        k, v = self.disk.read(node.payload_disk)
+        if self.store.device.type == "cuda":
+            k, v = k.pin_memory(), v.pin_memory()
+        node.payload_host = {"k": k, "v": v}
+        return time.perf_counter() - t0
+
+    def free_gpu(self, node):
+        if node.payload_gpu is not None:
+            self.store.free(node.payload_gpu)
+        node.payload_gpu = None
+
+    def free_disk(self, node):
+        if node.payload_disk is not None:
+            self.disk.delete(node.payload_disk)
+        node.payload_disk = None
+
+
+@dataclasses.dataclass
+class _PrefillResult:
+    docs: Tuple[int, ...]
+    first_token: int
+    total_len: int
+    alpha: int
+    beta: int
+    hit_docs: int
+    hit_tier_tokens: Tuple[int, int, int]   # alpha split by (gpu, host, disk)
+    speculative: bool
+    started: float
+    # the computed KV already lives in the pool: hit_runs are (blocks,
+    # n_tokens) snapshots of the shared (incref'd) prefix nodes; pg_segs are
+    # the request-owned segments (uncached docs + question), in sequence
+    # order.  Both lists are emptied when _paginate consumes them (ownership
+    # transfers to the decode table) or _free_paged_kv drops them.
+    hit_runs: List[Tuple[List[int], int]] = dataclasses.field(
+        default_factory=list)
+    pg_segs: List[PagedSegment] = dataclasses.field(default_factory=list)
+    # ordered sequence layout: ("run"|"seg", index into hit_runs/pg_segs,
+    # absolute start position) — runs then segs in prefix mode
+    layout: List[Tuple[str, int, int]] = dataclasses.field(
+        default_factory=list)
+    first_logits: Optional[np.ndarray] = None   # (V,) at the first token
+
+
+@dataclasses.dataclass
+class _ChunkState:
+    """Engine-side state of an in-flight chunked prefill: plan, execution
+    cursor over the to-be-computed segments, remaining piece sizes, and the
+    pages the kernel scatters each chunk's KV into."""
+    plan: object                    # RequestPlan
+    segs: List[np.ndarray]          # token arrays: uncached docs + question
+    doc_bounds: List[Tuple[int, int]]  # (abs_start, length) per uncached doc
+    pieces: List[int]               # remaining piece sizes (shared splitter)
+    seg_idx: int = 0
+    seg_off: int = 0
+    plen: int = 0                   # absolute tokens prefixed so far
+    first_token: int = -1           # set when the last piece completes
+    logits: Optional[np.ndarray] = None
+    hit_runs: List[Tuple[List[int], int]] = dataclasses.field(
+        default_factory=list)
+    pg_segs: List[PagedSegment] = dataclasses.field(default_factory=list)
+    layout: List[Tuple[str, int, int]] = dataclasses.field(
+        default_factory=list)
+    seg_abs: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Job:
+    req: "_ReqRun"
+    docs: Tuple[int, ...]
+    speculative: bool
+    enqueued: float
+    cancelled: bool = False
+    started: float = -1.0
+    cs: Optional[_ChunkState] = None
+
+
+@dataclasses.dataclass
+class _ReqRun:
+    r: Request
+    tl: object                      # RequestTimeline
+    spec: SpecState
+    state: str = WAITING
+    final_docs: Optional[Tuple[int, ...]] = None
+    jobs: List[_Job] = dataclasses.field(default_factory=list)
+    results: Dict[Tuple[int, ...], _PrefillResult] = dataclasses.field(
+        default_factory=dict)
+    start_by_docs: Dict[Tuple[int, ...], float] = dataclasses.field(
+        default_factory=dict)
+    # decode state: token-level slot mapping — position p of the request's
+    # sequence lives at (pos_blk[p], pos_slot[p]) in the paged store
+    pos_blk: List[int] = dataclasses.field(default_factory=list)
+    pos_slot: List[int] = dataclasses.field(default_factory=list)
+    owned_blocks: List[int] = dataclasses.field(default_factory=list)
+    length: int = 0
+    last_tok: int = 0
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    remaining: int = 0
+    first_logits: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class RuntimeResult:
+    req_id: int
+    tokens: List[int]
+    ttft: float
+    docs: Tuple[int, ...]
+    alpha: int
+    beta: int
+    speculative_hit: bool
+    first_logits: Optional[np.ndarray] = None   # (V,) logits at first token
+
+
+class ContinuousRuntime:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        corpus: Corpus,
+        index,
+        *,
+        config: Optional[EngineConfig] = None,
+        n_blocks: Optional[int] = None,
+        reorder_window: int = 32,
+        profiler: Optional[CostProfiler] = None,
+        device=None,
+        **legacy,
+    ):
+        # ``config=`` is the sole constructor API (serving/config.py).
+        # ``device``: None resolves to CUDA and raises without it; the CPU
+        # runs only when asked for (the tests).
+        reject_legacy_kwargs("ContinuousRuntime", legacy, EngineConfig)
+        config = config if config is not None else EngineConfig()
+        if cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                "recurrent-state families cannot be paged per-block")
+        if config.attn not in ("dense", "paged", "auto"):
+            raise ValueError(f"unknown attn mode {config.attn!r}")
+        if config.attn == "dense":
+            raise NotImplementedError(
+                "attn='dense' is not ported yet (ROADMAP.md Queue A item 5)")
+        if config.reuse == "chunk":
+            raise NotImplementedError(
+                "reuse='chunk' is not ported yet (ROADMAP.md Queue A item 5)")
+        if config.mode == "cag":
+            raise NotImplementedError(
+                "mode='cag' is not ported yet (ROADMAP.md Queue A item 5: "
+                "it needs the dense prefill)")
+        if config.mesh.tp > 1:
+            raise NotImplementedError(
+                "tensor parallelism is not ported yet (ROADMAP.md Queue A "
+                "item 9)")
+        self.device = resolve_device(device)
+        self.attn_impl = config.attn_impl
+        self.cfg = cfg
+        self.corpus = corpus
+        self.index = index
+        self.top_k = config.top_k
+        self.search_time_scale = config.search_time_scale
+        self.params = params
+        kv_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd
+                    * cfg.tdtype.itemsize)
+        if n_blocks is None:
+            n_blocks = int(np.clip(
+                config.gpu_cache_bytes // (config.block_size * kv_bytes) + 64,
+                128, 4096))
+        self.store = PagedKVStore(cfg.n_layers, n_blocks, config.block_size,
+                                  cfg.n_kv_heads, cfg.hd, dtype=cfg.tdtype,
+                                  device=self.device)
+        self._scratch_block = self.store.pool.alloc(1)[0]  # dummy-row sink
+        self.disk = make_disk_store(config.disk_cache_dir,
+                                    config.disk_cache_bytes)
+        self.tree = KnowledgeTree(
+            config.gpu_cache_bytes, config.host_cache_bytes,
+            config.disk_cache_bytes if self.disk is not None else 0,
+            policy=config.policy,
+            profiler=profiler or CostProfiler.from_fn(
+                lambda a, b: 1e-4 * b + 2e-8 * b * (a + b),
+                (0, 64, 256, 1024), (1, 32, 128, 512, 1024)),
+            backend=PagedBackend(self.store, self.disk),
+            bytes_per_token=max(kv_bytes, 1),
+        )
+        self.controller = RAGController(self.tree)
+        self.spec_ctl = SpeculativeController(config.max_prefill_bs,
+                                              enabled=config.speculative)
+        self.max_new_tokens = 4       # refined per serve()
+        self.admission = PagedAdmission(self.store.pool, self.tree,
+                                        decode_reserve=self.max_new_tokens)
+        self.sched: ContinuousBatchScheduler[_Job] = ContinuousBatchScheduler(
+            SchedulerConfig(max_batch=config.max_batch,
+                            max_prefill_bs=config.max_prefill_bs,
+                            reorder=config.reorder,
+                            reorder_window=reorder_window,
+                            prefill_chunk=config.prefill_chunk,
+                            max_prefill_tokens=config.max_prefill_tokens),
+            viable=self._job_viable, admit=self._job_admissible)
+        self.metrics = ServingMetrics()
+        self.metrics.prefill_token_budget = config.max_prefill_tokens
+        self._partial_jobs: List[_Job] = []   # jobs with live chunk state
+        self._n_slots = 0
+        self._n_tbl = 0               # run-table width
+        # event loop
+        self.now = 0.0
+        self._events: List = []
+        self._seq = itertools.count()
+        self.engine_busy = False
+        self.running: List[_ReqRun] = []   # decode-stage requests, FIFO
+        self._force_decode = False         # progress guard after a
+                                           # pagination failure (see below)
+        self._all: List[_ReqRun] = []
+
+    # ------------------------------------------------------------------
+    # scheduler callbacks
+    # ------------------------------------------------------------------
+
+    def _job_viable(self, job: _Job) -> bool:
+        return not job.cancelled and job.req.state == WAITING
+
+    def _job_ctx_beta(self, job: _Job) -> Tuple[int, int, int]:
+        """(context, beta, promote) token counts for one job: full sequence,
+        to-be-computed tokens, and hit-prefix tokens NOT resident in GPU —
+        a pinned path on host/disk still consumes GPU pin budget when the
+        prefill promotes it (the admission check must see that)."""
+        ctx = (sum(int(self.corpus.doc_lengths[d]) for d in job.docs)
+               + len(job.req.r.question_tokens))
+        hit = self.tree.match_prefix(job.docs)
+        cached = sum(n.n_tokens for n in hit)
+        promote = sum(n.n_tokens for n in hit if not n.in_gpu)
+        return ctx, max(ctx - cached, 1), promote
+
+    def _job_admissible(self, job: _Job) -> bool:
+        ctx, beta, promote = self._job_ctx_beta(job)
+        return self.admission.admissible(ctx, beta, promote)
+
+    def _job_lens(self, job: _Job) -> Tuple[int, int]:
+        ctx, beta, _ = self._job_ctx_beta(job)
+        return ctx - beta, beta
+
+    # ------------------------------------------------------------------
+    # event plumbing
+    # ------------------------------------------------------------------
+
+    def _push(self, t: float, kind: str, payload) -> None:
+        heapq.heappush(self._events, (t, next(self._seq), kind, payload))
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device, non_blocking=True)
+
+    # ------------------------------------------------------------------
+    # serve
+    # ------------------------------------------------------------------
+
+    def serve(self, requests: Sequence[Request],
+              max_new_tokens: int = 4) -> List[RuntimeResult]:
+        self.max_new_tokens = max_new_tokens
+        self.admission.decode_reserve = max_new_tokens
+        max_doc = int(max(self.corpus.doc_lengths))
+        max_q = max((len(r.question_tokens) for r in requests), default=8)
+        max_ctx = self.top_k * max_doc + max_q + max_new_tokens
+        n_slots = self.store.pool.blocks_for_tokens(max_ctx) + 1
+        if n_slots > self.store.pool.n_blocks - 1:
+            raise ValueError(
+                f"paged pool too small: a worst-case request needs "
+                f"{n_slots - 1} blocks but the pool has "
+                f"{self.store.pool.n_blocks - 1} usable; raise n_blocks or "
+                f"lower top_k/doc length")
+        if n_slots != self._n_slots:
+            self._n_slots = n_slots
+            # runs, not a contiguous span: every segment of the slot mapping
+            # (<= top_k shared docs + 1 private) may end mid-block, wasting
+            # at most one table entry each
+            self._n_tbl = n_slots + self.top_k + 1
+            self._warm_up_decode()
+        first = len(self._all)
+        for r in requests:
+            self._push(max(r.arrival, self.now), "arrival", r)
+        while self._events:
+            self.now, _, kind, payload = heapq.heappop(self._events)
+            getattr(self, f"_on_{kind}")(payload)
+        unserved = [st.r.req_id for st in self._all[first:]
+                    if st.state != FINISHED]
+        if unserved:
+            raise RuntimeError(
+                f"requests {unserved} were never served (admission-starved "
+                f"to the end of the event loop — pool or tree budget too "
+                f"small for the workload)")
+        out = []
+        for st in self._all[first:]:
+            out.append(RuntimeResult(
+                req_id=st.r.req_id, tokens=list(st.tokens), ttft=st.tl.ttft,
+                docs=st.final_docs or (), alpha=st.tl.alpha, beta=st.tl.beta,
+                speculative_hit=st.tl.speculative_hit,
+                first_logits=st.first_logits))
+        out.sort(key=lambda x: x.req_id)
+        return out
+
+    # ------------------------------------------------------------------
+    # arrivals & staged retrieval (host-CPU lanes, one per request)
+    # ------------------------------------------------------------------
+
+    def _on_arrival(self, r: Request) -> None:
+        tl = self.metrics.timeline(next(self._seq), self.now)
+        tl.req_id = r.req_id
+        tl.search_start = self.now
+        st = _ReqRun(r=r, tl=tl, spec=SpecState(r.req_id),
+                     remaining=self.max_new_tokens)
+        self._all.append(st)
+        # per-request top_k override (Request.top_k > 0) only ever LOWERS
+        # the depth, so the serve()-time max_ctx sizing stays an upper bound
+        k = min(r.top_k, self.top_k) if r.top_k > 0 else self.top_k
+        # materialize stages, measuring the real scan cost of each stage;
+        # the per-request search lane advances by max(measured, analytic)
+        t = self.now
+        it = iter(self.index.staged_search(r.query_vec, k))
+        while True:
+            t0 = time.perf_counter()
+            try:
+                stage = next(it)
+            except StopIteration:
+                break
+            wall = time.perf_counter() - t0
+            t += max(wall, stage.seconds) * self.search_time_scale
+            self._push(t, "stage", (st, stage))
+
+    def _on_stage(self, payload) -> None:
+        st, stage = payload
+        self.metrics.retrieval_stages += 1
+        docs = tuple(stage.topk)
+        if stage.is_final:
+            st.tl.search_end = self.now
+            st.final_docs = docs
+        action, d = self.spec_ctl.on_stage(
+            st.spec, docs, self.sched.pool_size(), is_final=stage.is_final)
+        if action in ("terminate_and_launch", "terminate"):
+            for job in st.jobs:
+                if not job.cancelled and job.docs != docs:
+                    job.cancelled = True
+        if action in ("launch", "terminate_and_launch"):
+            job = _Job(req=st, docs=d, speculative=not stage.is_final,
+                       enqueued=self.now)
+            st.jobs.append(job)
+            cached, compute = self._job_lens(job)
+            self.sched.submit(job, cached, compute)
+            self._prefetch_disk(d)
+            if not stage.is_final:
+                self.metrics.spec_prefills += 1
+        if stage.is_final:
+            if st.tl.queue_enter < 0:
+                st.tl.queue_enter = self.now
+            self._maybe_finalize(st)
+        self._engine_kick()
+
+    def _prefetch_disk(self, docs: Tuple[int, ...]) -> None:
+        """Overlap disk reads with the remaining retrieval stages: as soon
+        as a stage's top-k is known, stage any disk-only node of the matched
+        prefix into host memory.  Host I/O runs concurrently with the
+        device, so it does not advance the engine clock."""
+        if self.disk is None:
+            return
+        hit = self.tree.match_prefix(docs)
+        pinned = set(hit)   # staging node k must not re-spill node k-1
+        for n in hit:
+            if n.in_disk and not n.in_host and not n.in_gpu:
+                before = self.tree.stats["fetch_bytes"]
+                self.tree.fetch_to_host(n, pinned=pinned)
+                moved = self.tree.stats["fetch_bytes"] - before
+                if moved:
+                    self.metrics.disk_prefetches += 1
+                    self.metrics.disk_prefetch_bytes += moved
+
+    def _maybe_finalize(self, st: _ReqRun) -> None:
+        """Search done: if a prefill for the final docs already completed,
+        the speculation paid off — emit the first token now."""
+        if st.tl.first_token >= 0 or st.state != WAITING:
+            return
+        res = st.results.get(st.final_docs)
+        if res is not None:
+            self._first_token(st, res, max(self.now, st.tl.search_end))
+
+    # ------------------------------------------------------------------
+    # engine loop
+    # ------------------------------------------------------------------
+
+    def _engine_kick(self) -> None:
+        while not self.engine_busy:
+            self._sweep_stale_partials()
+            self.admission.invalidate()   # fresh resource snapshot per kick
+            if self._force_decode and self.running:
+                # a pagination just failed on shared-block pressure: run one
+                # decode iteration first so running requests make progress
+                # toward releasing their tables (livelock guard)
+                self._force_decode = False
+                self._start_decode()
+                return
+            self._force_decode = False
+            act = self.sched.next_action(len(self.running),
+                                         refresh=self._job_lens)
+            if act.kind == PREFILL:
+                self._start_prefill_batch(act.chunks)
+                return
+            if act.kind == DECODE:
+                self._start_decode()
+                return
+            if act.kind == PREEMPT:
+                self._preempt_one()
+                continue               # resources freed; re-evaluate
+            return                     # IDLE
+
+    def _sweep_stale_partials(self) -> None:
+        """Chunk-boundary cancellation: any in-flight chunked prefill whose
+        job went stale (terminated speculation, finished request) is aborted
+        here — partial KV freed, hit nodes unpinned."""
+        for job in [j for j in self._partial_jobs
+                    if not self._job_viable(j)]:
+            self._abort_chunked(job)
+
+    def _preempt_one(self) -> None:
+        """Free the youngest running request and send it back to prefill
+        (vLLM-style recompute preemption)."""
+        victim = max(self.running, key=lambda s: s.tl.first_token)
+        self.running.remove(victim)
+        self._release_table(victim)
+        victim.state = WAITING
+        victim.tokens = []
+        victim.remaining = self.max_new_tokens
+        stale_res = victim.results.pop(victim.final_docs, None)
+        if stale_res is not None:
+            self._free_paged_kv(stale_res)
+        victim.tl.first_token = -1.0    # recompute re-emits the first token
+        victim.tl.token_times = []
+        victim.tl.preemptions += 1
+        self.metrics.preemptions += 1
+        job = _Job(req=victim, docs=victim.final_docs, speculative=False,
+                   enqueued=self.now)
+        victim.jobs.append(job)
+        cached, compute = self._job_lens(job)
+        self.sched.submit(job, cached, compute)
+
+    # ---- chunked + batched paged prefill -------------------------------
+
+    def _start_prefill_batch(self, chunks) -> None:
+        """One engine iteration: execute the next chunk of every job the
+        scheduler packed, as ONE ragged batched paged-prefill call.  Real
+        compute is measured (ending in a device synchronise) and billed as
+        one iteration on the virtual clock."""
+        self.engine_busy = True
+        t0 = time.perf_counter()
+        outcomes = []                  # (job, finished)
+        executed = 0
+        rows = []
+        for ch in chunks:
+            job = ch.item
+            if not self._job_viable(job):
+                # went stale in this very event-loop instant; nothing ran
+                if job.cs is not None:
+                    self._abort_chunked(job)
+                else:
+                    self.sched.abort_prefill(job)
+                continue
+            if job.cs is None:
+                self._begin_chunked(job)
+            row = self._prep_paged_chunk(job)
+            if row is None:
+                continue               # OutOfBlocks: job aborted + requeued
+            rows.append(row)
+            executed += row[-1]
+            outcomes.append((job, not job.cs.pieces))
+        if rows:
+            self._run_paged_rows(rows)
+        dt = time.perf_counter() - t0
+        if outcomes:
+            self.metrics.record_iteration("prefill", 1)
+            self.metrics.record_prefill_batch(len(outcomes), executed)
+        self._push(self.now + dt, "prefill_batch_done", outcomes)
+
+    def _begin_chunked(self, job: _Job) -> None:
+        """First chunk: plan the request, promote the hit prefix, snapshot
+        its page runs (refcount-shared; the nodes stay pinned until commit)
+        and open one empty segment per to-compute segment."""
+        st = job.req
+        job.started = self.now
+        st.start_by_docs.setdefault(job.docs, self.now)
+        doc_tokens = [int(self.corpus.doc_lengths[d]) for d in job.docs]
+        plan = self.controller.plan(job.docs, doc_tokens,
+                                    len(st.r.question_tokens))
+        self.controller.promote(plan)   # host->device pull
+        segs = [np.asarray(self.corpus.doc_tokens[job.docs[i]])
+                for i in range(len(plan.hit_nodes), len(job.docs))]
+        bounds, start = [], plan.alpha
+        for s in segs:
+            bounds.append((start, len(s)))
+            start += len(s)
+        segs.append(np.asarray(st.r.question_tokens))
+        pieces = prefill_piece_sizes([len(s) for s in segs],
+                                     self.sched.config.prefill_chunk)
+        if not pieces:
+            raise ValueError(
+                f"request {st.r.req_id}: nothing to prefill (empty question "
+                f"and fully cached documents) — no logits can be produced")
+        hit_runs, layout, plen = [], [], 0
+        for node in plan.hit_nodes:
+            seg = node.payload_gpu
+            self.store.share(seg)
+            layout.append(("run", len(hit_runs), plen))
+            hit_runs.append((list(seg.blocks), seg.n_tokens))
+            plen += seg.n_tokens
+        seg_abs, pos = [], plen
+        for i, s in enumerate(segs):
+            seg_abs.append(pos)
+            layout.append(("seg", i, pos))
+            pos += len(s)
+        job.cs = _ChunkState(plan=plan, segs=segs, doc_bounds=bounds,
+                             pieces=pieces, plen=plen)
+        job.cs.hit_runs = hit_runs
+        job.cs.layout = layout
+        job.cs.seg_abs = seg_abs
+        job.cs.pg_segs = [PagedSegment(self.store, [], 0) for _ in segs]
+        self._partial_jobs.append(job)
+
+    def _prep_paged_chunk(self, job: _Job):
+        """Allocate pages for the next piece of ``job`` and build its row of
+        the ragged batch: chunk tokens, their (block, slot) write coords,
+        and the run table covering cached prefix + everything computed so
+        far INCLUDING this chunk (causal masking over absolute positions
+        keeps row i from seeing slots past it).  Returns None if the pool
+        cannot hold the piece (job aborted + requeued in place)."""
+        cs = job.cs
+        n = cs.pieces.pop(0)
+        while cs.seg_idx < len(cs.segs) and \
+                cs.seg_off >= len(cs.segs[cs.seg_idx]):
+            cs.seg_idx += 1          # skip empty segments before anchoring
+            cs.seg_off = 0
+        q_start = cs.seg_abs[cs.seg_idx] + cs.seg_off
+        toks = np.zeros(n, np.int32)
+        wblk = np.full(n, self._scratch_block, np.int32)
+        wslot = np.zeros(n, np.int32)
+        off, left = 0, n
+        while left > 0:
+            seg = cs.segs[cs.seg_idx]
+            pg = cs.pg_segs[cs.seg_idx]
+            take = min(left, len(seg) - cs.seg_off)
+            need = (self.store.pool.blocks_for_tokens(pg.n_tokens + take)
+                    - len(pg.blocks))
+            if need > 0 and not self._reclaim_blocks(need):
+                self._abort_chunked(job, requeue=True)
+                return None
+            try:
+                blk, slot = self.store.extend_alloc(pg, take)
+            except OutOfBlocks:
+                self._abort_chunked(job, requeue=True)
+                return None
+            toks[off:off + take] = seg[cs.seg_off:cs.seg_off + take]
+            wblk[off:off + take] = blk
+            wslot[off:off + take] = slot
+            cs.seg_off += take
+            off += take
+            left -= take
+            while cs.seg_idx < len(cs.segs) and \
+                    cs.seg_off >= len(cs.segs[cs.seg_idx]):
+                cs.seg_idx += 1
+                cs.seg_off = 0
+        cs.plen += n
+        tables, counts, starts = self._paged_chunk_row(cs)
+        return (job, toks, wblk, wslot, q_start, tables, counts, starts, n)
+
+    def _paged_chunk_row(self, cs: _ChunkState):
+        """Run-table row over the ordered sequence layout, same contract as
+        decode (kernels/paged_attention.py): every entry starts at slot 0 of
+        a fresh block, so runs are exactly the per-block spans, each with
+        its true absolute start."""
+        T = self._n_tbl
+        bs = self.store.block_size
+        tables = np.full(T, self._scratch_block, np.int32)
+        counts = np.zeros(T, np.int32)
+        starts = np.zeros(T, np.int32)
+        j = 0
+        for kind, idx, abs0 in cs.layout:
+            if kind == "run":
+                blocks, ntok = cs.hit_runs[idx]
+            else:
+                pg = cs.pg_segs[idx]
+                blocks, ntok = pg.blocks, pg.n_tokens
+            for bi, blk in enumerate(blocks):
+                c = min(bs, ntok - bi * bs)
+                if c <= 0:
+                    break
+                tables[j] = blk
+                counts[j] = c
+                starts[j] = abs0 + bi * bs
+                j += 1
+        assert j <= T, (j, T)
+        return tables, counts, starts
+
+    def _run_paged_rows(self, rows) -> None:
+        """Execute one ragged batched paged-prefill iteration.  Rows pad to
+        ``max_prefill_bs`` and chunk lengths to a power-of-two bucket (>= 8),
+        the shapes a captured CUDA graph could replay; padding rows/tokens
+        write into the scratch block and are fully masked (q_len), so every
+        real row's output is independent of what shares the batch."""
+        B = max(self.sched.config.max_prefill_bs, len(rows))
+        Sq = max(8, 1 << (max(r[-1] for r in rows) - 1).bit_length())
+        T = self._n_tbl
+        toks = np.zeros((B, Sq), np.int32)
+        wblk = np.full((B, Sq), self._scratch_block, np.int32)
+        wslot = np.zeros((B, Sq), np.int32)
+        tables = np.full((B, T), self._scratch_block, np.int32)
+        counts = np.zeros((B, T), np.int32)
+        starts = np.zeros((B, T), np.int32)
+        q_start = np.zeros((B,), np.int32)
+        q_len = np.zeros((B,), np.int32)
+        for i, (job, t, wb, ws, qs, tb, cn, st_, n) in enumerate(rows):
+            toks[i, :n] = t
+            wblk[i, :n] = wb
+            wslot[i, :n] = ws
+            tables[i] = tb
+            counts[i] = cn
+            starts[i] = st_
+            q_start[i] = qs
+            q_len[i] = n
+        logits = M.paged_prefill_step(
+            self.cfg, self.params, self._tensor(toks), self.store.k,
+            self.store.v, self._tensor(tables), self._tensor(counts),
+            self._tensor(starts), self._tensor(q_start), self._tensor(q_len),
+            self._tensor(wblk), self._tensor(wslot), attn_impl=self.attn_impl)
+        last = logits[:len(rows), -1]                       # (n_rows, V)
+        first = last.argmax(dim=-1).cpu().numpy()
+        host = last.cpu().numpy()
+        sync(self.device)
+        for i, row in enumerate(rows):
+            row[0].cs.first_token = int(first[i])
+            row[0].cs.logits = host[i]
+
+    def _on_prefill_batch_done(self, payload) -> None:
+        self.engine_busy = False
+        for job, finished in payload:
+            st = job.req
+            cs = job.cs
+            if cs is None:
+                continue               # aborted mid-iteration (requeue path)
+            stale = job.cancelled or st.state != WAITING
+            if not finished:
+                if stale:
+                    self._abort_chunked(job)
+                else:
+                    self.sched.note_chunk_done(job, cs.pieces)
+                continue
+            # prefill complete
+            self.sched.note_chunk_done(job, [])
+            pg_segs, hit_runs = cs.pg_segs, cs.hit_runs
+            if not stale:
+                # ownership of the paged state moves to the result BEFORE
+                # _drop_chunk_state (which frees whatever is still attached)
+                cs.pg_segs, cs.hit_runs = [], []
+            self._drop_chunk_state(job)
+            if stale:
+                for n in cs.plan.hit_nodes:   # unpin without committing
+                    n.pinned = False
+                self.metrics.wasted_prefills += 1
+                continue
+            res = _PrefillResult(
+                docs=job.docs, first_token=cs.first_token,
+                total_len=cs.plen,
+                alpha=cs.plan.alpha, beta=cs.plan.beta,
+                hit_docs=cs.plan.hit_docs,
+                hit_tier_tokens=cs.plan.hit_tier_tokens,
+                speculative=job.speculative, started=job.started,
+                hit_runs=hit_runs, pg_segs=pg_segs,
+                layout=list(cs.layout), first_logits=cs.logits)
+            self._commit_paged(cs.plan, pg_segs[:len(cs.doc_bounds)])
+            st.results[job.docs] = res
+            if st.final_docs is not None and job.docs == st.final_docs:
+                self._first_token(st, res, max(self.now, st.tl.search_end))
+        self._engine_kick()
+
+    def _drop_chunk_state(self, job: _Job) -> None:
+        cs = job.cs
+        if cs is not None:
+            self._free_paged_kv(cs)
+        job.cs = None
+        if job in self._partial_jobs:
+            self._partial_jobs.remove(job)
+
+    def _free_paged_kv(self, holder) -> None:
+        """Drop a _ChunkState's or _PrefillResult's paged KV references:
+        release the shared hit runs (one incref each) and free the owned
+        segments.  No-op once ownership has transferred (lists emptied)."""
+        for blocks, _ in holder.hit_runs:
+            self.store.release(blocks)
+        holder.hit_runs = []
+        for pg in holder.pg_segs:
+            if pg.blocks:
+                self.store.free(pg)
+        holder.pg_segs = []
+
+    def _abort_chunked(self, job: _Job, requeue: bool = False) -> None:
+        """Mid-prefill cancellation: free the partial KV, unpin the hit
+        prefix, and account the chunk tokens that were never computed."""
+        cs = job.cs
+        saved = sum(cs.pieces) if cs is not None else 0
+        if cs is not None:
+            for n in cs.plan.hit_nodes:
+                n.pinned = False
+        self._drop_chunk_state(job)
+        self.sched.abort_prefill(job)
+        if not requeue:
+            # a requeued job recomputes everything later — only genuine
+            # cancellations (stale speculation / finished request) save work
+            self.metrics.record_chunk_cancel(saved)
+        if requeue:
+            # paged-pool pressure, not staleness: recompute later — force a
+            # decode iteration first so running requests free blocks
+            job.cancelled = True
+            self._force_decode = True
+            redo = _Job(req=job.req, docs=job.docs,
+                        speculative=job.speculative, enqueued=self.now)
+            job.req.jobs.append(redo)
+            cached, compute = self._job_lens(redo)
+            self.sched.submit(redo, cached, compute)
+
+    def _commit_paged(self, plan, doc_segs) -> None:
+        """The per-doc KV already lives in pool blocks (the prefill step
+        scattered it in place), so committing is pure refcounting — share
+        each segment to mint the tree's independent reference, then drop it
+        again for every segment the tree declined (duplicate doc path or
+        insert stopped early)."""
+        for seg in doc_segs:
+            self.store.share(seg)
+        inserted = self.controller.commit(
+            plan, list(doc_segs), max_docs=len(plan.hit_nodes) + len(doc_segs))
+        kept = {id(n.payload_gpu) for n in inserted}
+        for seg in doc_segs:
+            if id(seg) not in kept:
+                self.store.release(seg.blocks)
+
+    def _reclaim_blocks(self, needed: int) -> bool:
+        """Evict unpinned tree leaves (PGDSF order, shared Alg. 1 loop)
+        until the pool has ``needed`` free blocks."""
+        try:
+            self.tree.evict_gpu_until(
+                lambda: self.store.pool.free_blocks >= needed)
+            return True
+        except EvictionError:
+            return False
+
+    # ---- first token & decode admission --------------------------------
+
+    def _first_token(self, st: _ReqRun, res: _PrefillResult, t: float) -> None:
+        tl = st.tl
+        tl.first_token = t
+        tl.prefill_end = t
+        tl.alpha, tl.beta = res.alpha, res.beta
+        tl.hit_docs = res.hit_docs
+        (tl.hit_tokens_gpu, tl.hit_tokens_host,
+         tl.hit_tokens_disk) = res.hit_tier_tokens
+        tl.n_docs = len(res.docs)
+        tl.docs = res.docs
+        tl.speculative_hit = res.speculative or res.started < tl.search_end
+        start = st.start_by_docs.get(res.docs)
+        if start is not None:
+            tl.final_prefill_start = start
+        st.tokens = [res.first_token]
+        st.first_logits = res.first_logits
+        st.remaining = self.max_new_tokens - 1
+        for job in st.jobs:            # any other pending work is now moot
+            if not job.cancelled and job.docs != res.docs:
+                job.cancelled = True
+        if st.remaining <= 0:
+            self._finish(st, t)
+            return
+        if not self._paginate(st, res):
+            # pool pressure raced us between admission and join: retry later
+            self._requeue_after_pagination_failure(st)
+            return
+        st.state = RUNNING
+        st.last_tok = res.first_token
+        self.running.append(st)
+
+    def _requeue_after_pagination_failure(self, st: _ReqRun) -> None:
+        res = st.results.pop(st.final_docs, None)
+        if res is not None:
+            self._free_paged_kv(res)
+        st.tokens = []
+        st.tl.first_token = -1.0       # not actually servable yet
+        self._force_decode = True      # guarantee decode progress before
+                                       # this job can be re-popped
+        job = _Job(req=st, docs=st.final_docs, speculative=False,
+                   enqueued=self.now)
+        st.jobs.append(job)
+        cached, compute = self._job_lens(job)
+        self.sched.submit(job, cached, compute)
+
+    def _paginate(self, st: _ReqRun, res: _PrefillResult) -> bool:
+        """Build the request's decode slot mapping: every token already sits
+        in a pool block — the cached prefix in the shared hit runs, the rest
+        in the result's owned segments — so this is pure bookkeeping plus
+        one allocation-only extension of the question segment for the
+        decode reserve.  On success the result's references transfer
+        wholesale to ``st.owned_blocks`` (lists emptied); on failure ``res``
+        is left untouched for the requeue path to free."""
+        bs = self.store.block_size
+        qseg = res.pg_segs[-1]
+        need = (self.store.pool.blocks_for_tokens(qseg.n_tokens + st.remaining)
+                - len(qseg.blocks))
+        if need > 0 and not self._reclaim_blocks(need):
+            return False
+        try:
+            self.store.extend_alloc(qseg, st.remaining)
+        except OutOfBlocks:
+            return False
+        pos_blk: List[int] = []
+        pos_slot: List[int] = []
+        shared: List[int] = []
+        owned: List[int] = []
+        # the layout lists entries in absolute position order, so appending
+        # yields the position -> (block, slot) mapping
+        for kind, idx, _ in res.layout:
+            if kind == "run":
+                blocks, n_tokens = res.hit_runs[idx]
+                for i in range(n_tokens):
+                    pos_blk.append(blocks[i // bs])
+                    pos_slot.append(i % bs)
+                shared.extend(blocks)
+            else:
+                pg = res.pg_segs[idx]
+                for i in range(pg.n_tokens):
+                    pos_blk.append(pg.blocks[i // bs])
+                    pos_slot.append(i % bs)
+                owned.extend(pg.blocks)
+        st.pos_blk, st.pos_slot = pos_blk, pos_slot
+        st.owned_blocks = shared + owned
+        st.length = res.total_len
+        self.metrics.blocks_shared += len(shared)
+        self.metrics.blocks_copied += len(owned)
+        res.pg_segs, res.hit_runs = [], []    # ownership moved to the table
+        return True
+
+    def _release_table(self, st: _ReqRun) -> None:
+        if st.owned_blocks:
+            self.store.release(st.owned_blocks)
+        st.pos_blk, st.pos_slot, st.owned_blocks = [], [], []
+        st.length = 0
+
+    # ---- batched paged decode ------------------------------------------
+
+    def _warm_up_decode(self) -> None:
+        """Run the single decode shape once before serving (dummy rows
+        decode token 0 into the scratch block, exactly like a padding row),
+        so one-time device set-up never lands on the serving clock."""
+        self._decode(self._paged_decode_args([]))
+
+    def _decode(self, args) -> np.ndarray:
+        toks, tables, counts, starts, pos, write_blk, write_slot = args
+        logits = M.paged_decode_step(
+            self.cfg, self.params, toks, self.store.k, self.store.v, tables,
+            counts, starts, write_blk, write_slot, pos,
+            attn_impl=self.attn_impl)
+        next_toks = logits[:, -1].argmax(dim=-1).cpu().numpy()
+        sync(self.device)
+        return next_toks
+
+    def _paged_decode_args(self, batch):
+        """Pack the run tables for one paged decode iteration.  Contract
+        (kernels/paged_attention.py): the slot mapping is a list of runs,
+        each starting at slot 0 of its block — run boundaries are exactly
+        the positions with pos_slot == 0."""
+        B = self.sched.config.max_batch
+        T = self._n_tbl
+        toks = np.zeros((B, 1), np.int32)
+        tables = np.full((B, T), self._scratch_block, np.int32)
+        counts = np.zeros((B, T), np.int32)
+        starts = np.zeros((B, T), np.int32)
+        pos = np.ones((B,), np.int32)
+        write_blk = np.full((B,), self._scratch_block, np.int32)
+        write_slot = np.zeros((B,), np.int32)
+        counts[:, 0] = 1               # dummy rows attend their scratch write
+        for i, st in enumerate(batch):
+            n = st.length + 1          # incl. the token decoded this step
+            blk = np.asarray(st.pos_blk[:n], np.int32)
+            slot = np.asarray(st.pos_slot[:n], np.int32)
+            run = np.flatnonzero(slot == 0)
+            assert len(run) <= T, (len(run), T)
+            counts[i] = 0
+            tables[i, :len(run)] = blk[run]
+            counts[i, :len(run)] = np.diff(np.append(run, n))
+            starts[i, :len(run)] = run
+            pos[i] = n
+            toks[i, 0] = st.last_tok
+            write_blk[i] = st.pos_blk[st.length]
+            write_slot[i] = st.pos_slot[st.length]
+        return tuple(self._tensor(a) for a in (toks, tables, counts, starts,
+                                               pos, write_blk, write_slot))
+
+    def _start_decode(self) -> None:
+        batch = self.running[:self.sched.config.max_batch]
+        self.engine_busy = True
+        self.metrics.record_iteration("decode", len(batch))
+        t0 = time.perf_counter()
+        next_toks = self._decode(self._paged_decode_args(batch))
+        dt = time.perf_counter() - t0
+        self._push(self.now + dt, "decode_done",
+                   (batch, [int(t) for t in next_toks[:len(batch)]]))
+
+    def _on_decode_done(self, payload) -> None:
+        batch, toks = payload
+        self.engine_busy = False
+        for st, tok in zip(batch, toks):
+            if st.state != RUNNING:     # preempted meanwhile
+                continue
+            st.tokens.append(tok)
+            st.last_tok = tok
+            st.length += 1
+            st.remaining -= 1
+            st.tl.token_times.append(self.now)
+            if st.remaining <= 0:
+                self.running.remove(st)
+                self._release_table(st)
+                self._finish(st, self.now)
+        self._engine_kick()
+
+    def _finish(self, st: _ReqRun, t: float) -> None:
+        st.state = FINISHED
+        st.tl.finish = t
+        st.tl.tokens = list(st.tokens)
+        for job in st.jobs:
+            job.cancelled = True
+        # drop the prefill results (incl. wasted speculations) — the paged
+        # store/tree is the only KV owner after a request completes; paged
+        # results still hold refcounts that must be returned to the pool
+        for res in st.results.values():
+            self._free_paged_kv(res)
+        st.results = {}
+        st.jobs = []

@@ -1,0 +1,102 @@
+"""The PyTorch port stands alone: it imports neither jax nor any module of
+``repro``, and its host-side copies have not drifted from their originals.
+
+The drift guard compares each copied module's code with its original's:
+the syntax trees, once import lines are normalised (``repro_torch.`` ->
+``repro.``) and docstrings dropped (comments never reach the tree), must
+be equal.  Docstrings and comments may speak for the port; every
+statement must match.  A repair to one side must be made to both; this
+test fails until it is.
+"""
+import ast
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+ORIG = REPO / "src" / "repro"
+
+# modules the port copies (imports rewritten; docstrings may differ)
+VERBATIM = [
+    "core/profiler.py",
+    "core/knowledge_tree.py",
+    "core/controller.py",
+    "core/reorder.py",
+    "core/speculative.py",
+    "serving/config.py",
+    "serving/scheduler.py",
+    "serving/metrics.py",
+    "retrieval/corpus.py",
+]
+
+JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M)
+REPRO_IMPORT = re.compile(r"^\s*(import|from)\s+repro(\.|\s|$)", re.M)
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_import_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or "
+        "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
+        "print(len(sys.modules))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_or_repro_import_in_source(path):
+    src = (REPO / path).read_text()
+    assert not JAX_IMPORT.search(src), f"{path} imports jax"
+    assert not REPRO_IMPORT.search(src), f"{path} imports the JAX package"
+
+
+def _code(text: str) -> str:
+    """The module's syntax tree without docstrings, imports normalised."""
+    text = re.sub(r"^(\s*(?:from|import)\s+)repro_torch\.", r"\1repro.",
+                  text, flags=re.M)
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and body \
+                and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_host_copy_matches_original(rel):
+    """Drift guard: a fix on either side must land on both."""
+    port = _code((PORT / rel).read_text())
+    orig = _code((ORIG / rel).read_text())
+    assert port == orig, (
+        f"src/repro_torch/{rel} drifted from src/repro/{rel}; apply the "
+        f"same change to both copies")
