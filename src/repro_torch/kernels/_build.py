@@ -23,16 +23,20 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("paged_decode", "paged_prefill")
+SOURCES = ("paged_decode", "paged_prefill", "prefix_attention")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # launcher signatures: pointers and the stream as c_void_p, ints as c_int,
-# the softcap and scale as c_float (see the extern "C" functions in csrc/)
+# the softcap and scale as c_float, element strides as c_longlong (see the
+# extern "C" functions in csrc/)
 ARGTYPES = {
     "paged_decode": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
     "paged_prefill": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
+    "prefix_attention": [_P] * 4 + [_I] * 8 + [_F, _F, _I] + [_L] * 12
+    + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,259 @@
+// Prefix-cached dense prefill attention over contiguous [prefix ‖ new] KV.
+//
+// Replaces the TPU kernel repro/kernels/prefix_attention.py::
+// prefix_flash_attention (body _kernel, grid (B, H, nq, nk), block_q =
+// block_k = 128).
+//
+// q holds the Sq new tokens of each sequence; k/v hold Skv = prefix_len +
+// Sq keys, the cached prefix followed by the new tokens.  Query row i sits
+// at absolute position prefix_len + i and sees keys at positions <= its
+// own and, with a window w > 0, only keys at positions > qpos - w.  Order
+// of operations as in layers.flash_attention: scale, logit softcap, then
+// the masks, online max/sum in f32 (masked probabilities exactly 0), then
+// acc / max(l, 1e-30).  Every layout is taken through explicit element
+// strides (batch, sequence, head), so the model's (B, S, heads, hd)
+// activations are read in place; the last dimension must be contiguous.
+//
+// Bound on Hopper: operations for long sequences (4 * hd flops per visible
+// query-key pair against 2 * hd K/V elements per key).  Design: one CTA per
+// (b, kv_head, q-block) packs the R query heads that share a KV head with
+// BQ rows of the block — R * BQ <= 8192 / hd packed rows — and streams
+// BK-key tiles of K and V through shared memory, so each tile is read once
+// for all R heads (the TPU grid streams it R times).  Tiles start at
+// multiples of BK from key 0 whatever the block, and tiles wholly past the
+// block's causal frontier or wholly before every row's window are skipped:
+// they are fully masked, so skipping them leaves the result bit-identical,
+// and a row's result does not depend on which block or chunk it sits in.
+// Tiles wholly visible to every row of the block take an unmasked path
+// (the predicate of prefix_attention.py:79-81), which gives the same bits
+// as the masked path on such a tile.  Scores and the P @ V update run as
+// f32 FMAs on CUDA cores with per-thread register tiles; tensor-core mma /
+// wgmma and TMA are the next step.
+#include "common.cuh"
+
+namespace {
+
+constexpr int NT = 256;     // threads per CTA
+constexpr int MAXR = 16;    // query heads per KV head
+constexpr int BK = 64;      // keys per tile
+
+struct Strides {            // element strides: batch, sequence, head
+  long long b, s, h;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT) prefix_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out, int H, int KV, int Sq,
+    int Skv, int prefix_len, int window, float cap, float scale, int bq,
+    Strides qs, Strides ks, Strides vs, Strides os) {
+  constexpr int SS = Rows<T, HD>::STRIDE;
+  constexpr int CH = Rows<T, HD>::CHUNKS;
+  constexpr int MMAX = 8192 / HD;   // packed query rows per CTA
+  constexpr int TM = MMAX / 16;     // rows of a thread's register tile
+  constexpr int TD = HD / 16;       // head dims of a thread's register tile
+  const int qb = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int R = H / KV;
+  const int M = R * bq;             // live packed rows: m -> (m / bq, m % bq)
+  const int row0 = qb * bq;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);                   // MMAX x SS
+  T* k_s = q_s + MMAX * SS;                              // BK x SS
+  T* v_s = k_s + BK * SS;                                // BK x SS
+  float* s_s = reinterpret_cast<float*>(v_s + BK * SS);  // MMAX x BK
+  float* m_s = s_s + MMAX * BK;
+  float* l_s = m_s + MMAX;
+  float* a_s = l_s + MMAX;
+
+  // packed query rows: m -> head g*R + m / bq, row row0 + m % bq
+  for (int ci = tid; ci < M * CH; ci += NT) {
+    const int m = ci / CH, c = ci % CH;
+    const int r = m / bq, qi = row0 + m % bq;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (qi < Sq) {
+      const T* src = q + b * qs.b + qi * qs.s + (long long)(g * R + r) * qs.h;
+      val = __ldg(reinterpret_cast<const uint4*>(src) + c);
+    }
+    reinterpret_cast<uint4*>(q_s + m * SS)[c] = val;
+  }
+  if (tid < MMAX) {
+    m_s[tid] = PA_NEG_INF;
+    l_s[tid] = 0.f;
+  }
+  float acc[TM][TD];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int x = 0; x < TD; ++x) acc[i][x] = 0.f;
+  const int last = min(row0 + bq, Sq) - 1;   // last valid row of the block
+  const int qmin = prefix_len + row0, qmax = prefix_len + last;
+  // first tile holding a key inside the first row's window; keys past
+  // qmax are masked for every row of the block
+  int kstart = 0;
+  if (window > 0 && qmin - window + 1 > 0)
+    kstart = (qmin - window + 1) / BK * BK;
+  const int kend = min(Skv, qmax + 1);
+  const int tm = tid / 16, td = tid % 16;
+  const T* kb = k + b * ks.b + (long long)g * ks.h;
+  const T* vb = v + b * vs.b + (long long)g * vs.h;
+  __syncthreads();
+
+  for (int k0 = kstart; k0 < kend; k0 += BK) {
+    const int c = min(BK, kend - k0);
+    load_rows<T, HD>(k_s, kb + k0 * ks.s, ks.s, c, tid, NT);
+    load_rows<T, HD>(v_s, vb + k0 * vs.s, vs.s, c, tid, NT);
+    // every key of the tile visible to every row of the block
+    const bool full = k0 + c - 1 <= qmin &&
+                      (window <= 0 || k0 > qmax - window);
+    __syncthreads();
+
+    // scores of every (packed row, key) pair
+    for (int e = tid; e < M * c; e += NT) {
+      const int m = e / c, p = e % c;
+      float s = dot_rows<T, HD>(q_s + m * SS, k_s + p * SS) * scale;
+      if (cap > 0.f) s = cap * tanhf(s / cap);
+      s_s[m * BK + p] = s;
+    }
+    __syncthreads();
+
+    // online softmax update, one thread per packed row
+    if (tid < M) {
+      const int m = tid;
+      const int qpos = prefix_len + row0 + m % bq;
+      float* row = s_s + m * BK;
+      const float m_prev = m_s[m];
+      float mx = PA_NEG_INF, sum = 0.f;
+      if (full) {
+        for (int p = 0; p < c; ++p) mx = fmaxf(mx, row[p]);
+        const float m_new = fmaxf(m_prev, mx);
+        for (int p = 0; p < c; ++p) {
+          const float pr = expf(row[p] - m_new);
+          row[p] = pr;
+          sum += pr;
+        }
+        mx = m_new;
+      } else {
+        const bool row_ok = row0 + m % bq < Sq;
+        for (int p = 0; p < c; ++p) {
+          const int kpos = k0 + p;
+          const bool live = row_ok && kpos <= qpos &&
+                            (window <= 0 || kpos > qpos - window);
+          if (live) mx = fmaxf(mx, row[p]);
+        }
+        const float m_new = fmaxf(m_prev, mx);
+        for (int p = 0; p < c; ++p) {
+          const int kpos = k0 + p;
+          const bool live = row_ok && kpos <= qpos &&
+                            (window <= 0 || kpos > qpos - window);
+          const float pr = live ? expf(row[p] - m_new) : 0.f;
+          row[p] = pr;
+          sum += pr;
+        }
+        mx = m_new;
+      }
+      const float alpha = expf(m_prev - mx);
+      l_s[m] = l_s[m] * alpha + sum;
+      m_s[m] = mx;
+      a_s[m] = alpha;
+    }
+    __syncthreads();
+
+    // acc[m, d] = acc * alpha + sum_p p[m, p] * v[p, d] on the thread's
+    // TM x TD register tile (rows tm*TM.., dims td*TD..)
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = tm * TM + i;
+      const float a = m < M ? a_s[m] : 1.f;
+#pragma unroll
+      for (int x = 0; x < TD; ++x) acc[i][x] *= a;
+    }
+    for (int p = 0; p < c; ++p) {
+      float vf[TD];
+#pragma unroll
+      for (int x = 0; x < TD; ++x) vf[x] = to_f(v_s[p * SS + td * TD + x]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int m = tm * TM + i;
+        if (m < M) {
+          const float pm = s_s[m * BK + p];
+#pragma unroll
+          for (int x = 0; x < TD; ++x) acc[i][x] = fmaf(pm, vf[x], acc[i][x]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = tm * TM + i;
+    if (m >= M) continue;
+    const int r = m / bq, qi = row0 + m % bq;
+    if (qi >= Sq) continue;
+    const float inv = 1.f / fmaxf(l_s[m], 1e-30f);
+    T* dst = out + b * os.b + qi * os.s + (long long)(g * R + r) * os.h +
+             td * TD;
+#pragma unroll
+    for (int x = 0; x < TD; ++x) dst[x] = from_f<T>(acc[i][x] * inv);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int H, int KV, int Sq, int Skv, int prefix_len,
+                   int window, float cap, float scale, Strides qs, Strides ks,
+                   Strides vs, Strides os, cudaStream_t stream) {
+  constexpr int SS = Rows<T, HD>::STRIDE;
+  constexpr int MMAX = 8192 / HD;
+  const int R = H / KV;
+  const int bq = MMAX / R;
+  const size_t smem = align16((size_t)(MMAX + 2 * BK) * SS * sizeof(T)) +
+                      (size_t)(MMAX * BK + 3 * MMAX) * sizeof(float);
+  auto kern = prefix_attention_kernel<T, HD>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((Sq + bq - 1) / bq, KV, B);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Skv,
+      prefix_len, window, cap, scale, bq, qs, ks, vs, os);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" cudaError_t prefix_attention_launch(
+    const void* q, const void* k, const void* v, void* out, int B, int H,
+    int KV, int Sq, int Skv, int hd, int prefix_len, int window, float cap,
+    float scale, int is_bf16, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+    long long o_sh, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (KV <= 0 || H % KV != 0 || H / KV > MAXR || Sq <= 0 || prefix_len < 0 ||
+      Skv != prefix_len + Sq || B <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+      vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
+#define PA_ARGS q, k, v, out, B, H, KV, Sq, Skv, prefix_len, window, cap, \
+                scale, qs, ks, vs, os, s
+  if (is_bf16) {
+    if (hd == 64) return launch<__nv_bfloat16, 64>(PA_ARGS);
+    if (hd == 128) return launch<__nv_bfloat16, 128>(PA_ARGS);
+  } else {
+    if (hd == 64) return launch<float, 64>(PA_ARGS);
+    if (hd == 128) return launch<float, 128>(PA_ARGS);
+  }
+#undef PA_ARGS
+  return cudaErrorInvalidValue;
+}
+
+extern "C" const char* prefix_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

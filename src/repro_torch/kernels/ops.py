@@ -1,4 +1,4 @@
-"""Dispatch for the paged attention kernels (counterpart of
+"""Dispatch for the attention kernels (counterpart of
 ``repro.kernels.ops``).
 
   impl=None    -> the CUDA kernel for a CUDA tensor, the plain PyTorch
@@ -13,17 +13,30 @@ from __future__ import annotations
 
 from repro_torch.kernels import paged_attention as _pg
 from repro_torch.kernels import paged_prefill as _pp
+from repro_torch.kernels import prefix_attention as _pa
 
 
 def _resolve(impl, q) -> str:
     if impl is None:
         return "cuda" if q.is_cuda else "torch"
     if impl not in ("cuda", "torch"):
-        raise ValueError(f"unknown paged-attention impl {impl!r}")
+        raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "cuda" and not q.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors; got tensors on "
                          f"{q.device}")
     return impl
+
+
+def prefix_attention(q, k, v, *, prefix_len: int, window: int = 0,
+                     logit_cap: float = 0.0, impl: str | None = None):
+    """Prefill over dense [cached prefix ‖ new] KV (the dense prefill's
+    attention; see prefix_attention.py).  Layouts: q (B, H, Sq, hd); k/v
+    (B, KV, prefix_len + Sq, hd)."""
+    if _resolve(impl, q) == "torch":
+        return _pa.prefix_attention_torch(q, k, v, prefix_len=prefix_len,
+                                          window=window, logit_cap=logit_cap)
+    return _pa.prefix_flash_attention(q, k, v, prefix_len=prefix_len,
+                                      window=window, logit_cap=logit_cap)
 
 
 def paged_decode_attention(q, k_pages, v_pages, tables, counts, starts, qpos,

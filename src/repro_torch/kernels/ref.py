@@ -1,16 +1,40 @@
-"""Dense torch oracles for the paged attention kernels (counterparts of
-``repro.kernels.ref.reference_paged_prefill`` / ``reference_paged_decode``).
+"""Dense torch oracles for the attention kernels (counterparts of
+``repro.kernels.ref.reference_prefix_attention``, ``reference_paged_prefill``
+and ``reference_paged_decode``).
 
-They gather every table entry's page into a dense (B, n_slots * page, KV, hd)
-context and run a plain masked softmax over it — simple enough to trust,
-too big to serve with.  Tests hold the per-page plain versions and the CUDA
-kernels against them.
+They run a plain masked softmax over the whole context — for the paged
+kernels after gathering every table entry's page into a dense
+(B, n_slots * page, KV, hd) context — simple enough to trust, too big to
+serve with.  Tests hold the plain versions and the CUDA kernels against
+them.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def reference_prefix_attention(q, k, v, *, prefix_len: int, window: int = 0,
+                               logit_cap: float = 0.0):
+    """q: (B, H, Sq, hd); k/v: (B, KV, Skv, hd) with Skv = prefix_len + Sq.
+    Query row i sits at absolute position prefix_len + i."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    R = H // KV
+    kf = k.repeat_interleave(R, dim=1).float()
+    vf = v.repeat_interleave(R, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * hd ** -0.5
+    if logit_cap:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    q_pos = prefix_len + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 
 def _dense_kv(k_pages, v_pages, tables, layer: int, R: int):

@@ -277,6 +277,8 @@ class DiskSegmentStore:
 
     def clear(self) -> None:
         """Best-effort removal of every segment file (shutdown path)."""
+        if not os.path.isdir(self.root):
+            return                      # already closed
         for name in os.listdir(self.root):
             if name.endswith(".kv"):
                 try:

@@ -1,9 +1,24 @@
 """Building blocks of the dense model family (counterpart of the parts of
-``repro.models.layers`` that the paged serving steps use).
+``repro.models.layers`` that the serving steps use).
 
 Rounding points follow the JAX package: norms and RoPE compute in f32 and
 cast back; ``dense`` rounds the matmul to the activation dtype, then adds
-the bias in that dtype.
+the bias in that dtype.  ``flash_attention`` (forward only) runs the
+prefix-attention kernel; ``decode_attention`` is plain PyTorch, as the JAX
+package's is plain jnp.
+
+Row invariance.  On the card, cuBLAS chooses its GEMM kernel by the
+number of rows in the call, and for the d_ff-deep down projection of
+``swiglu`` (K 4864 at Qwen2-0.5B) that choice changes the order in which
+a row's products are summed: below 128 rows it gives other bits than
+above.  A row's result would then depend on how many rows share the call,
+and a prefill cut into chunks would not give the unchunked tokens.
+``swiglu`` therefore runs that product through ``row_slabs``, in calls of
+exactly ``ROW_SLAB`` rows: one shape, one kernel, the same bits for a row
+whatever else is in the batch.  chip_smoke.py's row-invariance probe
+measures every row-wise op of the serving steps with and without it; the
+others (the norm's mean, the K-896 products, the logits) are
+row-invariant as they are.
 """
 from __future__ import annotations
 
@@ -11,6 +26,29 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+# rows per call of the products run through row_slabs; 0 makes one call
+# over all rows
+ROW_SLAB = 512
+
+
+def row_slabs(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` applied to the rows of ``x`` (..., K) in calls of exactly
+    ROW_SLAB rows, the last slab zero-padded; ``fn`` maps (ROW_SLAB, K) to
+    (ROW_SLAB, N) row by row.  Returns (..., N)."""
+    if ROW_SLAB <= 0:
+        return fn(x)
+    lead = x.shape[:-1]
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    if n % ROW_SLAB:
+        rows = F.pad(rows, (0, 0, 0, ROW_SLAB - n % ROW_SLAB))
+    parts = [fn(slab) for slab in rows.split(ROW_SLAB)]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out[:n].reshape(*lead, out.shape[-1])
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -57,4 +95,42 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
            wd: torch.Tensor) -> torch.Tensor:
     h = F.silu(dense(x, wg)) * dense(x, wu)
-    return dense(h, wd)
+    # the d_ff-deep contraction: fixed row slabs (see the module docstring)
+    return row_slabs(lambda r: dense(r, wd), h)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_offset: int = 0, window: int = 0,
+                    logit_cap: float = 0.0,
+                    impl: str | None = None) -> torch.Tensor:
+    """Causal attention of new tokens over [cached prefix ‖ new] KV, forward
+    only.  q: (B, Sq, H, hd); k/v: (B, q_offset + Sq, KV, hd); query row i
+    sits at absolute position q_offset + i.  Returns (B, Sq, H, hd)."""
+    o = ops.prefix_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), prefix_len=int(q_offset),
+                             window=int(window), logit_cap=logit_cap,
+                             impl=impl)
+    return o.transpose(1, 2)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, pos: torch.Tensor,
+                     window: int = 0, logit_cap: float = 0.0) -> torch.Tensor:
+    """Single-token attention over a dense cache.  q: (B, 1, H, hd);
+    k/v_cache: (B, Smax, KV, hd); pos: (B,) cache length including the new
+    token.  Scores are (B, H, Smax), linear in the context."""
+    B, _, H, hd = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    R = H // KV
+    qg = q.reshape(B, KV, R, hd).float()
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float()) * hd ** -0.5
+    if logit_cap:
+        s = softcap(s, logit_cap)
+    k_pos = torch.arange(Smax, device=q.device)[None]
+    mask = k_pos < pos[:, None]
+    if window > 0:
+        mask &= k_pos > pos[:, None] - 1 - window
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)

@@ -1,11 +1,17 @@
-"""Dense decoder model and its paged serving steps (counterpart of the parts
-of ``repro.models.model`` that the continuous runtime runs).
+"""Dense decoder model and its serving steps (counterpart of the parts of
+``repro.models.model`` that the serving engines run).
 
 Params are a plain dict of tensors in ``cfg.tdtype``, with the per-layer
 weights stacked on a leading layer axis under ``params["blocks"]``, the
 same tree as the JAX package's (``params_from_numpy`` loads that tree from
-its flat checkpoint).  The two paged steps run eagerly, layer by layer, and
-write each layer's new K/V into the pool tensors IN PLACE before attention.
+its flat checkpoint).  Every step runs eagerly, layer by layer:
+
+  prefill            dense [cached prefix ‖ new] prefill (prefix-attention
+                     kernel); returns the full-sequence cache
+  decode_step        one token over a dense cache, written in place
+  paged_prefill_step / paged_decode_step
+                     straight against the paged pool, whose new K/V they
+                     write IN PLACE before attention
 
 Only the dense family (GQA with an optional QKV bias) is ported; MoE, VLM,
 audio and the recurrent families wait (ROADMAP.md Queue A).
@@ -125,6 +131,88 @@ def _qkv(cfg: ModelConfig, p, h):
     k = L.dense(h, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
     v = L.dense(h, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
     return q, k, v
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      device="cpu") -> Dict[str, torch.Tensor]:
+    """Zeroed dense decode cache: {"k", "v"} each (L, B, max_len, KV, hd)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+
+
+def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
+            prefix_len: int = 0, *, attn_impl: str | None = None):
+    """Serving prefill over an optional cached document prefix.
+
+    tokens: (B, S) ids of the new tokens, the first at absolute position
+    ``prefix_len``.  prefix_cache: {"k", "v"} each (L, B, prefix_len, KV,
+    hd) — the RAGCache hook, the knowledge tree's cached prefix.  Returns
+    (logits_last (B, 1, V) f32, cache) where the cache holds the FULL
+    sequence, (L, B, prefix_len + S, KV, hd), so the caller can page the
+    new documents' KV into the tree.  Each layer's K/V is written into that
+    cache once and attended from it in place.
+    """
+    _check_family(cfg)
+    x = embed_inputs(cfg, params, tokens)
+    B, S = tokens.shape
+    P = int(prefix_len)
+    if prefix_cache is not None and prefix_cache["k"].shape[2] != P:
+        raise ValueError(f"prefix cache holds {prefix_cache['k'].shape[2]} "
+                         f"tokens, prefix_len is {P}")
+    cache = init_decode_cache(cfg, B, P + S, device=tokens.device)
+    if prefix_cache is not None:
+        cache["k"][:, :, :P] = prefix_cache["k"]
+        cache["v"][:, :, :P] = prefix_cache["v"]
+    windows = cfg.layer_windows()
+    positions = P + torch.arange(S, dtype=torch.int32, device=tokens.device)
+    for li in range(cfg.n_layers):
+        p = _layer(params, li)
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, p, h)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        cache["k"][li, :, P:] = L.apply_rope(k, positions, cfg.rope_theta)
+        cache["v"][li, :, P:] = v
+        o = L.flash_attention(q, cache["k"][li], cache["v"][li],
+                              q_offset=P, window=windows[li],
+                              logit_cap=cfg.attn_logit_softcap,
+                              impl=attn_impl)
+        x = x + L.dense(o.reshape(B, S, -1), p["wo"])
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + _ffn(cfg, p, h2)
+    return lm_logits(cfg, params, x[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache, pos) -> torch.Tensor:
+    """One decode iteration over a dense cache.
+
+    tokens: (B, 1).  cache: {"k", "v"} each (L, B, Smax, KV, hd) — MUTATED
+    IN PLACE: each layer writes the new token's K/V at position pos - 1
+    before attending.  pos: (B,) sequence length including that token.
+    Returns the (B, 1, V) f32 logits.
+    """
+    _check_family(cfg)
+    x = embed_inputs(cfg, params, tokens)
+    B = x.shape[0]
+    windows = cfg.layer_windows()
+    rope_pos = (pos - 1)[:, None]
+    bidx = torch.arange(B, device=tokens.device)
+    at = (pos - 1).long()
+    for li in range(cfg.n_layers):
+        p = _layer(params, li)
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, p, h)                          # S == 1
+        q = L.apply_rope(q, rope_pos, cfg.rope_theta)
+        k = L.apply_rope(k, rope_pos, cfg.rope_theta)
+        kc, vc = cache["k"][li], cache["v"][li]
+        kc[bidx, at] = k[:, 0].to(kc.dtype)
+        vc[bidx, at] = v[:, 0].to(vc.dtype)
+        o = L.decode_attention(q, kc, vc, pos=pos, window=windows[li],
+                               logit_cap=cfg.attn_logit_softcap)
+        x = x + L.dense(o.reshape(B, 1, -1), p["wo"])
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + _ffn(cfg, p, h2)
+    return lm_logits(cfg, params, x)
 
 
 def paged_decode_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,

@@ -1,5 +1,5 @@
 """Continuous-batching async serving runtime (counterpart of
-``repro.serving.runtime`` on the paged / prefix / rag / tp=1 path).
+``repro.serving.runtime`` on the prefix-reuse, tp=1 paths).
 
 The event-loop engine of the paper's serving numbers: iteration-level
 scheduling over many concurrent requests, with
@@ -14,7 +14,10 @@ scheduling over many concurrent requests, with
     batched paged decode step for every running request.  Both steps run
     straight against the ``PagedKVStore`` pool through run tables and the
     hand-written CUDA kernels (plain PyTorch on the CPU), writing new K/V
-    into the pool in place;
+    into the pool in place.  ``attn="dense"`` keeps the A/B baseline
+    instead: each piece prefills through the dense prefill over the
+    gathered cached prefix, and decode gathers a dense cache from the pool
+    by slot map every step;
   * admission control and preemption by paged-block / tree-pin budget via
     the shared ``ContinuousBatchScheduler``;
   * the knowledge tree's GPU -> host -> disk cascade, with disk reads for a
@@ -28,9 +31,12 @@ just the launches.  Retrieval stages advance their own per-request lanes by
 max(measured stage wall time, analytic stage cost).  TTFT is therefore
 max(search_end, prefill_end) - arrival.
 
-Not ported yet (ROADMAP.md Queue A): ``attn="dense"``, ``reuse="chunk"``,
-``mode="cag"`` and tensor parallelism; asking for one raises
-``NotImplementedError``.
+``mode="cag"`` preloads the whole corpus KV into the disk tier at start-up,
+each doc computed standalone through the dense prefill, and serves with
+zero retrieval stages.
+
+Not ported yet (ROADMAP.md Queue A): ``reuse="chunk"`` and tensor
+parallelism; asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -79,6 +85,11 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` in page-locked memory when it feeds a copy to a CUDA device."""
+    return t.pin_memory() if device.type == "cuda" else t
+
+
 class PagedBackend(CacheBackend):
     """Tree payloads are PagedSegments in the shared device store; the host
     tier holds dense (pinned, on a CUDA store) CPU tensor copies; the
@@ -115,9 +126,8 @@ class PagedBackend(CacheBackend):
     def fetch(self, node):
         t0 = time.perf_counter()
         k, v = self.disk.read(node.payload_disk)
-        if self.store.device.type == "cuda":
-            k, v = k.pin_memory(), v.pin_memory()
-        node.payload_host = {"k": k, "v": v}
+        node.payload_host = {"k": pinned(k, self.store.device),
+                             "v": pinned(v, self.store.device)}
         return time.perf_counter() - t0
 
     def free_gpu(self, node):
@@ -134,6 +144,8 @@ class PagedBackend(CacheBackend):
 @dataclasses.dataclass
 class _PrefillResult:
     docs: Tuple[int, ...]
+    cache: Optional[dict]           # dense full-sequence cache (L, 1, T, ...)
+                                    # — None in paged mode
     first_token: int
     total_len: int
     alpha: int
@@ -142,11 +154,11 @@ class _PrefillResult:
     hit_tier_tokens: Tuple[int, int, int]   # alpha split by (gpu, host, disk)
     speculative: bool
     started: float
-    # the computed KV already lives in the pool: hit_runs are (blocks,
-    # n_tokens) snapshots of the shared (incref'd) prefix nodes; pg_segs are
-    # the request-owned segments (uncached docs + question), in sequence
-    # order.  Both lists are emptied when _paginate consumes them (ownership
-    # transfers to the decode table) or _free_paged_kv drops them.
+    # paged mode: the computed KV already lives in the pool: hit_runs are
+    # (blocks, n_tokens) snapshots of the shared (incref'd) prefix nodes;
+    # pg_segs are the request-owned segments (uncached docs + question), in
+    # sequence order.  Both lists are emptied when _paginate consumes them
+    # (ownership transfers to the decode table) or _free_paged_kv drops them.
     hit_runs: List[Tuple[List[int], int]] = dataclasses.field(
         default_factory=list)
     pg_segs: List[PagedSegment] = dataclasses.field(default_factory=list)
@@ -161,7 +173,8 @@ class _PrefillResult:
 class _ChunkState:
     """Engine-side state of an in-flight chunked prefill: plan, execution
     cursor over the to-be-computed segments, remaining piece sizes, and the
-    pages the kernel scatters each chunk's KV into."""
+    pages the kernel scatters each chunk's KV into (paged mode) or the
+    partial KV paged into the store between iterations (dense mode)."""
     plan: object                    # RequestPlan
     segs: List[np.ndarray]          # token arrays: uncached docs + question
     doc_bounds: List[Tuple[int, int]]  # (abs_start, length) per uncached doc
@@ -171,6 +184,12 @@ class _ChunkState:
     plen: int = 0                   # absolute tokens prefixed so far
     first_token: int = -1           # set when the last piece completes
     logits: Optional[np.ndarray] = None
+    # dense mode: the cached prefix gathered out of the pool, the partial
+    # KV of earlier pieces, and the full-sequence cache once the last piece
+    # completes (commit / paginate read it)
+    prefix_hit: Optional[dict] = None
+    partial_seg: Optional[PagedSegment] = None
+    cache: Optional[dict] = None
     hit_runs: List[Tuple[List[int], int]] = dataclasses.field(
         default_factory=list)
     pg_segs: List[PagedSegment] = dataclasses.field(default_factory=list)
@@ -251,16 +270,24 @@ class ContinuousRuntime:
                 "recurrent-state families cannot be paged per-block")
         if config.attn not in ("dense", "paged", "auto"):
             raise ValueError(f"unknown attn mode {config.attn!r}")
-        if config.attn == "dense":
-            raise NotImplementedError(
-                "attn='dense' is not ported yet (ROADMAP.md Queue A item 5)")
+        # "auto" resolves to the paged engine; the dense gather survives as
+        # the explicit --attn dense A/B baseline
+        self.attn = "paged" if config.attn == "auto" else config.attn
+        if config.reuse not in ("prefix", "chunk"):
+            raise ValueError(f"unknown reuse mode {config.reuse!r}")
+        if config.reuse == "chunk" and self.attn != "paged":
+            # relocated reuse needs per-run absolute positions in the run
+            # table — the dense gather has no such contract
+            raise ValueError("--reuse chunk requires the paged engine "
+                             "(--attn paged/auto)")
         if config.reuse == "chunk":
             raise NotImplementedError(
                 "reuse='chunk' is not ported yet (ROADMAP.md Queue A item 5)")
-        if config.mode == "cag":
-            raise NotImplementedError(
-                "mode='cag' is not ported yet (ROADMAP.md Queue A item 5: "
-                "it needs the dense prefill)")
+        self.mode = config.mode
+        if self.mode == "cag" and config.disk_cache_bytes <= 0:
+            raise ValueError(
+                "mode='cag' preloads the whole corpus KV into the disk tier "
+                "and needs disk_cache_bytes > 0 sized for the corpus")
         if config.mesh.tp > 1:
             raise NotImplementedError(
                 "tensor parallelism is not ported yet (ROADMAP.md Queue A "
@@ -323,6 +350,24 @@ class ContinuousRuntime:
         self._force_decode = False         # progress guard after a
                                            # pagination failure (see below)
         self._all: List[_ReqRun] = []
+        # CAG start-up: pre-insert the FULL corpus KV into the disk tier.
+        # Each doc's KV is computed at position 0 with no prefix — what the
+        # engine computes for a doc served first — so CAG serves the tokens
+        # RAG serves.
+        self.preload_stats: Optional[dict] = None
+        if self.mode == "cag":
+            self.preload_stats = self.controller.preload_corpus(
+                range(len(corpus.doc_lengths)), corpus.doc_lengths,
+                self._corpus_payload)
+
+    def _corpus_payload(self, doc_id: int, n_tokens: int) -> dict:
+        """Host-layout (L, 1, T, KV, hd) {k, v} KV of one corpus doc as CPU
+        tensors (bf16 has no numpy type), computed standalone through the
+        dense prefill.  The disk tier writes and drops them."""
+        toks = self._tensor(np.asarray(self.corpus.doc_tokens[doc_id]))[None]
+        _, cache = M.prefill(self.cfg, self.params, toks.long(),
+                             attn_impl=self.attn_impl)
+        return {"k": cache["k"].cpu(), "v": cache["v"].cpu()}
 
     # ------------------------------------------------------------------
     # scheduler callbacks
@@ -423,6 +468,23 @@ class ContinuousRuntime:
         # per-request top_k override (Request.top_k > 0) only ever LOWERS
         # the depth, so the serve()-time max_ctx sizing stays an upper bound
         k = min(r.top_k, self.top_k) if r.top_k > 0 else self.top_k
+        if self.mode == "cag":
+            # ZERO retrieval stages: the corpus KV is already resident, so
+            # doc resolution is one synchronous index probe, no stage
+            # events and no speculative prefills run, and the single final
+            # job enters the scheduler at arrival
+            docs = tuple(int(d) for d in self.index.search(r.query_vec, k))
+            st.tl.search_end = self.now
+            st.final_docs = docs
+            job = _Job(req=st, docs=docs, speculative=False,
+                       enqueued=self.now)
+            st.jobs.append(job)
+            cached, compute = self._job_lens(job)
+            self.sched.submit(job, cached, compute)
+            self._prefetch_disk(docs)
+            st.tl.queue_enter = self.now
+            self._engine_kick()
+            return
         # materialize stages, measuring the real scan cost of each stage;
         # the per-request search lane advances by max(measured, analytic)
         t = self.now
@@ -574,11 +636,18 @@ class ContinuousRuntime:
                 continue
             if job.cs is None:
                 self._begin_chunked(job)
-            row = self._prep_paged_chunk(job)
-            if row is None:
-                continue               # OutOfBlocks: job aborted + requeued
-            rows.append(row)
-            executed += row[-1]
+            if self.attn == "paged":
+                row = self._prep_paged_chunk(job)
+                if row is None:
+                    continue           # OutOfBlocks: job aborted + requeued
+                rows.append(row)
+                executed += row[-1]
+            else:
+                n = self._run_chunk(job)
+                if n < 0:
+                    continue           # paging the partial KV failed: job
+                                       # aborted + requeued in place
+                executed += n
             outcomes.append((job, not job.cs.pieces))
         if rows:
             self._run_paged_rows(rows)
@@ -589,9 +658,11 @@ class ContinuousRuntime:
         self._push(self.now + dt, "prefill_batch_done", outcomes)
 
     def _begin_chunked(self, job: _Job) -> None:
-        """First chunk: plan the request, promote the hit prefix, snapshot
-        its page runs (refcount-shared; the nodes stay pinned until commit)
-        and open one empty segment per to-compute segment."""
+        """First chunk: plan the request, promote the hit prefix, and build
+        the execution cursor.  Paged mode snapshots the prefix's page runs
+        (refcount-shared; the nodes stay pinned until commit) and opens one
+        empty segment per to-compute segment; dense mode gathers the
+        prefix's KV out of the pool."""
         st = job.req
         job.started = self.now
         st.start_by_docs.setdefault(job.docs, self.now)
@@ -612,6 +683,13 @@ class ContinuousRuntime:
             raise ValueError(
                 f"request {st.r.req_id}: nothing to prefill (empty question "
                 f"and fully cached documents) — no logits can be produced")
+        if self.attn == "dense":
+            prefix_hit, plen = self._assemble_prefix(plan.hit_nodes)
+            job.cs = _ChunkState(plan=plan, segs=segs, doc_bounds=bounds,
+                                 pieces=pieces, plen=plen,
+                                 prefix_hit=prefix_hit)
+            self._partial_jobs.append(job)
+            return
         hit_runs, layout, plen = [], [], 0
         for node in plan.hit_nodes:
             seg = node.payload_gpu
@@ -631,6 +709,72 @@ class ContinuousRuntime:
         job.cs.seg_abs = seg_abs
         job.cs.pg_segs = [PagedSegment(self.store, [], 0) for _ in segs]
         self._partial_jobs.append(job)
+
+    def _chunk_prefix(self, cs: _ChunkState) -> Tuple[Optional[dict], int]:
+        """KV prefix for the next dense piece: the cached prefix alone on
+        the first iteration, plus the partial KV gathered back out of the
+        pool on continuation iterations."""
+        if cs.partial_seg is None:
+            return cs.prefix_hit, cs.plen
+        k, v = self.store.gather(cs.partial_seg)
+        if cs.prefix_hit is None:
+            return {"k": k, "v": v}, cs.plen
+        return {"k": torch.cat([cs.prefix_hit["k"], k], dim=2),
+                "v": torch.cat([cs.prefix_hit["v"], v], dim=2)}, cs.plen
+
+    def _run_chunk(self, job: _Job) -> int:
+        """Execute the next piece of ``job``'s dense prefill.  A piece never
+        spans a segment boundary when chunking is on; with chunking off the
+        single piece walks every segment.  Returns tokens computed, or -1
+        if paging the partial KV failed and the job was aborted +
+        requeued."""
+        cs = job.cs
+        n = cs.pieces.pop(0)
+        multi_iter = bool(cs.pieces) or cs.partial_seg is not None
+        prefix, plen = self._chunk_prefix(cs)
+        plen0, left = plen, n
+        logits = cache = None
+        while left > 0:
+            seg = cs.segs[cs.seg_idx]
+            take = min(left, len(seg) - cs.seg_off)
+            toks = self._tensor(np.asarray(
+                seg[cs.seg_off:cs.seg_off + take], np.int64))[None]
+            logits, cache = M.prefill(self.cfg, self.params, toks, prefix,
+                                      plen, attn_impl=self.attn_impl)
+            prefix, plen = cache, plen + take
+            cs.seg_off += take
+            left -= take
+            while cs.seg_idx < len(cs.segs) and \
+                    cs.seg_off >= len(cs.segs[cs.seg_idx]):
+                cs.seg_idx += 1
+                cs.seg_off = 0
+        last = logits[0, -1]
+        cs.first_token = int(last.argmax())
+        cs.logits = last.cpu().numpy()
+        sync(self.device)
+        cs.plen = plen
+        if not cs.pieces or not multi_iter:
+            # final piece (or single-iteration prefill): the carried cache
+            # is the full sequence — kept dense for commit / paginate
+            cs.cache = cache
+            return n
+        # page the newly computed KV into the store, so the only live copy
+        # of the partial prefill is paged (cancellation frees it)
+        k = cache["k"][:, :, plen0:plen]
+        v = cache["v"][:, :, plen0:plen]
+        if not self._reclaim_blocks(
+                self.store.pool.blocks_for_tokens(plen - plen0)):
+            self._abort_chunked(job, requeue=True)
+            return -1
+        try:
+            if cs.partial_seg is None:
+                cs.partial_seg = self.store.put(k, v)
+            else:
+                self.store.append(cs.partial_seg, k, v)
+        except OutOfBlocks:
+            self._abort_chunked(job, requeue=True)
+            return -1
+        return n
 
     def _prep_paged_chunk(self, job: _Job):
         """Allocate pages for the next piece of ``job`` and build its row of
@@ -773,7 +917,7 @@ class ContinuousRuntime:
                 self.metrics.wasted_prefills += 1
                 continue
             res = _PrefillResult(
-                docs=job.docs, first_token=cs.first_token,
+                docs=job.docs, cache=cs.cache, first_token=cs.first_token,
                 total_len=cs.plen,
                 alpha=cs.plan.alpha, beta=cs.plan.beta,
                 hit_docs=cs.plan.hit_docs,
@@ -781,7 +925,12 @@ class ContinuousRuntime:
                 speculative=job.speculative, started=job.started,
                 hit_runs=hit_runs, pg_segs=pg_segs,
                 layout=list(cs.layout), first_logits=cs.logits)
-            self._commit_paged(cs.plan, pg_segs[:len(cs.doc_bounds)])
+            if self.attn == "paged":
+                self._commit_paged(cs.plan, pg_segs[:len(cs.doc_bounds)])
+            else:
+                self._commit_payloads(
+                    cs.plan, [(start, length, cs.cache)
+                              for start, length in cs.doc_bounds])
             st.results[job.docs] = res
             if st.final_docs is not None and job.docs == st.final_docs:
                 self._first_token(st, res, max(self.now, st.tl.search_end))
@@ -790,6 +939,9 @@ class ContinuousRuntime:
     def _drop_chunk_state(self, job: _Job) -> None:
         cs = job.cs
         if cs is not None:
+            if cs.partial_seg is not None:
+                self.store.free(cs.partial_seg)
+                cs.partial_seg = None
             self._free_paged_kv(cs)
         job.cs = None
         if job in self._partial_jobs:
@@ -832,12 +984,36 @@ class ContinuousRuntime:
             cached, compute = self._job_lens(redo)
             self.sched.submit(redo, cached, compute)
 
+    def _commit_payloads(self, plan, payloads) -> None:
+        """Dense mode: page the new per-doc KV segments into the store and
+        insert them into the knowledge tree; stop caching at the first doc
+        the pool cannot hold."""
+        segs = []
+        for start, length, cache in payloads:
+            k = cache["k"][:, :, start:start + length]
+            v = cache["v"][:, :, start:start + length]
+            if not self._reclaim_blocks(
+                    self.store.pool.blocks_for_tokens(length)):
+                break
+            try:
+                segs.append(self.store.put(k, v))
+            except OutOfBlocks:
+                break
+        inserted = self.controller.commit(
+            plan, segs, max_docs=len(plan.hit_nodes) + len(segs))
+        # free every segment the tree did not take: the tail when insert
+        # stopped early, and duplicates of a doc path committed first
+        kept = {id(n.payload_gpu) for n in inserted}
+        for seg in segs:
+            if id(seg) not in kept:
+                self.store.free(seg)
+
     def _commit_paged(self, plan, doc_segs) -> None:
-        """The per-doc KV already lives in pool blocks (the prefill step
-        scattered it in place), so committing is pure refcounting — share
-        each segment to mint the tree's independent reference, then drop it
-        again for every segment the tree declined (duplicate doc path or
-        insert stopped early)."""
+        """Paged mode: the per-doc KV already lives in pool blocks (the
+        prefill step scattered it in place), so committing is pure
+        refcounting — share each segment to mint the tree's independent
+        reference, then drop it again for every segment the tree declined
+        (duplicate doc path or insert stopped early)."""
         for seg in doc_segs:
             self.store.share(seg)
         inserted = self.controller.commit(
@@ -856,6 +1032,19 @@ class ContinuousRuntime:
             return True
         except EvictionError:
             return False
+
+    def _assemble_prefix(self, nodes) -> Tuple[Optional[dict], int]:
+        """Dense mode: the hit nodes' KV gathered out of the pool and
+        concatenated, (L, 1, alpha, KV, hd) each."""
+        if not nodes:
+            return None, 0
+        ks, vs = [], []
+        for n in nodes:
+            k, v = self.store.gather(n.payload_gpu)
+            ks.append(k)
+            vs.append(v)
+        k = torch.cat(ks, dim=2)
+        return {"k": k, "v": torch.cat(vs, dim=2)}, int(k.shape[2])
 
     # ---- first token & decode admission --------------------------------
 
@@ -905,7 +1094,55 @@ class ContinuousRuntime:
         self.sched.submit(job, cached, compute)
 
     def _paginate(self, st: _ReqRun, res: _PrefillResult) -> bool:
-        """Build the request's decode slot mapping: every token already sits
+        if self.attn == "paged":
+            return self._paginate_paged(st, res)
+        return self._paginate_dense(st, res)
+
+    def _paginate_dense(self, st: _ReqRun, res: _PrefillResult) -> bool:
+        """Dense mode: refcount-share every complete GPU-resident tree
+        prefix node (block-aligned or not: the token-level slot mapping
+        absorbs unaligned doc tails) and copy the rest (uncached docs +
+        question) into private blocks with the decode reserve."""
+        bs = self.store.block_size
+        pos_blk: List[int] = []
+        pos_slot: List[int] = []
+        shared: List[int] = []
+        offset = 0
+        for node in self.tree.match_prefix(res.docs):
+            seg = node.payload_gpu
+            if (seg is None or not node.in_gpu
+                    or seg.n_tokens != node.n_tokens):
+                break
+            self.store.share(seg)
+            for i in range(seg.n_tokens):
+                pos_blk.append(seg.blocks[i // bs])
+                pos_slot.append(i % bs)
+            shared.extend(seg.blocks)
+            offset += seg.n_tokens
+        rest = res.total_len - offset
+        k = res.cache["k"][:, :, offset:res.total_len]
+        v = res.cache["v"][:, :, offset:res.total_len]
+        need = self.store.pool.blocks_for_tokens(rest + st.remaining)
+        if not self._reclaim_blocks(need):
+            self.store.release(shared)
+            return False
+        try:
+            priv = self.store.put(k, v, reserve_tokens=st.remaining)
+        except OutOfBlocks:
+            self.store.release(shared)
+            return False
+        for i in range(rest + st.remaining):
+            pos_blk.append(priv.blocks[i // bs])
+            pos_slot.append(i % bs)
+        st.pos_blk, st.pos_slot = pos_blk, pos_slot
+        st.owned_blocks = shared + priv.blocks
+        st.length = res.total_len
+        self.metrics.blocks_shared += len(shared)
+        self.metrics.blocks_copied += len(priv.blocks)
+        return True
+
+    def _paginate_paged(self, st: _ReqRun, res: _PrefillResult) -> bool:
+        """Paged mode: every token already sits
         in a pool block — the cached prefix in the shared hit runs, the rest
         in the result's owned segments — so this is pure bookkeeping plus
         one allocation-only extension of the question segment for the
@@ -961,17 +1198,56 @@ class ContinuousRuntime:
         """Run the single decode shape once before serving (dummy rows
         decode token 0 into the scratch block, exactly like a padding row),
         so one-time device set-up never lands on the serving clock."""
-        self._decode(self._paged_decode_args([]))
+        self._decode([])
 
-    def _decode(self, args) -> np.ndarray:
-        toks, tables, counts, starts, pos, write_blk, write_slot = args
-        logits = M.paged_decode_step(
-            self.cfg, self.params, toks, self.store.k, self.store.v, tables,
-            counts, starts, write_blk, write_slot, pos,
-            attn_impl=self.attn_impl)
+    def _decode(self, batch) -> np.ndarray:
+        """One batched decode iteration; returns the next token of every
+        row (padding rows included)."""
+        if self.attn == "paged":
+            (toks, tables, counts, starts, pos, write_blk,
+             write_slot) = self._paged_decode_args(batch)
+            logits = M.paged_decode_step(
+                self.cfg, self.params, toks, self.store.k, self.store.v,
+                tables, counts, starts, write_blk, write_slot, pos,
+                attn_impl=self.attn_impl)
+        else:
+            logits = self._dense_decode(*self._dense_decode_args(batch))
         next_toks = logits[:, -1].argmax(dim=-1).cpu().numpy()
         sync(self.device)
         return next_toks
+
+    def _dense_decode(self, toks, blk_map, slot_map, lengths):
+        """Dense mode: gather every row's sequence out of the pool by its
+        token-level slot mapping — position p of row b lives at
+        (blk_map[b, p], slot_map[b, p]), so the gathered cache is hole-free
+        even where shared tree segments end mid-block — decode over it, and
+        write the new token's K/V back into the pool."""
+        k = self.store.k[:, blk_map, slot_map]          # (L, B, S, KV, hd)
+        v = self.store.v[:, blk_map, slot_map]
+        cache = {"k": k, "v": v}
+        logits = M.decode_step(self.cfg, self.params, toks, cache,
+                               lengths + 1)
+        bidx = torch.arange(toks.shape[0], device=self.device)
+        at = lengths.long()
+        blk, slot = blk_map[bidx, at], slot_map[bidx, at]
+        self.store.k[:, blk, slot] = k[:, bidx, at]
+        self.store.v[:, blk, slot] = v[:, bidx, at]
+        return logits
+
+    def _dense_decode_args(self, batch):
+        B = self.sched.config.max_batch
+        S = self._n_slots * self.store.block_size   # max token positions
+        toks = np.zeros((B, 1), np.int64)
+        blk_map = np.full((B, S), self._scratch_block, np.int64)
+        slot_map = np.zeros((B, S), np.int64)
+        lengths = np.zeros((B,), np.int32)
+        for i, st in enumerate(batch):
+            toks[i, 0] = st.last_tok
+            blk_map[i, :len(st.pos_blk)] = st.pos_blk
+            slot_map[i, :len(st.pos_slot)] = st.pos_slot
+            lengths[i] = st.length
+        return tuple(self._tensor(a) for a in (toks, blk_map, slot_map,
+                                               lengths))
 
     def _paged_decode_args(self, batch):
         """Pack the run tables for one paged decode iteration.  Contract
@@ -1010,7 +1286,7 @@ class ContinuousRuntime:
         self.engine_busy = True
         self.metrics.record_iteration("decode", len(batch))
         t0 = time.perf_counter()
-        next_toks = self._decode(self._paged_decode_args(batch))
+        next_toks = self._decode(batch)
         dt = time.perf_counter() - t0
         self._push(self.now + dt, "decode_done",
                    (batch, [int(t) for t in next_toks[:len(batch)]]))

@@ -67,6 +67,27 @@ def test_import_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
 
 
+# modules each slice of the port added; every one is imported and scanned
+SLICE_MODULES = [
+    "repro_torch.kernels.paged_attention",
+    "repro_torch.kernels.paged_prefill",
+    "repro_torch.kernels.prefix_attention",
+    "repro_torch.kernels.ref",
+    "repro_torch.kernels.ops",
+    "repro_torch.models.model",
+    "repro_torch.models.layers",
+    "repro_torch.serving.runtime",
+    "repro_torch.serving.engine",
+    "repro_torch.launch.serve",
+]
+
+
+@pytest.mark.parametrize("mod", SLICE_MODULES)
+def test_slice_module_is_guarded(mod):
+    """The guards above cover every module of the port's slices."""
+    assert mod in _port_modules()
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py"]))

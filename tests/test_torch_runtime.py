@@ -117,10 +117,14 @@ def test_chunked_prefill_gives_the_same_tokens(setup, port_run):
     assert [r.tokens for r in chunked] == [r.tokens for r in whole]
 
 
-@pytest.mark.parametrize("conf", [dict(attn="dense"), dict(reuse="chunk"),
-                                  dict(mode="cag", disk_cache_bytes=1 << 20),
+@pytest.mark.parametrize("conf", [dict(attn="dense", mesh=MeshConfig(tp=2)),
+                                  dict(reuse="chunk"),
+                                  dict(mode="cag", disk_cache_bytes=1 << 20,
+                                       mesh=MeshConfig(tp=2)),
                                   dict(mesh=MeshConfig(tp=2))])
 def test_unported_options_raise(setup, conf):
+    """Chunk reuse and tensor parallelism, alone or under the dense and CAG
+    paths, are still to port."""
     _, cfg, _, tp, _, corpus, _, idx, _, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousRuntime(cfg, tp, corpus, idx, config=EngineConfig(**conf),
