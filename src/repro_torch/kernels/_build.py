@@ -6,7 +6,8 @@ build takes seconds.  Libraries land in ``<repo>/build/kernels`` keyed by a
 hash of the sources and flags: an edited source rebuilds, an unchanged one
 loads the library already there.  A failed build raises with nvcc's stderr.
 Nothing here runs at import; the wrappers call ``load`` at first launch and
-``build_all`` builds every source at once, one nvcc process each.
+``build_all`` builds every source at once, one nvcc process each, and
+returns ptxas's report (registers, shared memory, spills) of each.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("paged_decode", "paged_prefill", "prefix_attention")
 
 _P = ctypes.c_void_p
@@ -34,7 +35,7 @@ _L = ctypes.c_longlong
 # extern "C" functions in csrc/)
 ARGTYPES = {
     "paged_decode": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
-    "paged_prefill": [_P] * 9 + [_I] * 10 + [_F, _F, _I, _P],
+    "paged_prefill": [_P] * 9 + [_I] * 10 + [_F, _F, _I] + [_L] * 6 + [_P],
     "prefix_attention": [_P] * 4 + [_I] * 8 + [_F, _F, _I] + [_L] * 12
     + [_P],
 }
@@ -79,27 +80,32 @@ def _start(name: str):
     return proc, tmp, out
 
 
-def _finish(name: str, proc, tmp: Path, out: Path) -> None:
+def _finish(name: str, proc, tmp: Path, out: Path) -> str:
+    """Wait for nvcc; its stderr (ptxas's report), or "" if the library was
+    already built."""
     if proc is None:
-        return
+        return ""
     _, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{err}")
     os.replace(tmp, out)
+    return err
 
 
-def build_all(names: List[str] = SOURCES) -> None:
-    """Compile every listed source in parallel (one nvcc each)."""
+def build_all(names: List[str] = SOURCES) -> Dict[str, str]:
+    """Compile every listed source in parallel (one nvcc each); ptxas's
+    report by source."""
     started = [(n, *_start(n)) for n in names]
-    errors = []
+    errors, reports = [], {}
     for name, proc, tmp, out in started:
         try:
-            _finish(name, proc, tmp, out)
+            reports[name] = _finish(name, proc, tmp, out)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -112,9 +118,11 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_launch")
             fn.argtypes = ARGTYPES[name]
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error_string")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
+            for extra in ("error_string", "body"):
+                text = getattr(lib, f"{name}_{extra}", None)
+                if text is not None:
+                    text.argtypes = [ctypes.c_int]
+                    text.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 
@@ -124,3 +132,10 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     if code != 0:
         msg = getattr(lib, f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+
+
+def body(name: str, is_bf16: bool) -> str:
+    """Which body of ``name``'s library serves a dtype (tensor cores or
+    CUDA cores), as the library itself reports it."""
+    lib = load(name)
+    return getattr(lib, f"{name}_body")(int(is_bf16)).decode()

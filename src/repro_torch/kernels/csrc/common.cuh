@@ -1,5 +1,5 @@
-// Helpers shared by the paged attention kernels: 16-byte tile loads into
-// shared memory and element-type conversions for bf16 and f32 pools.
+// Helpers shared by the attention kernels: 16-byte tile loads into shared
+// memory, element-type conversions for bf16 and f32, and view strides.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -7,6 +7,12 @@
 #include <stdint.h>
 
 #define PA_NEG_INF (-1e30f)
+
+// Element strides of a (batch, sequence, head, hd) view with a contiguous
+// last dimension.
+struct Strides {
+  long long b, s, h;
+};
 
 // A 16-byte vector holds N elements of T.
 template <typename T> struct Pack;

@@ -15,21 +15,29 @@
 // activations are read in place; the last dimension must be contiguous.
 //
 // Bound on Hopper: operations for long sequences (4 * hd flops per visible
-// query-key pair against 2 * hd K/V elements per key).  Design: one CTA per
-// (b, kv_head, q-block) packs the R query heads that share a KV head with
-// BQ rows of the block — R * BQ <= 8192 / hd packed rows — and streams
-// BK-key tiles of K and V through shared memory, so each tile is read once
-// for all R heads (the TPU grid streams it R times).  Tiles start at
-// multiples of BK from key 0 whatever the block, and tiles wholly past the
-// block's causal frontier or wholly before every row's window are skipped:
-// they are fully masked, so skipping them leaves the result bit-identical,
-// and a row's result does not depend on which block or chunk it sits in.
-// Tiles wholly visible to every row of the block take an unmasked path
-// (the predicate of prefix_attention.py:79-81), which gives the same bits
-// as the masked path on such a tile.  Scores and the P @ V update run as
-// f32 FMAs on CUDA cores with per-thread register tiles; tensor-core mma /
-// wgmma and TMA are the next step.
-#include "common.cuh"
+// query-key pair against 2 * hd K/V elements per key), bytes for a short
+// chunk after a long prefix.
+//
+// bf16 (the served model; hd 64 and 128): the tensor-core tile of
+// attn_tile.cuh.  One CTA per (b, kv_head, q-block) packs the R query heads
+// of the KV head with bq rows of the block, 16 rows per warp and 2-8 warps
+// (fewer when the grid is thin), so each K/V tile is read once for all R
+// heads (the TPU grid streams it R times).  The loader streams 64-key tiles
+// strided from k0 = a multiple of 64 from key 0, whatever the block, up to
+// the block's causal frontier (min(Skv, last row's position + 1)) and from
+// the first tile inside the first row's window; keys past the frontier are
+// zero-filled and masked.  Each tile is one online-softmax update, so a
+// row's bits do not depend on the block or chunk it sits in (see
+// attn_tile.cuh).  A tile every key of which every row of a warp sees takes
+// the unmasked path (the predicate of prefix_attention.py:79-81, per warp),
+// with the same bits as the masked path.  P is rounded to bf16 for the
+// P @ V product.
+//
+// f32 (hd 64 and 128; the CPU-side checks' dtype, never served on the
+// card): a CUDA-core body, 64-key tiles through shared memory with f32
+// FMAs, scores one (packed row, key) pair per thread and one thread per row
+// for the online softmax; same tiles, skips and fast path.
+#include "attn_tile.cuh"
 
 namespace {
 
@@ -37,16 +45,109 @@ constexpr int NT = 256;     // threads per CTA
 constexpr int MAXR = 16;    // query heads per KV head
 constexpr int BK = 64;      // keys per tile
 
-struct Strides {            // element strides: batch, sequence, head
-  long long b, s, h;
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+// 64-key tiles [kstart + 64 t, ...) of one (b, kv_head), cut at kend.
+template <int HD> struct DenseKeys {
+  const attn::bf16* k;
+  const attn::bf16* v;
+  long long ks, vs;             // sequence strides
+  int kstart, kend;
+
+  __device__ int tiles() const {
+    return kend > kstart ? (kend - kstart + attn::KT - 1) / attn::KT : 0;
+  }
+  __device__ int units(int) const { return 1; }
+  __device__ void unit(int t, int, int& kpos0, int& c) const {
+    kpos0 = kstart + t * attn::KT;
+    c = min(attn::KT, kend - kpos0);
+  }
+  __device__ void fetch(int t, attn::bf16* kd, attn::bf16* vd, int tid,
+                        int nthr) const {
+    constexpr int S = attn::Tile<HD>::STRIDE, CH = attn::Tile<HD>::CH;
+    const int k0 = kstart + t * attn::KT, c = min(attn::KT, kend - k0);
+    for (int ci = tid; ci < attn::KT * CH; ci += nthr) {
+      const int r = ci / CH, ch = ci % CH;
+      const bool in = r < c;
+      attn::cp_async16(kd + r * S + ch * 8,
+                       in ? k + (k0 + r) * ks + ch * 8 : k, in);
+      attn::cp_async16(vd + r * S + ch * 8,
+                       in ? v + (k0 + r) * vs + ch * 8 : v, in);
+    }
+  }
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) prefix_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int H, int KV, int Sq,
-    int Skv, int prefix_len, int window, float cap, float scale, int bq,
-    Strides qs, Strides ks, Strides vs, Strides os) {
+template <int HD>
+__global__ void __launch_bounds__(attn::MAXW * 32) prefix_attention_mma(
+    const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ k,
+    const attn::bf16* __restrict__ v, attn::bf16* __restrict__ out, int H,
+    int KV, int Sq, int Skv, int prefix_len, int window, float cap,
+    float scale, int bq, Strides qs, Strides ks, Strides vs, Strides os) {
+  constexpr int S = attn::Tile<HD>::STRIDE;
+  const int qb = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int R = H / KV, row0 = qb * bq;
+  const attn::QRows rows{R, bq, row0, Sq, prefix_len};
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nrows = 16 * (nthr / 32);
+  attn::bf16* qsm = reinterpret_cast<attn::bf16*>(smem);
+  attn::bf16* ring = qsm + nrows * S;
+
+  attn::stage_q<HD>(qsm, q, qs, b, g, Sq, rows, nrows, tid, nthr);
+  attn::cp_async_commit();
+  const int qmin = prefix_len + row0;
+  const int qmax = prefix_len + min(row0 + bq, Sq) - 1;
+  // first tile holding a key inside the first row's window; keys past qmax
+  // are masked for every row of the block
+  int kstart = 0;
+  if (window > 0 && qmin - window + 1 > 0)
+    kstart = (qmin - window + 1) / attn::KT * attn::KT;
+  const DenseKeys<HD> ld{k + b * ks.b + (long long)g * ks.h,
+                         v + b * vs.b + (long long)g * vs.h, ks.s, vs.s,
+                         kstart, min(Skv, qmax + 1)};
+  attn::run<HD, attn::KT / 16>(ld, rows, qsm, ring, out, os, b, g, Sq,
+                               window, cap, scale);
+}
+
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       void* out, int B, int H, int KV, int Sq, int Skv,
+                       int prefix_len, int window, float cap, float scale,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       cudaStream_t stream) {
+  const int R = H / KV;
+  int nw = 0;
+  cudaError_t e = attn::pick_warps(B, KV, Sq, R, &nw);
+  if (e != cudaSuccess) return e;
+  const int bq = 16 * nw / R;
+  const size_t smem = attn::smem_bytes<HD>(nw, 0);
+  auto kern = prefix_attention_mma<HD>;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((Sq + bq - 1) / bq, KV, B);
+  kern<<<grid, 32 * nw, smem, stream>>>(
+      static_cast<const attn::bf16*>(q), static_cast<const attn::bf16*>(k),
+      static_cast<const attn::bf16*>(v), static_cast<attn::bf16*>(out), H,
+      KV, Sq, Skv, prefix_len, window, cap, scale, bq, qs, ks, vs, os);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
+template <int HD>
+__global__ void __launch_bounds__(NT) prefix_attention_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int H, int KV,
+    int Sq, int Skv, int prefix_len, int window, float cap, float scale,
+    int bq, Strides qs, Strides ks, Strides vs, Strides os) {
+  typedef float T;
   constexpr int SS = Rows<T, HD>::STRIDE;
   constexpr int CH = Rows<T, HD>::CHUNKS;
   constexpr int MMAX = 8192 / HD;   // packed query rows per CTA
@@ -200,18 +301,20 @@ __global__ void __launch_bounds__(NT) prefix_attention_kernel(
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int KV, int Sq, int Skv, int prefix_len,
-                   int window, float cap, float scale, Strides qs, Strides ks,
-                   Strides vs, Strides os, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, int B, int H, int KV, int Sq, int Skv,
+                       int prefix_len, int window, float cap, float scale,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       cudaStream_t stream) {
+  typedef float T;
   constexpr int SS = Rows<T, HD>::STRIDE;
   constexpr int MMAX = 8192 / HD;
   const int R = H / KV;
   const int bq = MMAX / R;
   const size_t smem = align16((size_t)(MMAX + 2 * BK) * SS * sizeof(T)) +
                       (size_t)(MMAX * BK + 3 * MMAX) * sizeof(float);
-  auto kern = prefix_attention_kernel<T, HD>;
+  auto kern = prefix_attention_f32<HD>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -244,14 +347,20 @@ extern "C" cudaError_t prefix_attention_launch(
 #define PA_ARGS q, k, v, out, B, H, KV, Sq, Skv, prefix_len, window, cap, \
                 scale, qs, ks, vs, os, s
   if (is_bf16) {
-    if (hd == 64) return launch<__nv_bfloat16, 64>(PA_ARGS);
-    if (hd == 128) return launch<__nv_bfloat16, 128>(PA_ARGS);
+    if (hd == 64) return launch_mma<64>(PA_ARGS);
+    if (hd == 128) return launch_mma<128>(PA_ARGS);
   } else {
-    if (hd == 64) return launch<float, 64>(PA_ARGS);
-    if (hd == 128) return launch<float, 128>(PA_ARGS);
+    if (hd == 64) return launch_f32<64>(PA_ARGS);
+    if (hd == 128) return launch_f32<128>(PA_ARGS);
   }
 #undef PA_ARGS
   return cudaErrorInvalidValue;
+}
+
+// Which body serves a dtype: printed by the card checks.
+extern "C" const char* prefix_attention_body(int is_bf16) {
+  return is_bf16 ? "tensor cores (mma.sync m16n8k16 bf16, cp.async ring)"
+                 : "CUDA cores (f32 FMA)";
 }
 
 extern "C" const char* prefix_attention_error_string(int code) {

@@ -72,8 +72,25 @@ def paged_decode_torch(q, k_pages, v_pages, tables, counts, starts, qpos,
 paged_decode_torch.calls = 0
 
 
-def check_pool_args(name, q, k_pages, v_pages, ints, *, q_rank: int):
-    """Validate what the CUDA kernels take; raise on anything else."""
+def check_rows(name, **tensors) -> None:
+    """Raise unless each tensor's rows can be read in place by 16-byte
+    loads: a contiguous last dimension, a 16-byte aligned base, and every
+    other stride a multiple of 16 bytes."""
+    for tname, t in tensors.items():
+        vec = 16 // t.element_size()
+        if t.stride(-1) != 1 or t.data_ptr() % 16 \
+                or any(s % vec for s in t.stride()[:-1]):
+            raise ValueError(
+                f"{name}: {tname} needs a contiguous last dimension, a "
+                f"16-byte aligned base and strides that are multiples of "
+                f"{vec} elements; got strides {t.stride()}")
+
+
+def check_pool_args(name, q, k_pages, v_pages, ints, *, q_rank: int,
+                    strided_q: bool = False):
+    """Validate what the CUDA kernels take; raise on anything else.  With
+    ``strided_q`` the kernel reads q through its strides (``check_rows``)
+    instead of requiring it contiguous."""
     if q.dim() != q_rank or k_pages.dim() != 5:
         raise ValueError(f"{name}: q must be {q_rank}-D and the pool 5-D")
     if k_pages.shape != v_pages.shape:
@@ -90,9 +107,11 @@ def check_pool_args(name, q, k_pages, v_pages, ints, *, q_rank: int):
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: index tensors must be int32")
-    for t in (q, k_pages, v_pages, *ints):
+    for t in (k_pages, v_pages, *ints) + (() if strided_q else (q,)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: every tensor must be contiguous")
+    if strided_q:
+        check_rows(name, q=q)
     H, hd = q.shape[1], q.shape[-1]
     page, KV = k_pages.shape[2], k_pages.shape[3]
     if hd not in (64, 128) or k_pages.shape[4] != hd:

@@ -9,9 +9,13 @@ invalid (ragged-padding) rows give exact zeros, which keeps a padded
 batched call row-independent — each request's outputs are identical
 whatever else shares the batch.
 
+Layouts: q ``(B, H, Sq, hd)`` with any strides and a contiguous last
+dimension — the model passes a view of its ``(B, Sq, H, hd)`` activations.
 ``paged_prefill_attention`` wraps the hand-written CUDA kernel
-(``csrc/paged_prefill.cu``); ``paged_prefill_torch`` is its plain PyTorch
-version, which the wrapper runs for tensors on the CPU.
+(``csrc/paged_prefill.cu``), reads q in place and returns a
+``(B, H, Sq, hd)`` view of a ``(B, Sq, H, hd)`` buffer, so no copy is made
+either way; ``paged_prefill_torch`` is its plain PyTorch version, which the
+wrapper runs for tensors on the CPU and which takes the same views.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ def paged_prefill_torch(q, k_pages, v_pages, tables, counts, starts, q_start,
     """Per-page gather + online softmax in plain PyTorch (twin of
     ``repro.kernels.paged_prefill.paged_prefill_jnp``).
 
-    q: (B, H, Sq, hd); k/v_pages: (L, n_pages, page, KV, hd); tables/counts/
+    q: (B, H, Sq, hd), any strides (the views the kernel takes);
+    k/v_pages: (L, n_pages, page, KV, hd); tables/counts/
     starts: (B, n_slots) int32; q_start/q_len: (B,) int32.  Peak live memory
     per step is one (B, page, KV, hd) tile plus the (B, H, Sq, page) scores.
     """
@@ -82,10 +87,14 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, counts, starts,
 
     Replaces the TPU kernel ``repro/kernels/paged_prefill.py::
     paged_prefill_attention``.  Bound on the H100 by operations for long
-    chunks, bytes for short ones; the kernel packs the R query heads of a
-    KV head into one CTA so each page is read once for all of them, and
-    skips empty entries and entries past the causal frontier or outside
-    the window (see csrc/paged_prefill.cu).  A CPU tensor takes the plain
+    chunks, bytes for short ones over long caches.  bf16 runs on the tensor
+    cores (mma.sync m16n8k16, f32 accumulation, P rounded to bf16 for the
+    P @ V product) with K/V pages streamed through a cp.async ring; f32 on
+    CUDA cores.  One CTA packs the R query heads of a KV head so each page
+    is read once for all of them, and skips empty entries and entries past
+    the causal frontier or outside the window.  Every page is one
+    online-softmax update, so a row's bits do not depend on the chunk it
+    sits in (see csrc/attn_tile.cuh).  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel on the current stream or
     raises.
     """
@@ -94,7 +103,8 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, counts, starts,
                                    starts, q_start, q_len, layer, window,
                                    logit_cap=logit_cap)
     check_pool_args("paged_prefill_attention", q, k_pages, v_pages,
-                    (tables, counts, starts, q_start, q_len), q_rank=4)
+                    (tables, counts, starts, q_start, q_len), q_rank=4,
+                    strided_q=True)
     B, H, Sq, hd = q.shape
     L, n_pages, page, KV, _ = k_pages.shape
     if not 0 <= layer < L:
@@ -104,15 +114,21 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, counts, starts,
             or q_len.shape != (B,):
         raise ValueError("run tables must be (B, n_slots), q_start and "
                          "q_len (B,)")
-    out = torch.empty_like(q)
+    # (B, Sq, H, hd) buffer: the model's layout, returned as a view
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if B == 0 or Sq == 0:
+        return out
     lib = _build.load("paged_prefill")
+    strides = [s for t in (q, out) for s in
+               (t.stride(0), t.stride(2), t.stride(1))]
     code = lib.paged_prefill_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), counts.data_ptr(), starts.data_ptr(),
         q_start.data_ptr(), q_len.data_ptr(), out.data_ptr(), B, H, KV, Sq,
         hd, n_pages, page, tables.shape[1], int(layer), int(window),
         float(logit_cap), hd ** -0.5, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *strides, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "paged_prefill", code)
     paged_prefill_attention.launches += 1
     return out

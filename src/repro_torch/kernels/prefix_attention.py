@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import MAX_R
+from repro_torch.kernels.paged_attention import MAX_R, check_rows
 
 NEG_INF = -1e30
 BLOCK = 128         # block_q = block_k of the TPU kernel
@@ -122,14 +122,7 @@ def _check_cuda_args(q, k, v) -> None:
                          f"got {hd}")
     if q.shape[1] // k.shape[1] > MAX_R:
         raise ValueError(f"at most {MAX_R} query heads per KV head")
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or t.data_ptr() % 16 \
-                or any(s % vec for s in t.stride()[:3]):
-            raise ValueError(
-                f"prefix_flash_attention: {name} needs a contiguous last "
-                f"dimension, a 16-byte aligned base and strides that are "
-                f"multiples of {vec} elements; got strides {t.stride()}")
+    check_rows("prefix_flash_attention", q=q, k=k, v=v)
 
 
 def prefix_flash_attention(q, k, v, *, prefix_len: int, window: int = 0,
@@ -138,12 +131,17 @@ def prefix_flash_attention(q, k, v, *, prefix_len: int, window: int = 0,
 
     Replaces the TPU kernel ``repro/kernels/prefix_attention.py::
     prefix_flash_attention``.  Bound on the H100 by operations for long
-    sequences; the kernel packs the R query heads of a KV head into one CTA
-    so each K/V tile is read once for all of them, and skips tiles wholly
-    past the causal frontier or before the window (see
-    csrc/prefix_attention.cu).  It also takes ``logit_cap``, which the TPU
-    kernel lacks.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel on the current stream or raises.
+    sequences, bytes for a short chunk after a long prefix.  bf16 runs on
+    the tensor cores (mma.sync m16n8k16, f32 accumulation, P rounded to
+    bf16 for the P @ V product) with 64-key K/V tiles streamed through a
+    cp.async ring; f32 on CUDA cores.  One CTA packs the R query heads of a
+    KV head so each tile is read once for all of them, and skips tiles
+    wholly past the causal frontier or before the window.  Tiles start at
+    multiples of 64 from key 0 and each is one online-softmax update, so a
+    row's bits do not depend on the chunk it sits in (see
+    csrc/attn_tile.cuh).  It also takes ``logit_cap``, which the TPU kernel
+    lacks.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel on the current stream or raises.
     """
     if not q.is_cuda:
         return prefix_attention_torch(q, k, v, prefix_len=prefix_len,

@@ -281,9 +281,11 @@ def paged_prefill_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
         k = L.apply_rope(k, positions, cfg.rope_theta)
         k_pages[li].index_put_((wb, ws), k.to(k_pages.dtype))
         v_pages[li].index_put_((wb, ws), v.to(v_pages.dtype))
+        # q is read in place through its strides; on the card o is a view
+        # of a (B, Sq, H, hd) buffer, so neither side is copied
         o = ops.paged_prefill_attention(
-            q.transpose(1, 2).contiguous(), k_pages, v_pages, tables, counts,
-            starts, q_start, q_len, li, windows[li],
+            q.transpose(1, 2), k_pages, v_pages, tables, counts, starts,
+            q_start, q_len, li, windows[li],
             logit_cap=cfg.attn_logit_softcap, impl=attn_impl)
         x = x + L.dense(o.transpose(1, 2).reshape(B, Sq, -1), p["wo"])
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)

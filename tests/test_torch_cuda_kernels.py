@@ -1,0 +1,182 @@
+"""The CUDA prefill kernels against their plain versions on random shapes,
+on the card (marked ``cuda``; each test skips without one):
+
+    python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Cases come from numpy seeds: GQA widths R in {1, 2, 7, 16}, one or two KV
+heads, head dims 64 and 128, pages of 1 to 32 keys, ragged rows after
+cached prefixes, empty and padding rows, windows and softcaps, f32 (the
+CUDA-core bodies) and bf16 (the tensor-core bodies).  Tolerances are
+chip_smoke.py's: f32 1e-4 (summation order only), bf16 2e-2 (one bf16 ulp
+of outputs below 4: the tensor cores take P rounded to bf16), and in bf16
+each output row within 1e-2 of its size against the plain version run in
+f32 on the same inputs.  Padding rows must be exactly 0, and every row must
+keep its bits when recomputed as a later chunk of the same prefill.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import paged_prefill as PP
+from repro_torch.kernels import prefix_attention as PX
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ROW_TOL = 1e-2     # bf16: max ||got - exact|| / ||exact|| of an output row
+DTYPES = [torch.float32, torch.bfloat16]
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _row_err(got, exact):
+    """The largest ||got - exact|| / ||exact|| over output rows; a row whose
+    exact result is 0 must be exactly 0."""
+    g = got.float().reshape(-1, got.shape[-1])
+    e = exact.float().reshape(-1, exact.shape[-1])
+    diff, norm = (g - e).norm(dim=-1), e.norm(dim=-1)
+    assert not bool((diff[norm == 0] > 0).any())
+    live = norm > 0
+    return (diff[live] / norm[live]).max().item() if bool(live.any()) else 0.
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(device=dev, dtype=dtype)
+
+
+def paged_case(seed, dtype, dev):
+    """A random ragged prefill chunk over a random pool, in the runtime's
+    run-table contract: every segment starts on a fresh page."""
+    rng = np.random.default_rng(seed)
+    B = int(rng.integers(1, 5))
+    KV = int(rng.choice([1, 2]))
+    R = int(rng.choice([1, 2, 7, 16]))
+    hd = int(rng.choice([64, 128]))
+    page = int(rng.choice([1, 5, 8, 16, 17, 32]))
+    Sq = int(rng.integers(1, 161))
+    window = int(rng.choice([0, 0, 24, 100]))
+    cap = float(rng.choice([0.0, 30.0]))
+    rows = []
+    for _ in range(B):
+        ql = int(rng.integers(1, Sq + 1)) if rng.random() < 0.8 else 0
+        pre = [int(n) for n in rng.integers(1, 300,
+                                            size=int(rng.integers(0, 3)))]
+        rows.append((pre if ql else [], ql))
+    n_pages = 1 + sum(-(-n // page) for pre, ql in rows for n in pre + [ql])
+    free = list(rng.permutation(np.arange(1, n_pages + 1)))  # 0 = scratch
+    runs = []
+    for pre, ql in rows:
+        t, c, s, pos = [], [], [], 0
+        for n in pre + ([ql] if ql else []):
+            for off in range(0, n, page):
+                t.append(int(free.pop()))
+                c.append(min(page, n - off))
+                s.append(pos + off)
+            pos += n
+        runs.append((t, c, s, pos - ql))
+    n_slots = max(len(r[0]) for r in runs) + 2     # trailing empty entries
+    tables = np.zeros((B, n_slots), np.int32)
+    counts = np.zeros((B, n_slots), np.int32)
+    starts = np.zeros((B, n_slots), np.int32)
+    q_start = np.array([r[3] for r in runs], np.int32)
+    q_len = np.array([ql for _, ql in rows], np.int32)
+    for b, (t, c, s, _) in enumerate(runs):
+        tables[b, :len(t)], counts[b, :len(t)], starts[b, :len(t)] = t, c, s
+    shape = (2, n_pages + 1, page, KV, hd)
+    ints = [torch.from_numpy(a).to(dev)
+            for a in (tables, counts, starts, q_start, q_len)]
+    q = _randn(rng, (B, Sq, R * KV, hd), dtype, dev).transpose(1, 2)
+    return dict(q=q, k=_randn(rng, shape, dtype, dev),
+                v=_randn(rng, shape, dtype, dev), ints=ints, window=window,
+                cap=cap)
+
+
+def _paged(fn, c, q=None, q_start=None, q_len=None):
+    tables, counts, starts, qs, ql = c["ints"]
+    return fn(c["q"] if q is None else q, c["k"], c["v"], tables, counts,
+              starts, qs if q_start is None else q_start,
+              ql if q_len is None else q_len, 1, c["window"],
+              logit_cap=c["cap"])
+
+
+def prefix_case(seed, dtype, dev):
+    rng = np.random.default_rng(seed)
+    B = int(rng.integers(1, 4))
+    KV = int(rng.choice([1, 2]))
+    R = int(rng.choice([1, 2, 7, 16]))
+    hd = int(rng.choice([64, 128]))
+    P = int(rng.choice([0, int(rng.integers(1, 400))]))
+    Sq = int(rng.integers(1, 300))
+    q = _randn(rng, (B, Sq, R * KV, hd), dtype, dev).transpose(1, 2)
+    k = _randn(rng, (B, P + Sq, KV, hd), dtype, dev).transpose(1, 2)
+    v = _randn(rng, (B, P + Sq, KV, hd), dtype, dev).transpose(1, 2)
+    return dict(q=q, k=k, v=v, prefix_len=P,
+                window=int(rng.choice([0, 0, 24, 100])),
+                logit_cap=float(rng.choice([0.0, 30.0])))
+
+
+def _prefix(fn, c, **kw):
+    c = dict(c, **kw)
+    return fn(c.pop("q"), c.pop("k"), c.pop("v"), **c)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("seed", range(12))
+def test_paged_prefill_kernel_matches_plain(dev, seed, dtype):
+    c = paged_case(seed, dtype, dev)
+    got = _paged(PP.paged_prefill_attention, c)
+    want = _paged(PP.paged_prefill_torch, c)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    if dtype == torch.bfloat16:
+        exact = _paged(PP.paged_prefill_torch,
+                       dict(c, q=c["q"].float(), k=c["k"].float(),
+                            v=c["v"].float()))
+        rel = _row_err(got, exact)
+        assert rel <= ROW_TOL, rel
+    q_len = c["ints"][4]
+    pad = torch.arange(got.shape[2], device=dev)[None] >= q_len[:, None]
+    assert bool((got.float().permute(0, 2, 1, 3)[pad] == 0).all())
+    # rows from `cut` on, recomputed as a later chunk, keep their bits
+    Sq = got.shape[2]
+    if Sq > 1:
+        cut = int(np.random.default_rng(seed + 100).integers(1, Sq))
+        b = _paged(PP.paged_prefill_attention, c, q=c["q"][:, :, cut:],
+                   q_start=c["ints"][3] + cut,
+                   q_len=torch.clamp(q_len - cut, min=0).to(q_len.dtype))
+        assert torch.equal(got[:, :, cut:], b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("seed", range(12))
+def test_prefix_kernel_matches_plain(dev, seed, dtype):
+    c = prefix_case(seed, dtype, dev)
+    got = _prefix(PX.prefix_flash_attention, c)
+    want = _prefix(PX.prefix_attention_torch, c)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    if dtype == torch.bfloat16:
+        exact = _prefix(PX.prefix_attention_torch, c, q=c["q"].float(),
+                        k=c["k"].float(), v=c["v"].float())
+        rel = _row_err(got, exact)
+        assert rel <= ROW_TOL, rel
+    Sq = got.shape[2]
+    if Sq > 1:
+        cut = int(np.random.default_rng(seed + 100).integers(1, Sq))
+        b = _prefix(PX.prefix_flash_attention, c, q=c["q"][:, :, cut:],
+                    prefix_len=c["prefix_len"] + cut)
+        assert torch.equal(got[:, :, cut:], b)

@@ -192,3 +192,26 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     n = PP.paged_prefill_attention.launches
     PP.paged_prefill_attention(*pins, 1, 0)
     assert PP.paged_prefill_attention.launches == n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_plain_takes_the_model_layout_view(dtype):
+    """The (B, H, Sq, hd) view of a (B, Sq, H, hd) buffer — what the model
+    passes, and what the kernel reads in place — gives the results of a
+    contiguous copy, bit for bit."""
+    tt = _to_torch(prefill_inputs(21, 7, PREFILL_ROWS, 32), dtype)
+    view = tt[0].transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous() and torch.equal(view, tt[0])
+    a = ops.paged_prefill_attention(view, *tt[1:], 1, 12, logit_cap=20.0)
+    b = ops.paged_prefill_attention(view.contiguous(), *tt[1:], 1, 12,
+                                    logit_cap=20.0)
+    assert torch.equal(a, b)
+
+
+def test_row_check_takes_views_and_refuses_split_rows():
+    q = torch.zeros((2, 6, 3, 64), dtype=torch.bfloat16)
+    PA.check_rows("t", q=q, view=q.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        PA.check_rows("t", q=q.transpose(2, 3))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        PA.check_rows("t", q=q[..., 1:61])
