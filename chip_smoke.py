@@ -9,13 +9,17 @@ Phases, each fatal on failure:
                (one nvcc each, in parallel) and print ptxas's registers and
                spills for each kernel;
   3. parity  — each kernel against its plain PyTorch version (and the dense
-               oracle) at the main path's shapes and at small edge cases in
-               f32 and bf16, the body (tensor or CUDA cores) serving each
-               dtype, and bit for bit: rows of a 2048-row prefill equal to
-               the same rows recomputed as a later chunk, for the paged and
-               the prefix kernel;
+               oracle) at the main path's shapes, at decode rows of ~3,400
+               keys and at small edge cases in f32 and bf16, the body
+               (tensor or CUDA cores) serving each dtype, and bit for bit:
+               rows of a 2048-row prefill equal to the same rows recomputed
+               as a later chunk, for the paged and the prefix kernel, and a
+               decode row equal alone and in its batch, with its
+               neighbours' pages changed, and with its table narrowed or
+               widened by empty entries;
   4. times   — CUDA-event medians of kernel, plain version and a PyTorch
-               library yardstick, beside the card's least possible time;
+               library yardstick, beside the card's least possible time
+               (decode at the main shape and at the long rows);
   5. serve   — the main path at full Qwen2-0.5B width (seeded random bf16
                weights): 32 requests through ContinuousRuntime, counting
                kernel launches;
@@ -35,7 +39,8 @@ Phases, each fatal on failure:
   9. dense   — --attn dense on 8 requests, against the main serve's;
  10. seq     — the port's serve.main --check-tokens tol:0.15 on 8
                requests: continuous vs the sequential RAGServer;
- 11. profile — torch.profiler over 8 more requests: device time by kernel.
+ 11. profile — torch.profiler over 8 more requests: device time by kernel,
+               and the decode kernels' (split + merge) share of it.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
 the kernels' JSON record.  Without CUDA, or outside a checkout of the
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -79,6 +85,8 @@ MAIN_ARGV = ["--docs", "200", "--doc-tokens", "512", "--top-k", "2",
              "--requests", "32", "--max-new-tokens", "8", "--max-batch", "8",
              "--max-prefill-bs", "4", "--gpu-cache-bytes", "805306368",
              "--device", "cuda"]
+# card clock cycles (~1 ms) the card spins before each timed call
+SPIN_CYCLES = 2_000_000
 # rows per call in the row-invariance probe; 8192 is the largest prefill
 # iteration of the main path (4 rows x a 2048-token bucket)
 PROBE_ROWS = (1, 8, 64, 128, 512, 2048, 8192)
@@ -247,7 +255,10 @@ def bound_ms(np, case, decode: bool):
 
 def time_ms(torch, fn, *, reps=21, warm=3, flush=None):
     """Median of `reps` CUDA-event timings of fn(), L2 flushed before each
-    (the serving pool is far larger than the 50 MB L2)."""
+    (the serving pool is far larger than the 50 MB L2).  The card spins
+    for SPIN_CYCLES between the flush and the first event, so the host has
+    enqueued fn()'s launches before the card reaches them: the events time
+    the card's work, not the Python that launches it."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -255,6 +266,7 @@ def time_ms(torch, fn, *, reps=21, warm=3, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -562,6 +574,12 @@ def main_cases(torch, np):
                       n_slots=220, dtype=torch.bfloat16, seed=11,
                       rows=[[doc(), doc(), 8 + int(rng.integers(1, 9))]
                             for _ in range(8)])
+    # the main path's longest decode rows at 220 slots: two 1400-token docs
+    # and a question, ~3,400 live keys (214 of the 220 entries)
+    dec_long = decode_case(torch, np, B=8, H=14, KV=2, hd=64, page=16,
+                           n_slots=220, dtype=torch.bfloat16, seed=14,
+                           rows=[[1400 - 3 * i, 1390, 600 + i]
+                                 for i in range(8)])
     pre = {
         2048: prefill_case(torch, np, B=4, H=14, KV=2, hd=64, page=16,
                            n_slots=220, Sq=2048, dtype=torch.bfloat16,
@@ -572,7 +590,7 @@ def main_cases(torch, np):
                          rows=[([800, 1000], 64), ([1200], 40), ([], 24),
                                ([], 0)]),
     }
-    return dec, pre
+    return dec, dec_long, pre
 
 
 def phase_parity(torch, np):
@@ -580,12 +598,18 @@ def phase_parity(torch, np):
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import paged_prefill as PP
     from repro_torch.kernels import ref
-    dec, pre = main_cases(torch, np)
+    dec, dec_long, pre = main_cases(torch, np)
     errs = {}
     errs["decode"] = check(torch, "decode main B=8 H=14 KV=2 hd=64 slots=220",
                            call(PA.paged_decode_attention, dec),
                            call(PA.paged_decode_torch, dec), TOL_BF16,
                            exact=call(PA.paged_decode_torch, as_f32(dec)))
+    errs["decode_long"] = check(
+        torch, "decode long rows (~3,400 keys) B=8 H=14 KV=2 hd=64 "
+        "slots=220", call(PA.paged_decode_attention, dec_long),
+        call(PA.paged_decode_torch, dec_long), TOL_BF16,
+        exact=call(PA.paged_decode_torch, as_f32(dec_long)))
+    decode_bits(torch, dec)
     for sq, case in pre.items():
         pad = torch.arange(sq, device="cuda")[None] >= case["q_len"][:, None]
         pad = pad[:, None, :].expand(-1, case["q"].shape[1], -1)
@@ -627,9 +651,24 @@ def phase_parity(torch, np):
             if dtype == torch.float32:
                 check(torch, f"prefill-oracle {tag}", got,
                       call(ref.reference_paged_prefill, p), tol)
-        # pages of 8 and 32 keys: one 16-key unit a page, and two
+        # pages of 8 and 32 keys: one 16-key unit a page, and two; decode
+        # rows of 3-4 splits (16 and 4 table entries a split) under a
+        # window of 300
         for page, R in ((8, 2), (32, 7)):
             tag = f"{str(dtype)[6:]} page={page} R={R} hd=64 win=24 cap=30"
+            dtag = tag.replace("win=24", "win=300")
+            d = decode_case(torch, np, B=3, H=2 * R, KV=2, hd=64, page=page,
+                            n_slots=80, dtype=dtype, seed=page + R + 2,
+                            rows=[[300, 130, 5], [], [16, 400]], window=300,
+                            cap=30.0)
+            got = call(PA.paged_decode_attention, d)
+            check(torch, f"decode {dtag}", got,
+                  call(PA.paged_decode_torch, d), tol, zero_rows=[1],
+                  exact=call(PA.paged_decode_torch, as_f32(d))
+                  if dtype == torch.bfloat16 else None)
+            if dtype == torch.float32:
+                check(torch, f"decode-oracle {dtag}", got,
+                      call(ref.reference_paged_decode, d), tol)
             p = prefill_case(torch, np, B=3, H=2 * R, KV=2, hd=64, page=page,
                              n_slots=24, Sq=40, dtype=dtype, seed=page + R,
                              rows=[([20, 13], 40), ([], 17), ([], 0)],
@@ -650,7 +689,60 @@ def phase_parity(torch, np):
         for dtype in ("bfloat16", "float32"):
             print(f"[parity] {name} body for {dtype}: "
                   f"{_build.body(name, dtype == 'bfloat16')}", flush=True)
-    return dec, pre, pfx, errs
+    return dec, dec_long, pre, pfx, errs
+
+
+def decode_bits(torch, dec):
+    """A decode row's bits depend only on its own run table: each row of
+    the main case must come out bit for bit the same alone (B = 1), with
+    every page but its own refilled at random, and with its table cut to
+    the longest row's live entries or widened to 300 by empty entries."""
+    from repro_torch.kernels import paged_attention as PA
+    out = call(PA.paged_decode_attention, dec)
+    B = dec["q"].shape[0]
+    ints = ("tables", "counts", "starts")
+
+    def verdict(name, same):
+        print(f"[parity] decode kernel, {name}: bit-identical {same}",
+              flush=True)
+        if not same:
+            die(f"decode rows are not bit-identical {name}")
+
+    verdict("each row alone (B=1) vs in the B=8 batch", all(
+        torch.equal(out[b:b + 1], call(PA.paged_decode_attention, dict(
+            dec, q=dec["q"][b:b + 1], qpos=dec["qpos"][b:b + 1],
+            **{n: dec[n][b:b + 1] for n in ints})))
+        for b in range(B)))
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    same, moved = True, False
+    for b in range(B):
+        own = dec["tables"][b][dec["counts"][b] > 0].long()
+        other = {}
+        for n in ("k_pages", "v_pages"):
+            t = torch.randn(dec[n].shape, generator=gen, device="cuda")
+            t = t.to(dec[n].dtype)
+            t[:, own] = dec[n][:, own]
+            other[n] = t
+        got = call(PA.paged_decode_attention, dict(dec, **other))
+        same &= torch.equal(got[b], out[b])
+        moved |= not torch.equal(got, out)
+    if not moved:
+        die("refilling the neighbours' pages changed no output: the bit "
+            "check would not see a leak")
+    verdict("each row with every other page refilled at random", same)
+    counts = dec["counts"]
+    live = int((counts > 0).sum(dim=1).max())
+    n_slots = counts.shape[1]
+    narrow = {n: dec[n][:, :live].contiguous() for n in ints}
+    pad = 300 - n_slots
+    wide = {n: torch.cat([dec[n], torch.zeros_like(dec[n][:, :1])
+                          .expand(-1, pad)], dim=1) for n in ints}
+    verdict(f"tables of {n_slots} entries vs {live} (the longest row's "
+            f"live ones) and 300",
+            torch.equal(call(PA.paged_decode_attention, dict(dec, **narrow)),
+                        out)
+            and torch.equal(call(PA.paged_decode_attention,
+                                 dict(dec, **wide)), out))
 
 
 def chunk_split_paged(torch, whole):
@@ -736,7 +828,7 @@ def parity_prefix(torch, errs):
     return pfx
 
 
-def phase_times(torch, np, dec, pre, pfx, errs):
+def phase_times(torch, np, dec, dec_long, pre, pfx, errs):
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import paged_prefill as PP
     from repro_torch.kernels import prefix_attention as PX
@@ -745,6 +837,8 @@ def phase_times(torch, np, dec, pre, pfx, errs):
     for name, fn, plain, case, decode, key in (
             ("paged_decode_attention", PA.paged_decode_attention,
              PA.paged_decode_torch, dec, True, "decode"),
+            ("paged_decode_attention@long_rows", PA.paged_decode_attention,
+             PA.paged_decode_torch, dec_long, True, "decode_long"),
             ("paged_prefill_attention", PP.paged_prefill_attention,
              PP.paged_prefill_torch, pre[2048], False, "prefill2048"),
             ("paged_prefill_attention@Sq=64", PP.paged_prefill_attention,
@@ -1138,6 +1232,13 @@ def phase_profile(torch, cfg, params, corpus, idx, wl, args):
     for ms, n, name in rows[:12]:
         print(f"[profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} "
               f"{name[:80]}", flush=True)
+    dec = [r for r in rows if "paged_decode_" in r[2]]
+    dec_ms = sum(r[0] for r in dec)
+    names = [re.search(r"paged_decode_[^(]*", r[2]).group(0) for r in dec]
+    print(f"[profile] decode (the splits and their merge): {dec_ms:.2f} ms = "
+          f"{100 * dec_ms / busy:.1f}% of device time, "
+          f"{' + '.join(str(r[1]) for r in dec) or 0} launches "
+          f"({', '.join(names)})", flush=True)
 
 
 def main() -> None:
@@ -1146,9 +1247,9 @@ def main() -> None:
     phase_device(torch)
     import numpy as np
     phase_build()
-    dec, pre, pfx, errs = phase_parity(torch, np)
-    times = phase_times(torch, np, dec, pre, pfx, errs)
-    del dec, pre, pfx
+    dec, dec_long, pre, pfx, errs = phase_parity(torch, np)
+    times = phase_times(torch, np, dec, dec_long, pre, pfx, errs)
+    del dec, dec_long, pre, pfx
     torch.cuda.empty_cache()
     (cfg, params, corpus, idx, wl, args, results, launches,
      main_stats) = phase_serve(torch, np)
@@ -1175,7 +1276,8 @@ def main() -> None:
     kernels = []
     for (name, src, replaces), key, extra in zip(
             KERNELS, ("decode", "prefill2048", "prefix2048"),
-            ({}, {"at_sq64": times["prefill64"]},
+            ({"at_long_rows": times["decode_long"]},
+             {"at_sq64": times["prefill64"]},
              {"at_prefix0_sq512": times["prefix512"],
               "at_prefix1700_sq300": times["prefix1700+300"]})):
         row = times[key]

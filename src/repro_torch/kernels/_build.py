@@ -34,7 +34,7 @@ _L = ctypes.c_longlong
 # the softcap and scale as c_float, element strides as c_longlong (see the
 # extern "C" functions in csrc/)
 ARGTYPES = {
-    "paged_decode": [_P] * 8 + [_I] * 9 + [_F, _F, _I, _P],
+    "paged_decode": [_P] * 10 + [_I] * 10 + [_F, _F, _I, _P],
     "paged_prefill": [_P] * 9 + [_I] * 10 + [_F, _F, _I] + [_L] * 6 + [_P],
     "prefix_attention": [_P] * 4 + [_I] * 8 + [_F, _F, _I] + [_L] * 12
     + [_P],

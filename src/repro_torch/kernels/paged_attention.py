@@ -12,9 +12,11 @@ positions (``pos > qpos - window``).  A row whose runs are all empty gives
 exact zeros.
 
 ``paged_decode_attention`` is the wrapper of the hand-written CUDA kernel
-(``csrc/paged_decode.cu``); ``paged_decode_torch`` is its plain PyTorch
-version — a per-page gather + online softmax with the JAX twin's masking —
-which the wrapper runs for tensors on the CPU.
+(``csrc/paged_decode.cu``: CTAs over fixed ranges of table entries, whose
+partials the last of them to finish merges in a fixed order);
+``paged_decode_torch`` is its plain PyTorch version — a per-page gather +
+online softmax with the JAX twin's masking — which the wrapper runs for
+tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -25,6 +27,10 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_R = 16          # query heads per KV head the CUDA kernels take
 MAX_PAGE = 32       # page (block) size the CUDA kernels take
+# keys a split of the CUDA decode kernel covers (csrc/paged_decode.cu
+# SPLIT_KEYS), and for rows above 256 bytes (f32 at hd 128: SPLIT_KEYS_WIDE)
+SPLIT_KEYS = 128
+SPLIT_KEYS_WIDE = 64
 
 
 def paged_decode_torch(q, k_pages, v_pages, tables, counts, starts, qpos,
@@ -123,6 +129,30 @@ def check_pool_args(name, q, k_pages, v_pages, ints, *, q_rank: int,
         raise ValueError(f"{name}: page size must be in 1..{MAX_PAGE}")
 
 
+def decode_splits(n_slots: int, page: int, hd: int, dtype) -> int:
+    """Splits a row of the CUDA decode kernel: a split covers max(1, keys
+    // page) table entries, keys fixed by the row width alone, never by the
+    batch or a row's length, so a row's bits depend only on its own run
+    table.  A table of no entries still gets one (empty) split."""
+    wide = dtype.itemsize * hd > 256
+    per = max(1, (SPLIT_KEYS_WIDE if wide else SPLIT_KEYS) // page)
+    return max(1, -(-n_slots // per))
+
+
+_COUNTERS = {}
+
+
+def _counters(device, n: int):
+    """The decode kernel's per-(row, KV head) counters of finished splits,
+    one zeroed int32 buffer per device: the CTA that merges a row resets
+    its counter, so the buffer is zero again after every launch."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def paged_decode_attention(q, k_pages, v_pages, tables, counts, starts, qpos,
                            layer: int, window: int, *,
                            logit_cap: float = 0.0):
@@ -130,10 +160,11 @@ def paged_decode_attention(q, k_pages, v_pages, tables, counts, starts, qpos,
 
     Replaces the TPU kernel ``repro/kernels/paged_attention.py::
     paged_decode_attention``.  Bound on the H100 by bytes (the live K/V
-    pages); the kernel reads each page once per KV head for all of its
-    query heads and skips empty table entries (see csrc/paged_decode.cu).
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    on the current stream or raises.
+    pages); each split CTA reads its pages once per KV head for all of its
+    query heads and skips empty table entries, and the last CTA of a row
+    merges the splits' f32 partials in a fixed order (see
+    csrc/paged_decode.cu).  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel on the current stream or raises.
     """
     if not q.is_cuda:
         return paged_decode_torch(q, k_pages, v_pages, tables, counts, starts,
@@ -147,13 +178,25 @@ def paged_decode_attention(q, k_pages, v_pages, tables, counts, starts, qpos,
     if tables.shape != counts.shape or tables.shape != starts.shape \
             or tables.shape[0] != B or qpos.shape != (B,):
         raise ValueError("run tables must be (B, n_slots) and qpos (B,)")
+    if L * n_pages * page >= 2 ** 31:
+        raise ValueError("the kernel indexes pool rows with 32-bit ints: "
+                         f"{L * n_pages * page} rows")
+    check_rows("paged_decode_attention", q=q, k_pages=k_pages,
+               v_pages=v_pages)
+    n_slots = tables.shape[1]
+    n_split = decode_splits(n_slots, page, hd, q.dtype)
     out = torch.empty_like(q)
+    # the splits' partials in f32: acc (B, H, n_split, hd), then m and l
+    # (B, H, n_split)
+    part = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _build.load("paged_decode")
     code = lib.paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), counts.data_ptr(), starts.data_ptr(),
-        qpos.data_ptr(), out.data_ptr(), B, H, KV, hd, n_pages, page,
-        tables.shape[1], int(layer), int(window), float(logit_cap),
+        qpos.data_ptr(), out.data_ptr(), part.data_ptr(),
+        _counters(q.device, B * KV).data_ptr(), B, H, KV, hd, n_pages,
+        page, n_slots, n_split, int(layer), int(window), float(logit_cap),
         hd ** -0.5, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "paged_decode", code)

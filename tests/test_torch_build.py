@@ -86,3 +86,46 @@ def test_digest_follows_every_header_and_the_source(name, tmp_path,
             p = csrc / f"{other}.cu"
             p.write_text(p.read_text() + "\n// edited\n")
     assert _build._digest(name) == before
+
+
+@pytest.mark.parametrize("n_slots,page,hd,dtype,want", [
+    (220, 16, 64, "bfloat16", 28),     # the main path: 8 entries a split
+    (80, 16, 64, "bfloat16", 10),      # the same rows, fewer entries
+    (220, 1, 64, "float32", 2),        # 128 entries a split
+    (220, 17, 128, "bfloat16", 32),    # 7 entries, 119 keys a split
+    (220, 32, 128, "float32", 110),    # rows of 512 bytes: 64 keys
+    (0, 16, 64, "bfloat16", 1),        # no entries: one empty split
+])
+def test_decode_splits(n_slots, page, hd, dtype, want):
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    assert PA.decode_splits(n_slots, page, hd, getattr(torch, dtype)) == want
+
+
+def test_decode_split_keys_match_the_source():
+    """The wrapper sizes the splits' scratch with the kernel's own split
+    size; the launcher refuses any other count of splits."""
+    from repro_torch.kernels import paged_attention as PA
+    text = (_build.CSRC / "paged_decode.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (SPLIT_KEYS\w*) = (\d+);", text))
+    assert consts == {"SPLIT_KEYS": str(PA.SPLIT_KEYS),
+                      "SPLIT_KEYS_WIDE": str(PA.SPLIT_KEYS_WIDE)}
+    assert "sizeof(T) * HD > 256 ? SPLIT_KEYS_WIDE : SPLIT_KEYS" in text
+
+
+def test_decode_counters_are_one_zeroed_buffer_a_device():
+    """The decode kernel's finished-split counters: int32 zeros, at least
+    one per (row, KV head), kept across calls and grown when a batch needs
+    more."""
+    import torch
+    from repro_torch.kernels import paged_attention as PA
+    dev = torch.device("cpu")
+    PA._COUNTERS.pop(dev, None)
+    a = PA._counters(dev, 16)
+    assert a.dtype == torch.int32 and a.numel() >= 16
+    assert not bool(a.any())
+    assert PA._counters(dev, 8) is a
+    b = PA._counters(dev, a.numel() + 1)
+    assert b.numel() > a.numel() and not bool(b.any())
+    assert PA._counters(dev, 8) is b
+    PA._COUNTERS.pop(dev, None)

@@ -1,22 +1,26 @@
-"""The CUDA prefill kernels against their plain versions on random shapes,
-on the card (marked ``cuda``; each test skips without one):
+"""The CUDA attention kernels against their plain versions on random
+shapes, on the card (marked ``cuda``; each test skips without one):
 
     python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Cases come from numpy seeds: GQA widths R in {1, 2, 7, 16}, one or two KV
 heads, head dims 64 and 128, pages of 1 to 32 keys, ragged rows after
 cached prefixes, empty and padding rows, windows and softcaps, f32 (the
-CUDA-core bodies) and bf16 (the tensor-core bodies).  Tolerances are
-chip_smoke.py's: f32 1e-4 (summation order only), bf16 2e-2 (one bf16 ulp
-of outputs below 4: the tensor cores take P rounded to bf16), and in bf16
-each output row within 1e-2 of its size against the plain version run in
-f32 on the same inputs.  Padding rows must be exactly 0, and every row must
-keep its bits when recomputed as a later chunk of the same prefill.
+prefill kernels' CUDA-core bodies) and bf16 (their tensor-core bodies);
+decode rows up to ~1,600 keys, so that a row spans 8 or more of the decode
+kernel's splits.  Tolerances are chip_smoke.py's: f32 1e-4 (summation order
+only), bf16 2e-2 (one bf16 ulp of outputs below 4: the tensor cores take P
+rounded to bf16), and in bf16 each output row within 1e-2 of its size
+against the plain version run in f32 on the same inputs.  Padding and
+all-empty rows must be exactly 0.  Every prefill row must keep its bits
+when recomputed as a later chunk of the same prefill, and every decode row
+alone, beside other neighbours' pages, and in a narrower or wider table.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import paged_prefill as PP
 from repro_torch.kernels import prefix_attention as PX
 
@@ -180,3 +184,108 @@ def test_prefix_kernel_matches_plain(dev, seed, dtype):
         b = _prefix(PX.prefix_flash_attention, c, q=c["q"][:, :, cut:],
                     prefix_len=c["prefix_len"] + cut)
         assert torch.equal(got[:, :, cut:], b)
+
+
+def decode_case(seed, dtype, dev):
+    """A random decode batch over a random pool: row 0 spans 8 or more
+    splits, the last row (B > 1) is all empty, the others are random."""
+    rng = np.random.default_rng(seed)
+    B = int(rng.integers(1, 9))
+    KV = int(rng.choice([1, 2]))
+    R = int(rng.choice([1, 2, 7, 16]))
+    hd = int(rng.choice([64, 128]))
+    page = int(rng.choice([1, 5, 8, 16, 17, 32]))
+    window = int(rng.choice([0, 0, 24, 100]))
+    cap = float(rng.choice([0.0, 30.0]))
+    rows = []
+    for b in range(B):
+        u = 0.0 if b == 0 else 1.0 if b == B - 1 else rng.random()
+        if u < 0.3:
+            rows.append([int(n) for n in rng.integers(450, 800, size=2)]
+                        + [int(rng.integers(1, 30))])
+        elif u < 0.85:
+            rows.append([int(n) for n in rng.integers(
+                1, 300, size=int(rng.integers(1, 4)))])
+        else:
+            rows.append([])
+    n_pages = 1 + sum(-(-n // page) for segs in rows for n in segs)
+    free = list(rng.permutation(np.arange(1, n_pages + 1)))  # 0 = scratch
+    runs = []
+    for segs in rows:
+        t, c, s, pos = [], [], [], 0
+        for n in segs:
+            for off in range(0, n, page):
+                t.append(int(free.pop()))
+                c.append(min(page, n - off))
+                s.append(pos + off)
+            pos += n
+        runs.append((t, c, s, max(pos - 1, 0)))
+    n_slots = max(len(r[0]) for r in runs) + 3     # trailing empty entries
+    ints = [np.zeros((B, n_slots), np.int32) for _ in range(3)]
+    for b, (t, c, s, _) in enumerate(runs):
+        for a, vals in zip(ints, (t, c, s)):
+            a[b, :len(vals)] = vals
+    qpos = np.array([r[3] for r in runs], np.int32)
+    shape = (2, n_pages + 1, page, KV, hd)
+    return dict(q=_randn(rng, (B, R * KV, hd), dtype, dev),
+                k=_randn(rng, shape, dtype, dev),
+                v=_randn(rng, shape, dtype, dev),
+                ints=[torch.from_numpy(a).to(dev) for a in (*ints, qpos)],
+                window=window, cap=cap, empty=[not segs for segs in rows])
+
+
+def _decode(fn, c, **kw):
+    c = dict(c, **kw)
+    tables, counts, starts, qpos = c["ints"]
+    return fn(c["q"], c["k"], c["v"], tables, counts, starts, qpos, 1,
+              c["window"], logit_cap=c["cap"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("seed", range(12))
+def test_decode_kernel_matches_plain(dev, seed, dtype):
+    c = decode_case(seed, dtype, dev)
+    got = _decode(PA.paged_decode_attention, c)
+    want = _decode(PA.paged_decode_torch, c)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    if dtype == torch.bfloat16:
+        exact = _decode(PA.paged_decode_torch, c, q=c["q"].float(),
+                        k=c["k"].float(), v=c["v"].float())
+        rel = _row_err(got, exact)
+        assert rel <= ROW_TOL, rel
+    empty = torch.tensor(c["empty"], device=dev)
+    assert bool((got.float()[empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("seed", range(6))
+def test_decode_row_bits_depend_on_its_own_table_only(dev, seed, dtype):
+    c = decode_case(100 + seed, dtype, dev)
+    out = _decode(PA.paged_decode_attention, c)
+    tables, counts, starts, qpos = c["ints"]
+    B = out.shape[0]
+    for b in range(B):
+        alone = _decode(PA.paged_decode_attention, c, q=c["q"][b:b + 1],
+                        ints=[t[b:b + 1] for t in c["ints"]])
+        assert torch.equal(alone, out[b:b + 1]), b
+        own = tables[b][counts[b] > 0].long()
+        gen = torch.Generator(device=dev).manual_seed(seed * 10 + b)
+        other = {}
+        for n in ("k", "v"):
+            t = torch.randn(c[n].shape, generator=gen, device=dev)
+            t = t.to(dtype)
+            t[:, own] = c[n][:, own]
+            other[n] = t
+        assert torch.equal(_decode(PA.paged_decode_attention, c,
+                                   **other)[b], out[b]), b
+    live = int((counts > 0).sum(dim=1).max())
+    narrow = [t[:, :live].contiguous() for t in (tables, counts, starts)]
+    wide = [torch.cat([t, torch.zeros_like(t[:, :1]).expand(-1, 200)],
+                      dim=1) for t in (tables, counts, starts)]
+    for ints in (narrow, wide):
+        assert torch.equal(_decode(PA.paged_decode_attention, c,
+                                   ints=ints + [qpos]), out)
