@@ -39,7 +39,24 @@ Phases, each fatal on failure:
   9. dense   — --attn dense on 8 requests, against the main serve's;
  10. seq     — the port's serve.main --check-tokens tol:0.15 on 8
                requests: continuous vs the sequential RAGServer;
- 11. profile — torch.profiler over 8 more requests: device time by kernel,
+ 11. chunk   — --reuse chunk (16 boundary tokens): 16 requests twice on one
+               runtime, the second pass with each request's doc order
+               reversed, so docs are reused exactly and relocated; results
+               flagged exact against the sequential engine on the same
+               doc order, the relocated ones' first-token L-inf; the first
+               4 requests' two passes through the kernels against the
+               plain versions; then serve.main --reuse chunk with a
+               recompute budget past every doc, --check-tokens tol:0.15 on
+               8 requests;
+ 12. fleet   — serve.main --replicas 2 --routing affinity --check-tokens
+               tol:0.15 on 16 requests (two runtimes, two pools, one set of
+               weights on the card), and the same 16 requests through one
+               replica: identical token streams and first-token L-inf;
+ 13. door    — serve.main --frontdoor --tenants 4 --replicas 2 --autoscale
+               with a disk tier sized for the corpus and decode batch 4,
+               --check-tokens tol:0.15 on the admitted misses of 32
+               requests;
+ 14. profile — torch.profiler over 8 more requests: device time by kernel,
                and the decode kernels' (split + merge) share of it.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
@@ -48,7 +65,10 @@ repository, the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import io
 import json
 import re
 import statistics
@@ -882,7 +902,7 @@ def phase_serve(torch, np):
     args = serve.build_parser().parse_args(MAIN_ARGV)
     cfg = get_config("qwen2-0.5b")
     t0 = time.perf_counter()
-    cfg, params, corpus, idx, wl = serve.make_setup(args, cfg=cfg)
+    cfg, params, corpus, idx, wl, _ = serve.make_setup(args, cfg=cfg)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}; set-up "
@@ -891,7 +911,8 @@ def phase_serve(torch, np):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    results, rt = serve.serve_continuous(cfg, params, corpus, idx, wl, args)
+    results, (rt,) = serve.serve_continuous(cfg, params, corpus, idx, wl,
+                                            args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = read_counts()
@@ -1154,15 +1175,19 @@ def phase_dense(torch, np, cfg, params, corpus, idx, wl, args, results):
     return launches["prefix_flash_attention"]
 
 
-def phase_sequential(torch):
-    """The port's serve.main with --check-tokens tol:0.15 on 8 full-width
-    requests: the continuous runtime against the sequential RAGServer."""
-    import contextlib
-    import io
-    from repro_torch.launch import serve
+def main_argv(n_requests, *extra):
+    """serve.main's argv: the main configuration at published width with
+    ``n_requests`` requests, plus ``extra`` flags."""
     argv = list(MAIN_ARGV)
-    argv[argv.index("--requests") + 1] = "8"
-    argv += ["--full-size", "--check-tokens", f"tol:{LOGIT_EPS}"]
+    argv[argv.index("--requests") + 1] = str(n_requests)
+    return argv + ["--full-size", *extra]
+
+
+def run_main(tag, argv, keep=()):
+    """Run serve.main(argv) with its stdout captured: the lines starting
+    with a prefix in ``keep`` are echoed under ``[tag]``; returns (stdout,
+    launches, plain-version calls)."""
+    from repro_torch.launch import serve
     reset_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -1171,22 +1196,287 @@ def phase_sequential(torch):
             serve.main(argv)
     except SystemExit as e:
         print(buf.getvalue()[-4000:], flush=True)
-        die(f"serve.main --check-tokens exited: {e}")
+        die(f"[{tag}] serve.main exited: {e}")
     wall = time.perf_counter() - t0
-    out = buf.getvalue()
     launches, plain = read_counts()
-    lines = [ln for ln in out.splitlines()
-             if ln.startswith(("[continuous]", "[sequential]", "mean TTFT",
-                               "token check"))]
-    for ln in lines:
-        print(f"[seq] {ln}", flush=True)
-    print(f"[seq] {wall:.1f}s wall; launches {launches}; plain-version "
+    out = buf.getvalue()
+    for ln in out.splitlines():
+        if ln.lstrip().startswith(keep):
+            print(f"[{tag}] {ln}", flush=True)
+    print(f"[{tag}] {wall:.1f}s wall; launches {launches}; plain-version "
           f"calls {plain}", flush=True)
+    return out, launches, plain
+
+
+def phase_sequential(torch):
+    """The port's serve.main with --check-tokens tol:0.15 on 8 full-width
+    requests: the continuous runtime against the sequential RAGServer."""
+    out, launches, plain = run_main(
+        "seq", main_argv(8, "--check-tokens", f"tol:{LOGIT_EPS}"),
+        keep=("[continuous]", "[sequential]", "mean TTFT", "token check"))
     if f"token check: all 8 requests within tol {LOGIT_EPS:g}" not in out:
         die("serve.main printed no passing token-check line")
     if launches["prefix_flash_attention"] <= 0 or plain:
         die(f"sequential path: launches {launches}, plain calls {plain}")
     return launches["prefix_flash_attention"]
+
+
+class FlipIndex:
+    """An index whose retrievals come back in reversed doc order while
+    ``reverse`` is set: the same docs at other positions, which is what
+    relocates a cached doc under --reuse chunk."""
+
+    def __init__(self, base):
+        self.base = base
+        self.reverse = False
+
+    def search(self, q, k, fraction=1.0):
+        out = self.base.search(q, k, fraction)
+        return out[::-1] if self.reverse else out
+
+    def staged_search(self, q, k, fraction=1.0):
+        for st in self.base.staged_search(q, k, fraction):
+            yield (dataclasses.replace(st, topk=tuple(reversed(st.topk)))
+                   if self.reverse else st)
+
+
+def chunk_passes(torch, cfg, params, corpus, idx, sub, args, **conf):
+    """One --reuse chunk runtime (16 boundary tokens) over ``sub`` twice,
+    the second pass with every request's doc order reversed; returns
+    (runtime, the index wrapper, results of each pass, (tokens/s, TTFT p50
+    ms) of each pass)."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.runtime import ContinuousRuntime
+    econf = dataclasses.replace(EngineConfig.from_args(args), reuse="chunk",
+                                recompute_tokens=16, **conf)
+    flip = FlipIndex(idx)
+    rt = ContinuousRuntime(cfg, params, corpus, flip, config=econf,
+                           device="cuda")
+    passes, stats = [], []
+    for reverse in (False, True):
+        flip.reverse = reverse
+        t0 = time.perf_counter()
+        res = rt.serve(sub, max_new_tokens=args.max_new_tokens)
+        torch.cuda.synchronize()
+        passes.append(res)
+        stats.append(serve_stats(res, rt, time.perf_counter() - t0))
+    return rt, flip, passes, stats
+
+
+def phase_chunk_reuse(torch, np, cfg, params, corpus, idx, wl, args,
+                      main_stats):
+    """--reuse chunk at full width: two passes of one runtime over 16
+    requests, the second with every request's doc order reversed; the
+    first 4 requests' two passes again through the kernels and through the
+    plain versions."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import RAGServer
+    sub = sorted(wl, key=lambda r: r.req_id)[:16]
+    reset_counts()
+    rt, flip, passes, stats = chunk_passes(torch, cfg, params, corpus, idx,
+                                           sub, args)
+    launches, plain = read_counts()
+    m = rt.metrics
+    counters = {"exact_chunk_hits": m.exact_chunk_hits,
+                "reloc_chunk_hits": m.reloc_chunk_hits,
+                "reloc_recompute_tokens": m.reloc_recompute_tokens}
+    n_exact = [sum(r.exact for r in res) for res in passes]
+    print(f"[chunk] {len(sub)} requests, twice (doc order kept, then "
+          f"reversed): {counters}; results flagged exact {n_exact[0]}/"
+          f"{len(sub)}, {n_exact[1]}/{len(sub)}", flush=True)
+    for label, (tps, ttft) in zip(("kept", "reversed"), stats):
+        print(f"[chunk] pass, doc order {label}: {tps:.1f} tokens/s, TTFT "
+              f"p50 (over both passes so far) {ttft:.1f} ms", flush=True)
+    print(f"[chunk] main serve (prefix reuse, 32 requests): "
+          f"{main_stats[0]:.1f} tokens/s, TTFT p50 {main_stats[1]:.1f} ms",
+          flush=True)
+    print(f"[chunk] launches {launches}; plain-version calls {plain}",
+          flush=True)
+    if min(counters.values()) <= 0:
+        die(f"chunk reuse never reused exactly and relocated: {counters}")
+    if min(launches["paged_decode_attention"],
+           launches["paged_prefill_attention"]) <= 0 or plain:
+        die(f"chunk reuse: launches {launches}, plain calls {plain}")
+    if any(len(r.tokens) != args.max_new_tokens for res in passes
+           for r in res):
+        die("chunk reuse did not serve every request in full")
+    check_leak(rt)
+    # the oracle: the sequential engine (exact, prefix reuse) on the same
+    # doc order as each pass
+    srv = RAGServer(cfg, params, corpus, flip,
+                    config=EngineConfig.from_args(args), device="cuda")
+    exact_linf, reloc_linf, same, bad = 0.0, [], 0, []
+    for reverse, res in zip((False, True), passes):
+        flip.reverse = reverse
+        want = {r.req_id: r for r in
+                srv.serve(sub, max_new_tokens=args.max_new_tokens)}
+        for a in res:
+            b = want[a.req_id]
+            if a.docs != b.docs:
+                die(f"request {a.req_id}: docs {a.docs} vs {b.docs}")
+            linf = float(np.max(np.abs(a.first_logits.astype(np.float64)
+                                       - b.first_logits.astype(np.float64))))
+            if not np.isfinite(linf):
+                die(f"request {a.req_id}: first-token L-inf {linf}")
+            if a.exact:
+                exact_linf = max(exact_linf, linf)
+                same += a.tokens == b.tokens
+                if a.tokens != b.tokens and linf > LOGIT_EPS:
+                    bad.append((a.req_id, reverse, linf))
+            else:
+                reloc_linf.append(linf)
+    print(f"[chunk] results flagged exact against the sequential engine: "
+          f"first-token max L-inf {exact_linf:.4e} (eps {LOGIT_EPS}), "
+          f"tokens identical {same}/{sum(n_exact)}", flush=True)
+    print(f"[chunk] relocated results ({len(reloc_linf)}): first-token "
+          f"L-inf max {max(reloc_linf, default=0.0):.4e}, median "
+          f"{statistics.median(reloc_linf) if reloc_linf else 0.0:.4e}",
+          flush=True)
+    if bad:
+        die(f"chunk reuse: exact results off the oracle: {bad}")
+    del rt, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    # relocated rows through the kernels against the plain versions on the
+    # same chunk-mode run tables
+    pair = []
+    for impl in (None, "torch"):
+        rt4, _, res4, _ = chunk_passes(torch, cfg, params, corpus, idx,
+                                       sub[:4], args, attn_impl=impl)
+        pair.append([r for res in res4 for r in res])
+        del rt4
+    linf, same, n_reloc = 0.0, 0, 0
+    for a, b in zip(*pair):
+        d = float(np.max(np.abs(a.first_logits.astype(np.float64)
+                                - b.first_logits.astype(np.float64))))
+        linf = max(linf, d)
+        same += a.tokens == b.tokens
+        n_reloc += not a.exact
+        if a.exact != b.exact or a.docs != b.docs:
+            die(f"chunk reuse: kernel and plain runs planned request "
+                f"{a.req_id} differently")
+    print(f"[chunk] 4 requests, both passes, kernels vs plain versions "
+          f"({n_reloc} of {len(pair[0])} results relocated): first-token max "
+          f"L-inf {linf:.4e} (eps {LOGIT_EPS}), tokens identical "
+          f"{same}/{len(pair[0])}", flush=True)
+    if n_reloc == 0 or linf > LOGIT_EPS:
+        die(f"chunk reuse: kernels vs plain versions L-inf {linf} over "
+            f"{n_reloc} relocated results")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, deg, plain = run_main(
+        "chunk", main_argv(8, "--reuse", "chunk", "--recompute-tokens",
+                           "100000", "--check-tokens", f"tol:{LOGIT_EPS}"),
+        keep=("[continuous]", "chunk hits", "token check"))
+    if f"token check: all 8 requests within tol {LOGIT_EPS:g}" not in out:
+        die("serve.main --reuse chunk printed no passing token-check line")
+    if plain:
+        die(f"chunk reuse (degenerate budget): {plain} plain calls")
+    return dict(counters, decode=launches["paged_decode_attention"],
+                prefill=launches["paged_prefill_attention"],
+                main_decode=deg["paged_decode_attention"],
+                main_prefill=deg["paged_prefill_attention"])
+
+
+def phase_replicas(torch, np):
+    """serve.main --replicas 2 --check-tokens on 16 full-width requests;
+    then the same requests through two replicas and through one: the token
+    streams of the two fleets, and the peak device memory with two
+    pools."""
+    from repro_torch.launch import serve
+    argv = main_argv(16, "--replicas", "2", "--routing", "affinity")
+    out, launches, plain = run_main(
+        "fleet", argv + ["--check-tokens", f"tol:{LOGIT_EPS}"],
+        keep=("[continuous", "fleet:", "routed per", "replica",
+              "token check"))
+    if f"token check: all 16 requests within tol {LOGIT_EPS:g}" not in out:
+        die("serve.main --replicas 2 printed no passing token-check line")
+    if min(launches["paged_decode_attention"],
+           launches["paged_prefill_attention"]) <= 0 or plain:
+        die(f"replicas: launches {launches}, plain calls {plain}")
+    args = serve.build_parser().parse_args(argv)
+    cfg, params, corpus, idx, wl, _ = serve.make_setup(args)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()):
+        two, rts = serve.serve_continuous(cfg, params, corpus, idx, wl, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if len(rts) != 2 or any(rt.params is not params for rt in rts):
+        die("the two replicas do not share one set of weights")
+    for rt in rts:
+        check_leak(rt)
+    pool = sum(rt.store.k.numel() * rt.store.k.element_size() * 2
+               for rt in rts)
+    print(f"[fleet] peak device memory with two pools {peak} B "
+          f"({peak / 2**30:.2f} GiB; {base} B held before the serve: this "
+          f"phase's weights and the main serve's; the two pools {pool} B)",
+          flush=True)
+    del rts
+    gc.collect()
+    torch.cuda.empty_cache()
+    args.replicas = 1
+    with contextlib.redirect_stdout(io.StringIO()):
+        one, _ = serve.serve_continuous(cfg, params, corpus, idx, wl, args)
+    by_id = {r.req_id: r for r in one}
+    same = sum(a.tokens == by_id[a.req_id].tokens for a in two)
+    bitwise = sum(np.array_equal(a.first_logits, by_id[a.req_id].first_logits)
+                  for a in two)
+    linf = max(float(np.max(np.abs(
+        a.first_logits.astype(np.float64)
+        - by_id[a.req_id].first_logits.astype(np.float64)))) for a in two)
+    print(f"[fleet] replicas 2 vs 1 on the same 16 requests: token streams "
+          f"identical {same}/{len(two)}, first-token logits bit-identical "
+          f"{bitwise}/{len(two)}, max L-inf {linf:.4e}", flush=True)
+    if linf > LOGIT_EPS:
+        die(f"replicas 2 vs 1: first-token L-inf {linf}")
+    return dict(decode=launches["paged_decode_attention"],
+                prefill=launches["paged_prefill_attention"])
+
+
+def phase_frontdoor(torch, cfg, corpus):
+    """serve.main --frontdoor --tenants 4 --replicas 2 --autoscale on 32
+    full-width requests, each replica with a disk tier sized for the
+    corpus, --check-tokens on the admitted misses."""
+    kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
+    need = int(corpus.doc_lengths.sum()) * kv_bytes
+    argv = main_argv(32, "--frontdoor", "--tenants", "4", "--tenant-queries",
+                     "8", "--replicas", "2", "--autoscale",
+                     "--autoscale-min", "1", "--disk-cache-bytes", str(need),
+                     "--check-tokens", f"tol:{LOGIT_EPS}")
+    # decode batch 4: the front door's in-flight window (2 x batch x
+    # replicas) then spans 16 of the 32 requests, so answered queries reach
+    # the query cache while repeats still arrive
+    argv[argv.index("--max-batch") + 1] = "4"
+    out, launches, plain = run_main(
+        "door", argv,
+        keep=("[frontdoor", "fleet:", "cross-replica", "routed per",
+              "decision kinds", "fleet hit", "replica", "front door",
+              "SLO", "autoscale", "t=", "scale-up", "token check"))
+    m = re.search(r"\] 32 requests -> (\d+) cache hits, (\d+) shed, (\d+) "
+                  r"engine-served", out)
+    if m is None:
+        die("serve.main --frontdoor printed no partition line")
+    hits, shed, served = (int(x) for x in m.groups())
+    warmed = sum(int(x) for x in re.findall(
+        r"scale-up warmed replica\d+: (\d+) B", out))
+    ok = re.search(rf"token check: all {served} front-door miss requests "
+                   rf"within tol {LOGIT_EPS:g}", out)
+    print(f"[door] 32 requests: {hits} hits, {shed} shed, {served} misses "
+          f"served; warmed {warmed} B from disk (tier {need} B a replica)",
+          flush=True)
+    if ok is None:
+        die("serve.main --frontdoor printed no passing token-check line")
+    if hits + shed + served != 32 or min(hits, served) <= 0:
+        die(f"front door: {hits} hits + {shed} shed + {served} misses")
+    if min(launches["paged_decode_attention"],
+           launches["paged_prefill_attention"]) <= 0 or plain:
+        die(f"front door: launches {launches}, plain calls {plain}")
+    return dict(decode=launches["paged_decode_attention"],
+                prefill=launches["paged_prefill_attention"], hits=hits,
+                shed=shed, served=served, warmed=warmed)
 
 
 def phase_profile(torch, cfg, params, corpus, idx, wl, args):
@@ -1261,13 +1551,26 @@ def main() -> None:
     dense = phase_dense(torch, np, cfg, params, corpus, idx, wl, args,
                         results)
     seq = phase_sequential(torch)
+    chunk = phase_chunk_reuse(torch, np, cfg, params, corpus, idx, wl, args,
+                              main_stats)
+    fleet = phase_replicas(torch, np)
+    door = phase_frontdoor(torch, cfg, corpus)
+    torch.cuda.empty_cache()
     phase_profile(torch, cfg, params, corpus, idx, wl, args)
     # launches: the main serve's for the paged kernels; the CAG phase's
     # (preload + serve) for the prefix kernel, whose path it is
-    by_path = {"paged_decode_attention": {"main serve": launches[
-                   "paged_decode_attention"]},
-               "paged_prefill_attention": {"main serve": launches[
-                   "paged_prefill_attention"]},
+    by_path = {"paged_decode_attention": {
+                   "main serve": launches["paged_decode_attention"],
+                   "chunk reuse": chunk["decode"],
+                   "chunk reuse check": chunk["main_decode"],
+                   "replicas 2": fleet["decode"],
+                   "front door": door["decode"]},
+               "paged_prefill_attention": {
+                   "main serve": launches["paged_prefill_attention"],
+                   "chunk reuse": chunk["prefill"],
+                   "chunk reuse check": chunk["main_prefill"],
+                   "replicas 2": fleet["prefill"],
+                   "front door": door["prefill"]},
                "prefix_flash_attention": {
                    "cag preload": cag["preload"], "cag serve": cag["serve"],
                    "dense serve": dense, "sequential check": seq}}

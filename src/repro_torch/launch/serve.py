@@ -15,10 +15,35 @@ L-inf <= eps.  ``--mode cag`` preloads the whole corpus KV into the disk
 tier (auto-sized when ``--disk-cache-bytes`` is 0) and serves with zero
 retrieval stages; ``--attn dense`` runs the dense-gather baseline.
 
+``--reuse chunk`` caches each doc once and reuses it at any position,
+recomputing the first ``--recompute-tokens`` rows of each relocated doc;
+relocated reuse is approximate, so check it with ``--check-tokens
+tol:<eps>``.
+
+``--replicas N`` serves through N continuous runtimes behind a
+``ReplicaRouter`` (doc affinity by default, ``--routing`` picks another
+policy).  On one card the N runtimes share the device and one set of
+weights, each with its own pool and knowledge tree.  Routing never changes
+computation, so ``--check-tokens`` holds at any replica count.
+
+``--frontdoor`` puts the front-door layer ahead of the router: a query
+cache (exact and cosine-similarity hits, TTL and LRU bounded), per-tenant
+SLO admission (degrade top-k, then shed) and, with ``--autoscale``, a
+fleet autoscaler over [--autoscale-min, --replicas] that warms a joining
+replica from its disk tier.  ``--tenants N`` draws the workload from the
+multi-tenant traffic model (retrieval/traffic.py).  With ``--frontdoor``,
+``--check-tokens`` compares only the admitted misses; hits are answered
+from the cache and shed requests never run.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        [--reuse chunk --check-tokens tol:0.05] \
+        [--replicas 2 --routing {affinity,round_robin,least_loaded}] \
+        [--frontdoor --tenants 3 --replicas 2 --autoscale]
+
 The CLI uses the reduced config unless ``--full-size`` asks for the
 published one; ``make_setup(args, cfg=...)`` takes any.  ``--device``
-defaults to ``cuda``.  Not ported yet (ROADMAP.md Queue A):
-``--frontdoor``, ``--tp``, ``--replicas`` > 1 and ``--reuse chunk``.
+defaults to ``cuda``.  Not ported yet (ROADMAP.md Queue A): ``--tp`` > 1,
+which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,9 +56,17 @@ import numpy as np
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import model as M
 from repro_torch.retrieval.corpus import make_corpus, make_workload
+from repro_torch.retrieval.traffic import make_default_workload
 from repro_torch.retrieval.vectordb import IVFIndex
-from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.config import (EngineConfig, FleetConfig,
+                                        FrontDoorConfig)
 from repro_torch.serving.engine import RAGServer
+from repro_torch.serving.frontdoor import (TenantSLO, attach_answers,
+                                           frontdoor_partition,
+                                           make_frontdoor)
+from repro_torch.serving.metrics import FleetMetrics
+from repro_torch.serving.router import (ROUTING_POLICIES, ReplicaRouter,
+                                        partition_requests)
 from repro_torch.serving.runtime import ContinuousRuntime, resolve_device
 
 
@@ -71,6 +104,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new-tokens", type=int, default=4)
     ap.add_argument("--max-batch", type=int, default=4,
                     help="decode-batch slots")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="independent continuous-runtime replicas behind "
+                         "the doc-affinity router (each owns its own "
+                         "knowledge tree / paged pool / scheduler; on one "
+                         "card they share the device and the weights)")
+    ap.add_argument("--routing", default="affinity",
+                    choices=list(ROUTING_POLICIES),
+                    help="replica routing policy (routing never changes "
+                         "computation, so --check-tokens holds at any "
+                         "replica count)")
+    ap.add_argument("--max-queue-skew", type=int, default=4,
+                    help="affinity escape hatch: max allowed max-min "
+                         "per-replica queue-depth skew before a request "
+                         "escapes to the least-loaded replica")
+    ap.add_argument("--max-shadow-paths", type=int, default=4096,
+                    help="bound on the router's shadow ledger of "
+                         "per-replica routed doc-set paths (affinity "
+                         "routing state, evicted LRU)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="tokens per prefill chunk (0 = unchunked)")
     ap.add_argument("--max-prefill-bs", type=int, default=4,
@@ -80,6 +131,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "iteration (0 = one request per iteration)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged-KV block size in tokens")
+    ap.add_argument("--reuse", default="prefix",
+                    choices=["prefix", "chunk"],
+                    help="KV-reuse discipline: 'prefix' reuses the longest "
+                         "cached doc-sequence prefix (bit-identical); "
+                         "'chunk' caches each doc ONCE and reuses it at any "
+                         "position, recomputing --recompute-tokens boundary "
+                         "rows per relocated chunk (approximate — verify "
+                         "with --check-tokens tol:<eps>; requires the paged "
+                         "engine).  The sequential engine ignores this (it "
+                         "stays the exact oracle)")
+    ap.add_argument("--recompute-tokens", type=int, default=16,
+                    help="boundary tokens recomputed per relocated chunk "
+                         "(--reuse chunk); rounds UP to the block size so "
+                         "the reused tail stays page-aligned, and clamps "
+                         "to the chunk length (>= doc length degenerates "
+                         "to an exact full recompute)")
     ap.add_argument("--attn", default="auto",
                     choices=["dense", "paged", "auto"],
                     help="continuous-mode attention engine for prefill and "
@@ -101,8 +168,59 @@ def build_parser() -> argparse.ArgumentParser:
                     help="workload phases for --drift")
     ap.add_argument("--output-len-mean", type=int, default=1,
                     help="mean decode length of the workload's requests")
+    # multi-tenant traffic model (retrieval/traffic.py)
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="generate the workload from N tenants with "
+                         "per-tenant Zipf skew, canonical query pools "
+                         "(repeats -> front-door hits) and SLOs "
+                         "(0 = single-tenant make_workload)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=500.0,
+                    help="base per-tenant TTFT SLO target (tenant i gets "
+                         "base * (1 + 0.5 i)); also the default SLO for "
+                         "single-tenant --frontdoor runs")
+    ap.add_argument("--tenant-queries", type=int, default=16,
+                    help="canonical query pool size per tenant (smaller = "
+                         "more repeats = higher front-door hit rate)")
+    ap.add_argument("--diurnal-amplitude", type=float, default=0.0,
+                    help="sinusoidal arrival-rate modulation depth (0..1)")
+    ap.add_argument("--burst-rate-mult", type=float, default=1.0,
+                    help="Markov-modulated burst-state rate multiplier "
+                         "(1 = bursts off)")
+    # front-door request layer (serving/frontdoor.py)
+    ap.add_argument("--frontdoor", action="store_true",
+                    help="serve through the front-door layer: query-level "
+                         "cache (exact + similarity) -> per-tenant SLO "
+                         "admission -> autoscaler -> replica router; "
+                         "cache hits never reach an engine")
+    ap.add_argument("--frontdoor-ttl", type=float, default=60.0,
+                    help="query-cache TTL in seconds (entries expire TTL "
+                         "after insertion regardless of use)")
+    ap.add_argument("--frontdoor-sim-threshold", type=float, default=0.98,
+                    help="cosine threshold for similarity hits against "
+                         "cached query vectors (>= 1.0 disables the "
+                         "similarity probe)")
+    ap.add_argument("--frontdoor-capacity", type=int, default=512,
+                    help="query-cache LRU capacity bound (entries)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="enable the fleet autoscaler: replicas in "
+                         "[--autoscale-min, --replicas] against backlog "
+                         "signals; scale-ups warm the joining replica's "
+                         "tree from its disk tier")
+    ap.add_argument("--autoscale-min", type=int, default=1,
+                    help="autoscaler floor (active replicas never below)")
+    ap.add_argument("--scale-up-backlog", type=float, default=8.0,
+                    help="backlog per active replica above which the "
+                         "fleet grows")
+    ap.add_argument("--scale-down-backlog", type=float, default=2.0,
+                    help="backlog per active replica below which the "
+                         "fleet shrinks")
+    ap.add_argument("--autoscale-cooldown", type=float, default=2.0,
+                    help="seconds between autoscale events")
     ap.add_argument("--search-scale", type=float, default=1.0,
                     help="scale staged-search stage durations")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree per replica; only 1 is "
+                         "ported (more raises NotImplementedError)")
     ap.add_argument("--sequential", action="store_true",
                     help="serve through the one-at-a-time RAGServer")
     ap.add_argument("--check-tokens", nargs="?", const="exact", default=None,
@@ -116,9 +234,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_setup(args, cfg=None):
-    """Build (cfg, params, corpus, idx, workload).  ``cfg`` defaults to the
-    reduced config of ``--arch`` (the published one under ``--full-size``);
-    params are seeded random weights on ``--device``."""
+    """Build (cfg, params, corpus, idx, workload, tenants).  ``cfg``
+    defaults to the reduced config of ``--arch`` (the published one under
+    ``--full-size``); params are seeded random weights on ``--device``.
+    ``tenants`` is the TenantSpec list when --tenants > 0 (multi-tenant
+    traffic model), else None (single-tenant make_workload)."""
     if cfg is None:
         cfg = (get_config if args.full_size else get_reduced)(args.arch)
     params = M.init_params(cfg, args.seed, resolve_device(args.device))
@@ -126,12 +246,22 @@ def make_setup(args, cfg=None):
                          vocab=cfg.vocab_size, seed=args.seed)
     idx = IVFIndex(corpus.doc_vectors, n_clusters=min(16, args.docs),
                    nprobe=8)
+    if args.tenants > 0:
+        tenants, wl = make_default_workload(
+            corpus, n_tenants=args.tenants, n_requests=args.requests,
+            rate=args.rate, slo_ttft_ms=args.slo_ttft_ms,
+            zipf_s=args.zipf_s, n_queries=args.tenant_queries,
+            seed=args.seed + 1, drift=args.drift, n_phases=args.n_phases,
+            diurnal_amplitude=args.diurnal_amplitude,
+            burst_rate_mult=args.burst_rate_mult, vocab=cfg.vocab_size,
+            question_tokens=8, output_len_mean=args.output_len_mean)
+        return cfg, params, corpus, idx, wl, tenants
     wl = make_workload(corpus, n_requests=args.requests, rate=args.rate,
                        question_tokens=8, vocab=cfg.vocab_size,
                        zipf_s=args.zipf_s, seed=args.seed + 1,
                        drift=args.drift, n_phases=args.n_phases,
                        output_len_mean=args.output_len_mean)
-    return cfg, params, corpus, idx, wl
+    return cfg, params, corpus, idx, wl, None
 
 
 def tier_hit_line(tree) -> str:
@@ -185,13 +315,14 @@ def token_mismatches(pairs, mode, eps):
     return bad
 
 
-def print_preload(engine) -> None:
+def print_preload(engine, n_replicas: int = 1) -> None:
     """One-line CAG corpus-preload summary."""
     ps = engine.preload_stats
     if ps:
+        per = f" per replica x{n_replicas}" if n_replicas > 1 else ""
         print(f"[cag] preloaded {ps['docs']} docs / {ps['tokens']} tokens "
               f"({ps['bytes']} B, {ps['files']} files) into the disk tier "
-              f"in {ps['seconds']:.2f}s of disk writes")
+              f"in {ps['seconds']:.2f}s of disk writes{per}")
 
 
 def serve_sequential(cfg, params, corpus, idx, wl, args, econf=None):
@@ -221,18 +352,60 @@ def serve_sequential(cfg, params, corpus, idx, wl, args, econf=None):
     return results, srv
 
 
-def serve_continuous(cfg, params, corpus, idx, wl, args, econf=None):
-    """Serve ``wl`` through one continuous runtime; returns (results,
-    runtime) so callers can read its metrics and tree."""
+def make_runtimes(cfg, params, corpus, idx, args, n, econf=None):
+    """N continuous runtimes on ``--device``: each owns its pool, tree and
+    scheduler; all read the one ``params`` dict (no copy per replica)."""
     econf = econf if econf is not None else EngineConfig.from_args(args)
-    rt = ContinuousRuntime(cfg, params, corpus, idx, config=econf,
-                           device=args.device)
-    print_preload(rt)
+    return [ContinuousRuntime(cfg, params, corpus, idx, config=econf,
+                              device=args.device)
+            for _ in range(n)]
+
+
+def fleet_inputs(corpus, idx, args, n, top_k_of=None):
+    """The router's view of a request: its retrieved docs (deterministic,
+    equal to the runtime's final staged-search result), their token
+    counts, its context length, and the in-flight window modelling each
+    replica's backlog draining while the trace arrives."""
+    top_k_of = top_k_of or (lambda r: args.top_k)
+    return dict(
+        docs_of=lambda r: idx.search(r.query_vec, top_k_of(r)),
+        doc_tokens_of=lambda docs: [int(corpus.doc_lengths[d])
+                                    for d in docs],
+        context_of=lambda r, docs, toks: sum(toks) + len(r.question_tokens),
+        window=2 * args.max_batch * n)
+
+
+def serve_shares(rts, shares, args):
+    """Serve each replica's share in turn; returns (results sorted by
+    req_id, wall seconds)."""
     t0 = time.time()
-    results = rt.serve(wl, max_new_tokens=args.max_new_tokens)
+    results = []
+    for rt, share in zip(rts, shares):
+        if share:
+            results.extend(rt.serve(share,
+                                    max_new_tokens=args.max_new_tokens))
     wall = time.time() - t0
-    print(f"\n[continuous] served {len(results)} requests in {wall:.1f}s "
-          f"wall on {rt.device}")
+    results.sort(key=lambda r: r.req_id)
+    return results, wall
+
+
+def serve_continuous(cfg, params, corpus, idx, wl, args, econf=None,
+                     fleet_conf=None):
+    """Serve ``wl`` through ``--replicas`` continuous runtimes behind the
+    router; returns (results sorted by req_id, runtimes) so callers can
+    read each runtime's metrics and tree."""
+    n = max(1, args.replicas)
+    fleet_conf = (fleet_conf if fleet_conf is not None
+                  else FleetConfig.from_args(args))
+    rts = make_runtimes(cfg, params, corpus, idx, args, n, econf=econf)
+    print_preload(rts[0], n)
+    router = ReplicaRouter(rts, config=fleet_conf)
+    shares = partition_requests(router, wl,
+                                **fleet_inputs(corpus, idx, args, n))
+    results, wall = serve_shares(rts, shares, args)
+    label = "continuous" if n == 1 else f"continuous x{n} ({args.routing})"
+    print(f"\n[{label}] served {len(results)} requests in {wall:.1f}s "
+          f"wall on {rts[0].device}")
     print(f"{'req':>4} {'docs':>12} {'alpha':>6} {'beta':>5} "
           f"{'ttft_ms':>8} {'spec':>5}  tokens")
     for r in results:
@@ -240,16 +413,93 @@ def serve_continuous(cfg, params, corpus, idx, wl, args, econf=None):
               f"{r.ttft * 1000:>8.1f} {'hit' if r.speculative_hit else '':>5}"
               f"  {r.tokens}")
     print()
-    print(rt.metrics.format_report())
-    print(tier_hit_line(rt.tree))
-    print(f"tree stats: {rt.tree.stats}")
-    return results, rt
+    if n == 1:
+        print(rts[0].metrics.format_report())
+        print(tier_hit_line(rts[0].tree))
+        print(f"tree stats: {rts[0].tree.stats}")
+    else:
+        fleet = FleetMetrics(router.stats())
+        for i, rt in enumerate(rts):
+            fleet.add_replica(f"replica{i}", rt.metrics)
+        print(fleet.format_report())
+        for i, rt in enumerate(rts):
+            print(f"replica{i} {tier_hit_line(rt.tree)}")
+    return results, rts
+
+
+def build_frontdoor(args, tenants, fdc=None):
+    """Assemble the FrontDoor policy stack from CLI flags (via
+    FrontDoorConfig) through ``make_frontdoor``."""
+    fdc = fdc if fdc is not None else FrontDoorConfig.from_args(args)
+    slos = {}
+    if tenants:
+        slos = {t.name: TenantSLO(ttft_target=t.slo_ttft_ms / 1e3,
+                                  min_top_k=t.min_top_k) for t in tenants}
+    n = max(1, args.replicas)
+    return make_frontdoor(
+        capacity=fdc.capacity, ttl=fdc.ttl,
+        sim_threshold=fdc.sim_threshold, slos=slos,
+        default_slo_ttft=fdc.slo_ttft_ms / 1e3, top_k=args.top_k,
+        min_replicas=min(max(1, fdc.autoscale_min), n), max_replicas=n,
+        autoscale=fdc.autoscale,
+        scale_up_backlog=fdc.scale_up_backlog,
+        scale_down_backlog=fdc.scale_down_backlog,
+        cooldown=fdc.cooldown)
+
+
+def serve_frontdoor(cfg, params, corpus, idx, wl, tenants, args, econf=None,
+                    fleet_conf=None, fdc=None):
+    """Serve through front door -> router -> N continuous runtimes.
+
+    Returns (miss_results, part): engine results for admitted misses (the
+    --check-tokens comparison set; hits are served from cache and shed
+    requests never execute, so both are excluded by construction)."""
+    n = max(1, args.replicas)
+    fleet_conf = (fleet_conf if fleet_conf is not None
+                  else FleetConfig.from_args(args))
+    rts = make_runtimes(cfg, params, corpus, idx, args, n, econf=econf)
+    print_preload(rts[0], n)
+    router = ReplicaRouter(rts, config=fleet_conf)
+    fd = build_frontdoor(args, tenants, fdc=fdc)
+    part = frontdoor_partition(
+        fd, router, wl, **fleet_inputs(
+            corpus, idx, args, n,
+            top_k_of=lambda r: r.top_k if r.top_k > 0 else args.top_k))
+    results, wall = serve_shares(rts, part.shares, args)
+    # answers only exist after serving: fill the cache entries (hits share
+    # the entry object, so the cached answer reaches them too)
+    attach_answers(part, {r.req_id: r.tokens for r in results})
+    label = f"frontdoor x{n} ({args.routing})"
+    print(f"\n[{label}] {len(wl)} requests -> {len(part.hits)} cache hits, "
+          f"{len(part.shed)} shed, {len(results)} engine-served in "
+          f"{wall:.1f}s wall on {rts[0].device}")
+    for r, dec in part.hits:
+        src = dec.entry.answer if dec.entry is not None else []
+        print(f"{r.req_id:>4} {dec.kind:<11} <- req {dec.entry.source_req_id}"
+              f"  tokens {src}")
+    fleet = FleetMetrics(router.stats(), fd.stats())
+    for i, rt in enumerate(rts):
+        fleet.add_replica(f"replica{i}", rt.metrics)
+    print(fleet.format_report())
+    for i, b in sorted(part.warmed.items()):
+        print(f"scale-up warmed replica{i}: {b} B from disk tier")
+    return results, part
+
+
+def check_line(what, n, mode, eps, note=""):
+    how = "identical" if mode == "exact" else f"within tol {eps:g}"
+    print(f"\ntoken check: all {n} {what} {how} (continuous vs "
+          f"sequential{note})")
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    # the config dataclasses are built once from argparse here and threaded
+    # through every constructor below — config= is the sole constructor API
     econf = EngineConfig.from_args(args)
-    cfg, params, corpus, idx, wl = make_setup(args)
+    fleet_conf = FleetConfig.from_args(args)
+    fdc = FrontDoorConfig.from_args(args)
+    cfg, params, corpus, idx, wl, tenants = make_setup(args)
     print(f"model={cfg.name} family={cfg.family} layers={cfg.n_layers} "
           f"d_model={cfg.d_model} device={args.device}")
     if args.mode == "cag" and econf.disk_cache_bytes == 0:
@@ -260,22 +510,45 @@ def main(argv=None) -> None:
         econf = dataclasses.replace(econf, disk_cache_bytes=need)
         print(f"[cag] --disk-cache-bytes 0 -> auto-sized to {need} B "
               f"({len(corpus.doc_lengths)} docs, {kv_bytes} B/token)")
+    if args.replicas > 1 and args.sequential:
+        print("note: --replicas applies to the continuous engine only; "
+              "the sequential A/B side stays a single engine")
+    if args.frontdoor and args.sequential:
+        print("note: --frontdoor requires the continuous engine; ignored")
+    mode, eps = parse_check_mode(args.check_tokens)
+    if args.frontdoor and not args.sequential:
+        miss_results, part = serve_frontdoor(cfg, params, corpus, idx, wl,
+                                             tenants, args, econf=econf,
+                                             fleet_conf=fleet_conf, fdc=fdc)
+        if args.check_tokens:
+            # compare only admitted misses (the requests an engine actually
+            # served, with the front door's top_k rewrites applied); hits
+            # are answered from cache and shed requests never execute
+            seq, _ = serve_sequential(cfg, params, corpus, idx,
+                                      list(part.misses), args, econf=econf)
+            seq_by_id = {r.req_id: r for r in seq}
+            mismatches = token_mismatches(
+                [(a, seq_by_id[a.req_id]) for a in miss_results], mode, eps)
+            if mismatches:
+                raise SystemExit(f"token mismatch: {mismatches}")
+            check_line("front-door miss requests", len(miss_results), mode,
+                       eps, f"; {len(part.hits)} hits + {len(part.shed)} "
+                            f"shed excluded by construction")
+        return
     if args.check_tokens:
-        mode, eps = parse_check_mode(args.check_tokens)
         cont, _ = serve_continuous(cfg, params, corpus, idx, wl, args,
-                                   econf=econf)
+                                   econf=econf, fleet_conf=fleet_conf)
         seq, _ = serve_sequential(cfg, params, corpus, idx, wl, args,
                                   econf=econf)
         mismatches = token_mismatches(zip(cont, seq), mode, eps)
         if mismatches:
             raise SystemExit(f"token mismatch: {mismatches}")
-        what = "identical" if mode == "exact" else f"within tol {eps:g}"
-        print(f"\ntoken check: all {len(cont)} requests {what} "
-              f"(continuous vs sequential)")
+        check_line("requests", len(cont), mode, eps)
     elif args.sequential:
         serve_sequential(cfg, params, corpus, idx, wl, args, econf=econf)
     else:
-        serve_continuous(cfg, params, corpus, idx, wl, args, econf=econf)
+        serve_continuous(cfg, params, corpus, idx, wl, args, econf=econf,
+                         fleet_conf=fleet_conf)
 
 
 if __name__ == "__main__":

@@ -35,8 +35,13 @@ max(search_end, prefill_end) - arrival.
 each doc computed standalone through the dense prefill, and serves with
 zero retrieval stages.
 
-Not ported yet (ROADMAP.md Queue A): ``reuse="chunk"`` and tensor
-parallelism; asking for one raises ``NotImplementedError``.
+``reuse="chunk"`` caches each doc on its own and reuses it at any
+position: an exact hit shares its pages whole, a relocated hit recomputes
+its page-aligned head at the new position and shares its tail in place
+(approximate; results carry ``exact=False``).
+
+Not ported yet (ROADMAP.md Queue A): tensor parallelism; asking for it
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.controller import RAGController
+from repro_torch.core.controller import RAGController, effective_recompute
 from repro_torch.core.knowledge_tree import (CacheBackend, EvictionError,
                                              KnowledgeTree)
 from repro_torch.core.profiler import CostProfiler
@@ -163,9 +168,11 @@ class _PrefillResult:
         default_factory=list)
     pg_segs: List[PagedSegment] = dataclasses.field(default_factory=list)
     # ordered sequence layout: ("run"|"seg", index into hit_runs/pg_segs,
-    # absolute start position) — runs then segs in prefix mode
+    # absolute start position).  Prefix mode is runs-then-segs; chunk mode
+    # (--reuse chunk) interleaves shared runs and computed segments.
     layout: List[Tuple[str, int, int]] = dataclasses.field(
         default_factory=list)
+    exact: bool = True              # False once a relocated chunk was reused
     first_logits: Optional[np.ndarray] = None   # (V,) at the first token
 
 
@@ -193,9 +200,14 @@ class _ChunkState:
     hit_runs: List[Tuple[List[int], int]] = dataclasses.field(
         default_factory=list)
     pg_segs: List[PagedSegment] = dataclasses.field(default_factory=list)
+    # paged mode: ordered layout of the full sequence (see _PrefillResult).
+    # seg_abs[i] is the absolute start of compute segment i — chunk mode
+    # scatters compute segments between shared runs, so the cursor's
+    # q_start is seg_abs[seg_idx] + seg_off, not a running prefix.
     layout: List[Tuple[str, int, int]] = dataclasses.field(
         default_factory=list)
     seg_abs: List[int] = dataclasses.field(default_factory=list)
+    miss_segs: List[int] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -230,6 +242,7 @@ class _ReqRun:
     last_tok: int = 0
     tokens: List[int] = dataclasses.field(default_factory=list)
     remaining: int = 0
+    exact: bool = True
     first_logits: Optional[np.ndarray] = None
 
 
@@ -242,6 +255,10 @@ class RuntimeResult:
     alpha: int
     beta: int
     speculative_hit: bool
+    # chunk-cache mode: False when a relocated chunk was reused (outputs are
+    # approximate — verify with --check-tokens tol:<eps>); prefix mode and
+    # full recomputes stay True (the bit-identical contract holds).
+    exact: bool = True
     first_logits: Optional[np.ndarray] = None   # (V,) logits at first token
 
 
@@ -280,9 +297,8 @@ class ContinuousRuntime:
             # table — the dense gather has no such contract
             raise ValueError("--reuse chunk requires the paged engine "
                              "(--attn paged/auto)")
-        if config.reuse == "chunk":
-            raise NotImplementedError(
-                "reuse='chunk' is not ported yet (ROADMAP.md Queue A item 5)")
+        self.reuse = config.reuse
+        self.recompute_tokens = int(config.recompute_tokens)
         self.mode = config.mode
         if self.mode == "cag" and config.disk_cache_bytes <= 0:
             raise ValueError(
@@ -383,6 +399,23 @@ class ContinuousRuntime:
         prefill promotes it (the admission check must see that)."""
         ctx = (sum(int(self.corpus.doc_lengths[d]) for d in job.docs)
                + len(job.req.r.question_tokens))
+        if self.reuse == "chunk":
+            cached = promote = 0
+            for i, node in enumerate(self.tree.match_chunks(job.docs)):
+                if node is None:
+                    continue
+                n_tok = int(self.corpus.doc_lengths[job.docs[i]])
+                if node.exact_ctx and \
+                        node.src_prefix == tuple(job.docs[:i]):
+                    reused = n_tok
+                else:
+                    r = effective_recompute(self.recompute_tokens, n_tok,
+                                            self.store.block_size)
+                    reused = n_tok - r     # 0 when r covers the whole chunk
+                cached += reused
+                if reused and not node.in_gpu:
+                    promote += node.n_tokens   # the whole node promotes
+            return ctx, max(ctx - cached, 1), promote
         hit = self.tree.match_prefix(job.docs)
         cached = sum(n.n_tokens for n in hit)
         promote = sum(n.n_tokens for n in hit if not n.in_gpu)
@@ -428,8 +461,11 @@ class ContinuousRuntime:
             self._n_slots = n_slots
             # runs, not a contiguous span: every segment of the slot mapping
             # (<= top_k shared docs + 1 private) may end mid-block, wasting
-            # at most one table entry each
-            self._n_tbl = n_slots + self.top_k + 1
+            # at most one table entry each.  Chunk mode splits a relocated
+            # doc into boundary seg + shared tail, so up to 2 entries per doc
+            # go to waste instead of 1.
+            per_doc = 2 if self.reuse == "chunk" else 1
+            self._n_tbl = n_slots + per_doc * self.top_k + 1
             self._warm_up_decode()
         first = len(self._all)
         for r in requests:
@@ -450,7 +486,7 @@ class ContinuousRuntime:
                 req_id=st.r.req_id, tokens=list(st.tokens), ttft=st.tl.ttft,
                 docs=st.final_docs or (), alpha=st.tl.alpha, beta=st.tl.beta,
                 speculative_hit=st.tl.speculative_hit,
-                first_logits=st.first_logits))
+                exact=st.exact, first_logits=st.first_logits))
         out.sort(key=lambda x: x.req_id)
         return out
 
@@ -534,7 +570,10 @@ class ContinuousRuntime:
         device, so it does not advance the engine clock."""
         if self.disk is None:
             return
-        hit = self.tree.match_prefix(docs)
+        if self.reuse == "chunk":
+            hit = [n for n in self.tree.match_chunks(docs) if n is not None]
+        else:
+            hit = self.tree.match_prefix(docs)
         pinned = set(hit)   # staging node k must not re-spill node k-1
         for n in hit:
             if n.in_disk and not n.in_host and not n.in_gpu:
@@ -667,9 +706,18 @@ class ContinuousRuntime:
         job.started = self.now
         st.start_by_docs.setdefault(job.docs, self.now)
         doc_tokens = [int(self.corpus.doc_lengths[d]) for d in job.docs]
-        plan = self.controller.plan(job.docs, doc_tokens,
-                                    len(st.r.question_tokens))
+        if self.reuse == "chunk":
+            plan = self.controller.plan_chunks(
+                job.docs, doc_tokens, len(st.r.question_tokens),
+                recompute_tokens=self.recompute_tokens,
+                block_size=self.store.block_size)
+        else:
+            plan = self.controller.plan(job.docs, doc_tokens,
+                                        len(st.r.question_tokens))
         self.controller.promote(plan)   # host->device pull
+        if plan.chunks is not None:
+            self._begin_chunk_layout(job, plan)
+            return
         segs = [np.asarray(self.corpus.doc_tokens[job.docs[i]])
                 for i in range(len(plan.hit_nodes), len(job.docs))]
         bounds, start = [], plan.alpha
@@ -707,6 +755,81 @@ class ContinuousRuntime:
         job.cs.hit_runs = hit_runs
         job.cs.layout = layout
         job.cs.seg_abs = seg_abs
+        job.cs.pg_segs = [PagedSegment(self.store, [], 0) for _ in segs]
+        self._partial_jobs.append(job)
+
+    def _begin_chunk_layout(self, job: _Job, plan) -> None:
+        """Chunk-cache twin of the prefix begin path (--reuse chunk): the
+        request's sequence is an ordered interleaving of shared cached runs
+        and to-compute segments.  Per doc position (ChunkItem):
+
+          * exact — share the node's pages whole, like a prefix hit;
+          * reloc — an owned boundary segment of ``recompute`` tokens (the
+            doc head, recomputed at its new absolute position over the true
+            preceding context) followed by the node's page-aligned tail
+            pages, refcount-shared in place (stale RoPE — approximate);
+          * miss — an owned segment computing the whole doc.
+
+        The question is the final owned segment.  Compute segments sit at
+        scattered absolute offsets, so each records its start (seg_abs)."""
+        st = job.req
+        bs = self.store.block_size
+        segs: List[np.ndarray] = []
+        seg_abs: List[int] = []
+        layout: List[Tuple[str, int, int]] = []
+        hit_runs: List[Tuple[List[int], int]] = []
+        miss_segs: List[int] = []
+        pos = 0
+        for it in plan.chunks:
+            if it.kind == "exact":
+                seg = it.node.payload_gpu
+                self.store.share(seg)
+                layout.append(("run", len(hit_runs), pos))
+                hit_runs.append((list(seg.blocks), seg.n_tokens))
+                self.metrics.exact_chunk_hits += 1
+            elif it.kind == "reloc":
+                toks = np.asarray(self.corpus.doc_tokens[it.doc_id])
+                segs.append(toks[:it.recompute])
+                seg_abs.append(pos)
+                layout.append(("seg", len(segs) - 1, pos))
+                # recompute is page-aligned (effective_recompute), so the
+                # reused tail starts at slot 0 of a block — the run-table /
+                # decode-run contract every shared run must satisfy
+                tail = list(it.node.payload_gpu.blocks[it.recompute // bs:])
+                self.store.share_blocks(tail)
+                layout.append(("run", len(hit_runs), pos + it.recompute))
+                hit_runs.append((tail, it.n_tokens - it.recompute))
+                self.metrics.reloc_chunk_hits += 1
+                self.metrics.reloc_recompute_tokens += it.recompute
+            else:
+                segs.append(np.asarray(self.corpus.doc_tokens[it.doc_id]))
+                seg_abs.append(pos)
+                layout.append(("seg", len(segs) - 1, pos))
+                miss_segs.append(len(segs) - 1)
+            pos += it.n_tokens
+        segs.append(np.asarray(st.r.question_tokens))
+        seg_abs.append(pos)
+        layout.append(("seg", len(segs) - 1, pos))
+        seg_lens = [len(s) for s in segs]
+        chunk = self.sched.config.prefill_chunk
+        if chunk > 0:
+            pieces = prefill_piece_sizes(seg_lens, chunk)
+        else:
+            # one piece per segment even unchunked: a piece's query rows are
+            # consecutive absolute positions (the kernel's q_start
+            # contract), and here compute segments are separated by shared
+            # runs
+            pieces = [int(n) for n in seg_lens if n > 0]
+        if not pieces:
+            raise ValueError(
+                f"request {st.r.req_id}: nothing to prefill (empty question "
+                f"and fully cached documents) — no logits can be produced")
+        job.cs = _ChunkState(plan=plan, segs=segs, doc_bounds=[],
+                             pieces=pieces, plen=plan.alpha)
+        job.cs.hit_runs = hit_runs
+        job.cs.layout = layout
+        job.cs.seg_abs = seg_abs
+        job.cs.miss_segs = miss_segs
         job.cs.pg_segs = [PagedSegment(self.store, [], 0) for _ in segs]
         self._partial_jobs.append(job)
 
@@ -789,6 +912,9 @@ class ContinuousRuntime:
                 cs.seg_off >= len(cs.segs[cs.seg_idx]):
             cs.seg_idx += 1          # skip empty segments before anchoring
             cs.seg_off = 0
+        # the piece's rows are consecutive absolute positions anchored at
+        # the cursor's segment (chunk mode scatters compute segments between
+        # shared runs, so a running prefix length is not the position)
         q_start = cs.seg_abs[cs.seg_idx] + cs.seg_off
         toks = np.zeros(n, np.int32)
         wblk = np.full(n, self._scratch_block, np.int32)
@@ -825,8 +951,11 @@ class ContinuousRuntime:
     def _paged_chunk_row(self, cs: _ChunkState):
         """Run-table row over the ordered sequence layout, same contract as
         decode (kernels/paged_attention.py): every entry starts at slot 0 of
-        a fresh block, so runs are exactly the per-block spans, each with
-        its true absolute start."""
+        a fresh block, so runs are exactly the per-block spans.  Each entry
+        carries its true absolute start — with chunk-mode interleaving, a
+        shared run can sit past a partially filled compute segment, and
+        causal masking over absolute positions (not table order) is what
+        keeps those later keys invisible to this piece's rows."""
         T = self._n_tbl
         bs = self.store.block_size
         tables = np.full(T, self._scratch_block, np.int32)
@@ -924,8 +1053,12 @@ class ContinuousRuntime:
                 hit_tier_tokens=cs.plan.hit_tier_tokens,
                 speculative=job.speculative, started=job.started,
                 hit_runs=hit_runs, pg_segs=pg_segs,
-                layout=list(cs.layout), first_logits=cs.logits)
-            if self.attn == "paged":
+                layout=list(cs.layout), exact=cs.plan.exact,
+                first_logits=cs.logits)
+            if cs.plan.chunks is not None:
+                self._commit_paged_chunks(
+                    cs.plan, [pg_segs[i] for i in cs.miss_segs])
+            elif self.attn == "paged":
                 self._commit_paged(cs.plan, pg_segs[:len(cs.doc_bounds)])
             else:
                 self._commit_payloads(
@@ -1023,6 +1156,20 @@ class ContinuousRuntime:
             if id(seg) not in kept:
                 self.store.release(seg.blocks)
 
+    def _commit_paged_chunks(self, plan, doc_segs) -> None:
+        """Chunk-mode commit (--reuse chunk): only miss docs enter the flat
+        chunk cache — the canonical entry for an exact/reloc hit is the node
+        already resident, and relocated boundary segments stay request-
+        private (their KV is position-specific).  Pure refcounting like
+        ``_commit_paged``; declined segments return their extra ref."""
+        for seg in doc_segs:
+            self.store.share(seg)
+        inserted = self.controller.commit_chunks(plan, list(doc_segs))
+        kept = {id(n.payload_gpu) for n in inserted}
+        for seg in doc_segs:
+            if id(seg) not in kept:
+                self.store.release(seg.blocks)
+
     def _reclaim_blocks(self, needed: int) -> bool:
         """Evict unpinned tree leaves (PGDSF order, shared Alg. 1 loop)
         until the pool has ``needed`` free blocks."""
@@ -1063,6 +1210,7 @@ class ContinuousRuntime:
         if start is not None:
             tl.final_prefill_start = start
         st.tokens = [res.first_token]
+        st.exact = res.exact
         st.first_logits = res.first_logits
         st.remaining = self.max_new_tokens - 1
         for job in st.jobs:            # any other pending work is now moot

@@ -15,6 +15,9 @@ against the plain version run in f32 on the same inputs.  Padding and
 all-empty rows must be exactly 0.  Every prefill row must keep its bits
 when recomputed as a later chunk of the same prefill, and every decode row
 alone, beside other neighbours' pages, and in a narrower or wider table.
+Prefill also runs over tables laid out as ``--reuse chunk`` lays them out:
+computed pages between shared runs, and a chunk whose q_start lies past
+shared runs and before others.
 """
 import numpy as np
 import pytest
@@ -158,6 +161,102 @@ def test_paged_prefill_kernel_matches_plain(dev, seed, dtype):
         cut = int(np.random.default_rng(seed + 100).integers(1, Sq))
         b = _paged(PP.paged_prefill_attention, c, q=c["q"][:, :, cut:],
                    q_start=c["ints"][3] + cut,
+                   q_len=torch.clamp(q_len - cut, min=0).to(q_len.dtype))
+        assert torch.equal(got[:, :, cut:], b)
+
+
+def chunk_case(seed, dtype, dev):
+    """A ragged prefill chunk over tables laid out as ``--reuse chunk`` lays
+    out a request: each doc shared whole, relocated (an owned head of whole
+    pages, then the shared tail) or computed, then the question.  The chunk
+    is a piece of one computed segment, so its q_start skips the shared
+    runs before it and shared runs sit in the table past it."""
+    rng = np.random.default_rng(seed)
+    B = int(rng.integers(1, 5))
+    KV = int(rng.choice([1, 2]))
+    R = int(rng.choice([1, 2, 7]))
+    hd = int(rng.choice([64, 128]))
+    page = int(rng.choice([8, 16]))
+    rows = []
+    for _ in range(B):
+        segs, pos = [], 0          # ("run" | "seg", absolute start, tokens)
+        for _ in range(int(rng.integers(1, 4))):
+            n = int(rng.integers(page + 1, 200))
+            kind = rng.choice(["exact", "reloc", "miss"])
+            head = page * int(rng.integers(1, n // page + 1))
+            if kind == "exact":
+                segs.append(("run", pos, n))
+            elif kind == "reloc" and head < n:
+                segs += [("seg", pos, head), ("run", pos + head, n - head)]
+            else:
+                segs.append(("seg", pos, n))
+            pos += n
+        segs.append(("seg", pos, int(rng.integers(1, 40))))
+        i = int(rng.choice([j for j, sg in enumerate(segs)
+                            if sg[0] == "seg"]))
+        off = int(rng.integers(0, segs[i][2]))
+        rows.append((segs, i, off, int(rng.integers(1, segs[i][2] - off
+                                                     + 1))))
+    entries = []
+    for segs, i, off, ql in rows:
+        # computed segments after the chunk's own are not computed yet
+        spans = [(abs0, n if kind == "run" or j < i else off + ql)
+                 for j, (kind, abs0, n) in enumerate(segs)
+                 if kind == "run" or j <= i]
+        entries.append([(abs0 + o, min(page, n - o)) for abs0, n in spans
+                        for o in range(0, n, page)])
+    n_pages = sum(map(len, entries))
+    free = list(rng.permutation(np.arange(1, n_pages + 1)))  # 0 = scratch
+    n_slots = max(map(len, entries)) + 3
+    tables = np.zeros((B, n_slots), np.int32)
+    counts = np.zeros((B, n_slots), np.int32)
+    starts = np.zeros((B, n_slots), np.int32)
+    for b, row in enumerate(entries):
+        for j, (st, c) in enumerate(row):
+            tables[b, j], counts[b, j], starts[b, j] = free.pop(), c, st
+    q_start = np.array([segs[i][1] + off for segs, i, off, _ in rows],
+                       np.int32)
+    q_len = np.array([r[3] for r in rows], np.int32)
+    Sq = int(q_len.max())
+    shape = (2, n_pages + 1, page, KV, hd)
+    ints = [torch.from_numpy(a).to(dev)
+            for a in (tables, counts, starts, q_start, q_len)]
+    q = _randn(rng, (B, Sq, R * KV, hd), dtype, dev).transpose(1, 2)
+    return dict(q=q, k=_randn(rng, shape, dtype, dev),
+                v=_randn(rng, shape, dtype, dev), ints=ints,
+                window=int(rng.choice([0, 0, 100])),
+                cap=float(rng.choice([0.0, 30.0])))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("seed", range(8))
+def test_paged_prefill_kernel_on_chunk_reuse_tables(dev, seed, dtype):
+    """Interleaved tables: the kernel against its plain version; the shared
+    runs past the chunk's last row change no bit; rows recomputed as a
+    later chunk keep their bits."""
+    c = chunk_case(seed, dtype, dev)
+    got = _paged(PP.paged_prefill_attention, c)
+    want = _paged(PP.paged_prefill_torch, c)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    if dtype == torch.bfloat16:
+        exact = _paged(PP.paged_prefill_torch,
+                       dict(c, q=c["q"].float(), k=c["k"].float(),
+                            v=c["v"].float()))
+        rel = _row_err(got, exact)
+        assert rel <= ROW_TOL, rel
+    tables, counts, starts, q_start, q_len = c["ints"]
+    later = starts > (q_start + q_len - 1)[:, None]
+    cut_tables = dict(c, ints=[tables, counts.masked_fill(later, 0), starts,
+                               q_start, q_len])
+    assert torch.equal(_paged(PP.paged_prefill_attention, cut_tables), got)
+    Sq = got.shape[2]
+    if Sq > 1:
+        cut = int(np.random.default_rng(seed + 200).integers(1, Sq))
+        b = _paged(PP.paged_prefill_attention, c, q=c["q"][:, :, cut:],
+                   q_start=q_start + cut,
                    q_len=torch.clamp(q_len - cut, min=0).to(q_len.dtype))
         assert torch.equal(got[:, :, cut:], b)
 

@@ -35,6 +35,9 @@ VERBATIM = [
     "serving/scheduler.py",
     "serving/metrics.py",
     "retrieval/corpus.py",
+    "retrieval/traffic.py",
+    "serving/router.py",
+    "serving/frontdoor.py",
 ]
 
 JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M)
@@ -79,6 +82,9 @@ SLICE_MODULES = [
     "repro_torch.serving.runtime",
     "repro_torch.serving.engine",
     "repro_torch.launch.serve",
+    "repro_torch.serving.router",
+    "repro_torch.serving.frontdoor",
+    "repro_torch.retrieval.traffic",
 ]
 
 

@@ -118,13 +118,13 @@ def test_chunked_prefill_gives_the_same_tokens(setup, port_run):
 
 
 @pytest.mark.parametrize("conf", [dict(attn="dense", mesh=MeshConfig(tp=2)),
-                                  dict(reuse="chunk"),
+                                  dict(reuse="chunk", mesh=MeshConfig(tp=2)),
                                   dict(mode="cag", disk_cache_bytes=1 << 20,
                                        mesh=MeshConfig(tp=2)),
                                   dict(mesh=MeshConfig(tp=2))])
 def test_unported_options_raise(setup, conf):
-    """Chunk reuse and tensor parallelism, alone or under the dense and CAG
-    paths, are still to port."""
+    """Tensor parallelism, alone or under the dense, chunk-reuse and CAG
+    paths, is still to port."""
     _, cfg, _, tp, _, corpus, _, idx, _, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousRuntime(cfg, tp, corpus, idx, config=EngineConfig(**conf),
