@@ -2,8 +2,10 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_reduced(arch_id)`` the CPU-test variant of the same family.  Only the
-families the port serves are registered; the others join with their model
-code (ROADMAP.md, Queue A).
+dense models the port serves are registered: Qwen2-0.5B, and the paper's
+two evaluation models, Mistral-7B (GQA, a 4096-token sliding window on
+every layer) and LLaMA2-7B (MHA).  The other architectures join with their
+model code (ROADMAP.md, Queue A).
 """
 from __future__ import annotations
 
@@ -14,10 +16,15 @@ from repro_torch.models.config import ModelConfig
 
 _ARCHS = [
     "qwen2_0p5b",
+    # paper's own evaluation models
+    "mistral_7b",
+    "llama2_7b",
 ]
 
 _ALIASES = {
     "qwen2-0.5b": "qwen2_0p5b",
+    "mistral-7b": "mistral_7b",
+    "llama2-7b": "llama2_7b",
 }
 
 

@@ -30,15 +30,14 @@
 //    4-thread quad with two __shfl_xor_sync, a running max that starts at
 //    the finite PA_NEG_INF so alpha = exp2(m_prev - m_new) is never NaN,
 //    row sums kept per thread and summed over the quad once at the end.
-//  - O += P V: P is rounded to bf16 to form the A-fragments (the TPU
-//    kernels keep P in f32 for this product, paged_prefill.py:88-89 and
-//    prefix_attention.py's _accumulate), V's B-fragments come from
-//    ldmatrix.trans, and O accumulates in f32.  P as hi + lo bf16 parts
-//    (two products) was measured on an H100 80GB HBM3: it brings each
-//    output row to within the plain version's own bf16 rounding (row
-//    error 2.7e-3 against 3.5e-3) and leaves as many token streams apart,
-//    but costs the paged kernel 16% of its time on the main serve and the
-//    hd-64 prefix body 165 registers instead of 128 (PERF.md).
+//  - O += P V with P as two bf16 parts, hi = bf16(P) and lo = bf16(P -
+//    hi), each the A-fragments of one product (hi first): hi + lo holds P
+//    to about 16 bits, near the f32 P of the TPU kernels (paged_prefill.py
+//    :88-89 and prefix_attention.py's _accumulate) and of the plain
+//    versions.  P rounded to bf16 alone (one product) moved the paper
+//    models' first-token logits by up to 0.34 from the plain versions'
+//    after 32 layers at width 4096 on an H100 80GB HBM3 (PERF.md).  V's
+//    B-fragments come from ldmatrix.trans, and O accumulates in f32.
 //
 // A row's bits do not depend on the chunk or q-block it sits in.  Each row
 // sees one online-softmax update per *unit* — a table slot's page in the
@@ -151,6 +150,16 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x0, x1 as bf16 pairs hi + lo: hi = bf16(x), lo = bf16(x - hi), so that
+// hi + lo holds x to about 16 significant bits
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
 // ---------------------------------------------------------------------------
@@ -314,23 +323,27 @@ __device__ __forceinline__ void update(Warp<HD>& w, const bf16* ks,
     w.o[n][3] *= alpha[1];
   }
   // O += P V: P's accumulator layout is the A-fragment layout of the
-  // 16-key chunk; V's B-fragments for two 8-dim tiles per ldmatrix.trans,
-  // lane l addressing key 8 * ((l / 8) % 2) + l % 8, dims 8 * (l / 16)
+  // 16-key chunk, P as hi + lo bf16 parts (two products, hi first); V's
+  // B-fragments for two 8-dim tiles per ldmatrix.trans, lane l addressing
+  // key 8 * ((l / 8) % 2) + l % 8, dims 8 * (l / 16)
   const bf16* vr =
       vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * S + (lane >> 4) * 8;
 #pragma unroll
   for (int kc = 0; kc < NKC; ++kc) {
     if (kc < nkc) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                             pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                             pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                             pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+      uint32_t a[4], a_lo[4];
+      split_bf16(s[2 * kc][0], s[2 * kc][1], a[0], a_lo[0]);
+      split_bf16(s[2 * kc][2], s[2 * kc][3], a[1], a_lo[1]);
+      split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], a[2], a_lo[2]);
+      split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], a[3], a_lo[3]);
 #pragma unroll
       for (int nd = 0; nd < HD / 8; nd += 2) {
         uint32_t bv[4];
         ldsm_x4_t(bv, vr + kc * 16 * S + nd * 8);
         mma16816(w.o[nd], a, bv[0], bv[1]);
+        mma16816(w.o[nd], a_lo, bv[0], bv[1]);
         mma16816(w.o[nd + 1], a, bv[2], bv[3]);
+        mma16816(w.o[nd + 1], a_lo, bv[2], bv[3]);
       }
     }
   }

@@ -31,7 +31,8 @@
 // gets its own online-softmax update, as in the TPU kernel and the plain
 // version: the sequence of updates a row sees is fixed by the table alone,
 // so a row's bits do not depend on the chunk or q-block it sits in (see
-// attn_tile.cuh).  P is rounded to bf16 for the P @ V product.
+// attn_tile.cuh).  P enters the P @ V product as hi + lo bf16 parts (two
+// products).
 //
 // f32 (hd 64 and 128; the CPU-side checks' dtype, never served on the
 // card): a CUDA-core body, one page at a time through shared memory with

@@ -30,8 +30,8 @@
 // row's bits do not depend on the block or chunk it sits in (see
 // attn_tile.cuh).  A tile every key of which every row of a warp sees takes
 // the unmasked path (the predicate of prefix_attention.py:79-81, per warp),
-// with the same bits as the masked path.  P is rounded to bf16 for the
-// P @ V product.
+// with the same bits as the masked path.  P enters the P @ V product as
+// hi + lo bf16 parts (two products; see attn_tile.cuh).
 //
 // f32 (hd 64 and 128; the CPU-side checks' dtype, never served on the
 // card): a CUDA-core body, 64-key tiles through shared memory with f32

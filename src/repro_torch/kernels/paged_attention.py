@@ -33,6 +33,14 @@ SPLIT_KEYS = 128
 SPLIT_KEYS_WIDE = 64
 
 
+def used_entries(counts) -> int:
+    """Table entries up to the last one any row uses: an entry that no row
+    uses masks every key, so leaving the trailing ones out of the plain
+    versions' loops changes no bit of their results."""
+    used = (counts > 0).any(dim=0).nonzero()
+    return int(used.max()) + 1 if used.numel() else 0
+
+
 def paged_decode_torch(q, k_pages, v_pages, tables, counts, starts, qpos,
                        layer: int, window: int, *, logit_cap: float = 0.0):
     """Per-page gather + online softmax in plain PyTorch (twin of
@@ -52,7 +60,7 @@ def paged_decode_torch(q, k_pages, v_pages, tables, counts, starts, qpos,
     m = torch.full((B, KV, R), NEG_INF, device=q.device)
     l = torch.zeros((B, KV, R), device=q.device)
     acc = torch.zeros((B, KV, R, hd), device=q.device)
-    for j in range(tables.shape[1]):
+    for j in range(used_entries(counts)):
         pid = tables[:, j].long()
         k = kl[pid].float()                              # (B, page, KV, hd)
         v = vl[pid].float()

@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import check_pool_args
+from repro_torch.kernels.paged_attention import (check_pool_args,
+                                                 used_entries)
 
 NEG_INF = -1e30
 
@@ -52,7 +53,7 @@ def paged_prefill_torch(q, k_pages, v_pages, tables, counts, starts, q_start,
     m = torch.full((B, KV, R, Sq), NEG_INF, device=dev)
     l = torch.zeros((B, KV, R, Sq), device=dev)
     acc = torch.zeros((B, KV, R, Sq, hd), device=dev)
-    for j in range(tables.shape[1]):
+    for j in range(used_entries(counts)):
         pid = tables[:, j].long()
         k = kl[pid].float()                                # (B, page, KV, hd)
         v = vl[pid].float()
@@ -88,13 +89,13 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, counts, starts,
     Replaces the TPU kernel ``repro/kernels/paged_prefill.py::
     paged_prefill_attention``.  Bound on the H100 by operations for long
     chunks, bytes for short ones over long caches.  bf16 runs on the tensor
-    cores (mma.sync m16n8k16, f32 accumulation, P rounded to bf16 for the
-    P @ V product) with K/V pages streamed through a cp.async ring; f32 on
-    CUDA cores.  One CTA packs the R query heads of a KV head so each page
-    is read once for all of them, and skips empty entries and entries past
-    the causal frontier or outside the window.  Every page is one
-    online-softmax update, so a row's bits do not depend on the chunk it
-    sits in (see csrc/attn_tile.cuh).  A CPU tensor takes the plain
+    cores (mma.sync m16n8k16, f32 accumulation, P as hi + lo bf16 parts
+    for the P @ V product) with K/V pages streamed through a cp.async
+    ring; f32 on CUDA cores.  One CTA packs the R query heads of a KV head
+    so each page is read once for all of them, and skips empty entries and
+    entries past the causal frontier or outside the window.  Every page is
+    one online-softmax update, so a row's bits do not depend on the chunk
+    it sits in (see csrc/attn_tile.cuh).  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel on the current stream or
     raises.
     """

@@ -132,13 +132,13 @@ def prefix_flash_attention(q, k, v, *, prefix_len: int, window: int = 0,
     Replaces the TPU kernel ``repro/kernels/prefix_attention.py::
     prefix_flash_attention``.  Bound on the H100 by operations for long
     sequences, bytes for a short chunk after a long prefix.  bf16 runs on
-    the tensor cores (mma.sync m16n8k16, f32 accumulation, P rounded to
-    bf16 for the P @ V product) with 64-key K/V tiles streamed through a
-    cp.async ring; f32 on CUDA cores.  One CTA packs the R query heads of a
-    KV head so each tile is read once for all of them, and skips tiles
-    wholly past the causal frontier or before the window.  Tiles start at
-    multiples of 64 from key 0 and each is one online-softmax update, so a
-    row's bits do not depend on the chunk it sits in (see
+    the tensor cores (mma.sync m16n8k16, f32 accumulation, P as hi + lo
+    bf16 parts for the P @ V product) with 64-key K/V tiles streamed
+    through a cp.async ring; f32 on CUDA cores.  One CTA packs the R query
+    heads of a KV head so each tile is read once for all of them, and skips
+    tiles wholly past the causal frontier or before the window.  Tiles
+    start at multiples of 64 from key 0 and each is one online-softmax
+    update, so a row's bits do not depend on the chunk it sits in (see
     csrc/attn_tile.cuh).  It also takes ``logit_cap``, which the TPU kernel
     lacks.  A CPU tensor takes the plain version; a CUDA tensor launches
     the kernel on the current stream or raises.

@@ -41,8 +41,18 @@ from the cache and shed requests never run.
         [--frontdoor --tenants 3 --replicas 2 --autoscale]
 
 The CLI uses the reduced config unless ``--full-size`` asks for the
-published one; ``make_setup(args, cfg=...)`` takes any.  ``--device``
-defaults to ``cuda``.  Not ported yet (ROADMAP.md Queue A): ``--tp`` > 1,
+published one; ``make_setup(args, cfg=...)`` takes any.  ``--arch`` takes
+``qwen2-0.5b`` (the default), ``mistral-7b`` and ``llama2-7b``, the paper's
+evaluation models; at full size their seeded random bf16 weights take
+14.5 GB and 13.5 GB on the card.  ``--gpu-cache-bytes`` sizes the paged
+pool, clipped at 4096 blocks: keep it at or below 4096 blocks of KV (7.875
+GiB for Mistral-7B, 31.5 GiB for LLaMA2-7B at block 16), or the knowledge
+tree budgets GPU space the pool lacks.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --full-size \
+        --arch mistral-7b --gpu-cache-bytes 8053063680 --check-tokens tol:0.3
+
+``--device`` defaults to ``cuda``.  Not ported yet (ROADMAP.md Queue A): ``--tp`` > 1,
 which raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -242,6 +252,13 @@ def make_setup(args, cfg=None):
     if cfg is None:
         cfg = (get_config if args.full_size else get_reduced)(args.arch)
     params = M.init_params(cfg, args.seed, resolve_device(args.device))
+    return (cfg, params) + make_data(args, cfg)
+
+
+def make_data(args, cfg):
+    """Build (corpus, idx, workload, tenants) from the flags, for the
+    vocabulary of ``cfg``: everything ``make_setup`` builds but the
+    weights."""
     corpus = make_corpus(args.docs, mean_doc_tokens=args.doc_tokens,
                          vocab=cfg.vocab_size, seed=args.seed)
     idx = IVFIndex(corpus.doc_vectors, n_clusters=min(16, args.docs),
@@ -255,13 +272,13 @@ def make_setup(args, cfg=None):
             diurnal_amplitude=args.diurnal_amplitude,
             burst_rate_mult=args.burst_rate_mult, vocab=cfg.vocab_size,
             question_tokens=8, output_len_mean=args.output_len_mean)
-        return cfg, params, corpus, idx, wl, tenants
+        return corpus, idx, wl, tenants
     wl = make_workload(corpus, n_requests=args.requests, rate=args.rate,
                        question_tokens=8, vocab=cfg.vocab_size,
                        zipf_s=args.zipf_s, seed=args.seed + 1,
                        drift=args.drift, n_phases=args.n_phases,
                        output_len_mean=args.output_len_mean)
-    return cfg, params, corpus, idx, wl, None
+    return corpus, idx, wl, None
 
 
 def tier_hit_line(tree) -> str:

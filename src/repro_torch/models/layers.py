@@ -8,17 +8,27 @@ prefix-attention kernel; ``decode_attention`` is plain PyTorch, as the JAX
 package's is plain jnp.
 
 Row invariance.  On the card, cuBLAS chooses its GEMM kernel by the
-number of rows in the call, and for the d_ff-deep down projection of
-``swiglu`` (K 4864 at Qwen2-0.5B) that choice changes the order in which
-a row's products are summed: below 128 rows it gives other bits than
-above.  A row's result would then depend on how many rows share the call,
-and a prefill cut into chunks would not give the unchunked tokens.
-``swiglu`` therefore runs that product through ``row_slabs``, in calls of
-exactly ``ROW_SLAB`` rows: one shape, one kernel, the same bits for a row
-whatever else is in the batch.  chip_smoke.py's row-invariance probe
-measures every row-wise op of the serving steps with and without it; the
-others (the norm's mean, the K-896 products, the logits) are
-row-invariant as they are.
+number of rows in the call, and for some products that choice changes the
+order in which a row's products are summed: the row's result then depends
+on how many rows share the call, and a prefill cut into chunks would not
+give the unchunked tokens.  ``proj`` runs those products through
+``row_slabs``, in calls of exactly ``ROW_SLAB`` rows: one shape, one
+kernel, the same bits for a row whatever else is in the batch.  Which
+products need it was measured by chip_smoke.py's row-invariance probe
+(calls of 1 to 8192 rows) on an H100 80GB HBM3 with torch 2.11 / CUDA
+12.8, at each served model's widths (K deep, N wide):
+
+  Qwen2-0.5B  the down projection (K 4864, N 896); not the K-896 ones
+  Mistral-7B  the k and v projections (K 4096, N 1024) and the down
+              projection (K 14336); not q, o (N 4096), gate, up (N 14336)
+              or the logits (N 32000)
+  LLaMA2-7B   the down projection (K 11008); not q, k, v, o, gate, up or
+              the logits, all K 4096 with N >= 4096
+
+``slabbed`` holds that rule: deeper than SLAB_MIN_K, or SLAB_MIN_K deep
+with at most a quarter as many outputs.  The norm's mean is row-invariant
+as it is.  The probe runs every op with and without the helper, so a
+product this rule misses shows there.
 """
 from __future__ import annotations
 
@@ -33,6 +43,8 @@ NEG_INF = -1e30
 # rows per call of the products run through row_slabs; 0 makes one call
 # over all rows
 ROW_SLAB = 512
+# contraction depth of the products proj runs through row_slabs (slabbed)
+SLAB_MIN_K = 4096
 
 
 def row_slabs(fn, x: torch.Tensor) -> torch.Tensor:
@@ -92,11 +104,26 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
+def slabbed(w: torch.Tensor) -> bool:
+    """Whether ``proj`` runs the product with w (K, N) in fixed row slabs:
+    K > SLAB_MIN_K, or K == SLAB_MIN_K and N <= K / 4 (see the module
+    docstring)."""
+    K, N = w.shape[-2], w.shape[-1]
+    return K > SLAB_MIN_K or (K == SLAB_MIN_K and 4 * N <= K)
+
+
+def proj(x: torch.Tensor, w: torch.Tensor,
+         b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dense(x, w, b)``, in fixed row slabs where ``slabbed(w)``."""
+    if slabbed(w):
+        return row_slabs(lambda r: dense(r, w, b), x)
+    return dense(x, w, b)
+
+
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
            wd: torch.Tensor) -> torch.Tensor:
-    h = F.silu(dense(x, wg)) * dense(x, wu)
-    # the d_ff-deep contraction: fixed row slabs (see the module docstring)
-    return row_slabs(lambda r: dense(r, wd), h)
+    h = F.silu(proj(x, wg)) * proj(x, wu)
+    return proj(h, wd)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

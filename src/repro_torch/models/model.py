@@ -13,8 +13,11 @@ its flat checkpoint).  Every step runs eagerly, layer by layer:
                      straight against the paged pool, whose new K/V they
                      write IN PLACE before attention
 
-Only the dense family (GQA with an optional QKV bias) is ported; MoE, VLM,
-audio and the recurrent families wait (ROADMAP.md Queue A).
+Only the dense family (GQA or MHA, an optional QKV bias, optional sliding
+windows) is ported.  It serves Qwen2-0.5B (GQA with a QKV bias, hd 64) and
+the paper's evaluation models, Mistral-7B (GQA R 4, a 4096-token window on
+every layer, hd 128) and LLaMA2-7B (MHA, hd 128); MoE, VLM, audio and the
+recurrent families wait (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -110,7 +113,7 @@ def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"].t())
     else:
-        logits = L.dense(x, params["lm_head"])
+        logits = L.proj(x, params["lm_head"])
     if cfg.final_logit_softcap:
         logits = L.softcap(logits.float(), cfg.final_logit_softcap)
     return logits.float()
@@ -127,9 +130,9 @@ def _ffn(cfg: ModelConfig, p, x):
 def _qkv(cfg: ModelConfig, p, h):
     B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = L.dense(h, p["wq"], p.get("bq")).reshape(B, S, H, hd)
-    k = L.dense(h, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
-    v = L.dense(h, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+    q = L.proj(h, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+    k = L.proj(h, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
+    v = L.proj(h, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
     return q, k, v
 
 
@@ -177,7 +180,7 @@ def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
                               q_offset=P, window=windows[li],
                               logit_cap=cfg.attn_logit_softcap,
                               impl=attn_impl)
-        x = x + L.dense(o.reshape(B, S, -1), p["wo"])
+        x = x + L.proj(o.reshape(B, S, -1), p["wo"])
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, p, h2)
     return lm_logits(cfg, params, x[:, -1:]), cache
@@ -209,7 +212,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos) -> torch.Tensor:
         vc[bidx, at] = v[:, 0].to(vc.dtype)
         o = L.decode_attention(q, kc, vc, pos=pos, window=windows[li],
                                logit_cap=cfg.attn_logit_softcap)
-        x = x + L.dense(o.reshape(B, 1, -1), p["wo"])
+        x = x + L.proj(o.reshape(B, 1, -1), p["wo"])
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, p, h2)
     return lm_logits(cfg, params, x)
@@ -245,7 +248,7 @@ def paged_decode_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
             q[:, 0].contiguous(), k_pages, v_pages, tables, counts, starts,
             pos - 1, li, windows[li], logit_cap=cfg.attn_logit_softcap,
             impl=attn_impl)
-        x = x + L.dense(o.reshape(B, 1, -1), p["wo"])
+        x = x + L.proj(o.reshape(B, 1, -1), p["wo"])
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, p, h2)
     return lm_logits(cfg, params, x)
@@ -287,7 +290,7 @@ def paged_prefill_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
             q.transpose(1, 2), k_pages, v_pages, tables, counts, starts,
             q_start, q_len, li, windows[li],
             logit_cap=cfg.attn_logit_softcap, impl=attn_impl)
-        x = x + L.dense(o.transpose(1, 2).reshape(B, Sq, -1), p["wo"])
+        x = x + L.proj(o.transpose(1, 2).reshape(B, Sq, -1), p["wo"])
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, p, h2)
     last = torch.clamp(q_len.long() - 1, 0, Sq - 1)

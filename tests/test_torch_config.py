@@ -9,11 +9,17 @@ torch.set_num_threads(2)
 from repro import configs as jax_configs
 from repro_torch import configs as torch_configs
 
+ARCHS = ["qwen2-0.5b", "mistral-7b", "llama2-7b"]
+# K and V bytes a token, bf16, all layers (the config modules' docstrings:
+# 0.125 MiB for Mistral-7B, 0.5 MiB for LLaMA2-7B)
+KV_BYTES = {"mistral-7b": 131_072, "llama2-7b": 524_288}
+
 
 @pytest.mark.parametrize("getter", ["get_config", "get_reduced"])
-def test_qwen2_config_fields_match(getter):
-    a = getattr(jax_configs, getter)("qwen2-0.5b")
-    b = getattr(torch_configs, getter)("qwen2-0.5b")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_fields_match(arch, getter):
+    a = getattr(jax_configs, getter)(arch)
+    b = getattr(torch_configs, getter)(arch)
     fa = {f.name: getattr(a, f.name) for f in dataclasses.fields(a)}
     fb = {f.name: getattr(b, f.name) for f in dataclasses.fields(b)}
     assert fa == fb
@@ -21,6 +27,19 @@ def test_qwen2_config_fields_match(getter):
     assert (a.hd, a.q_rep, a.n_params()) == (b.hd, b.q_rep, b.n_params())
     assert b.tdtype == torch.bfloat16
     assert dataclasses.replace(b, dtype="float32").tdtype == torch.float32
+    if getter == "get_config" and arch in KV_BYTES:
+        kv = 2 * b.n_layers * b.n_kv_heads * b.hd * b.tdtype.itemsize
+        assert kv == KV_BYTES[arch]
+
+
+def test_registry_lists_the_served_models():
+    assert torch_configs.list_configs() == [
+        "qwen2_0p5b", "mistral_7b", "llama2_7b"]
+    assert torch_configs.get_config("mistral-7b").layer_windows() == \
+        (4096,) * 32
+    assert torch_configs.get_reduced("mistral-7b").layer_windows() == \
+        (64,) * 2
+    assert torch_configs.get_config("llama2-7b").q_rep == 1
 
 
 def test_unported_architecture_raises():

@@ -17,7 +17,10 @@ when recomputed as a later chunk of the same prefill, and every decode row
 alone, beside other neighbours' pages, and in a narrower or wider table.
 Prefill also runs over tables laid out as ``--reuse chunk`` lays them out:
 computed pages between shared runs, and a chunk whose q_start lies past
-shared runs and before others.
+shared runs and before others.  Fixed cases hold all three kernels at the
+paper models' head shapes (hd 128, 32 query heads over Mistral-7B's 8 KV
+heads and LLaMA2-7B's 32), in both dtypes, and under Mistral's 4096-token
+window over rows of more than 4096 keys, with the same bit checks.
 """
 import numpy as np
 import pytest
@@ -388,3 +391,143 @@ def test_decode_row_bits_depend_on_its_own_table_only(dev, seed, dtype):
     for ints in (narrow, wide):
         assert torch.equal(_decode(PA.paged_decode_attention, c,
                                    ints=ints + [qpos]), out)
+
+
+# the paper models' head shapes: (model, KV heads, query heads per KV head,
+# window); Mistral-7B also with its 4096-token window over longer rows
+PAPER = [("mistral", 8, 4, 0), ("mistral", 8, 4, 4096), ("llama2", 32, 1, 0)]
+PAPER_IDS = ["mistral", "mistral-window", "llama2"]
+
+
+def _table(rng, rows, page):
+    """Run tables for rows of segment lengths, every segment on fresh pages
+    (page 0 is scratch): (tables, counts, starts, lengths, n_pages)."""
+    n_pages = sum(-(-n // page) for segs in rows for n in segs)
+    free = list(rng.permutation(np.arange(1, n_pages + 1)))
+    runs = []
+    for segs in rows:
+        t, c, st, pos = [], [], [], 0
+        for n in segs:
+            for off in range(0, n, page):
+                t.append(int(free.pop()))
+                c.append(min(page, n - off))
+                st.append(pos + off)
+            pos += n
+        runs.append((t, c, st, pos))
+    n_slots = max(len(r[0]) for r in runs) + 3
+    ints = [np.zeros((len(rows), n_slots), np.int32) for _ in range(3)]
+    for b, r in enumerate(runs):
+        for a, vals in zip(ints, r[:3]):
+            a[b, :len(vals)] = vals
+    return (*ints, [r[3] for r in runs], n_pages)
+
+
+def paper_decode_case(KV, R, window, dtype, dev):
+    """8 rows of two docs and a question (~1,100 keys; ~4,700 under the
+    window, past it), the last row all empty."""
+    rng = np.random.default_rng(KV + window)
+    docs = (2400, 2300) if window else (600, 500)
+    rows = [[docs[0] - 7 * b, docs[1] + 3 * b, 9 + b] for b in range(7)]
+    tables, counts, starts, lens, n_pages = _table(rng, rows + [[]], 16)
+    qpos = np.array([max(n - 1, 0) for n in lens], np.int32)
+    shape = (2, n_pages + 1, 16, KV, 128)
+    return dict(q=_randn(rng, (8, R * KV, 128), dtype, dev),
+                k=_randn(rng, shape, dtype, dev),
+                v=_randn(rng, shape, dtype, dev),
+                ints=[torch.from_numpy(a).to(dev)
+                      for a in (tables, counts, starts, qpos)],
+                window=window, cap=0.0, empty=[False] * 7 + [True])
+
+
+def paper_prefill_case(KV, R, window, dtype, dev):
+    """A 160-row chunk after cached docs (4,500 keys under the window),
+    a shorter row, a fresh row and a padding row."""
+    rng = np.random.default_rng(KV + window + 1)
+    pre = (2400, 2100) if window else (700, 300)
+    rows = [(list(pre), 160), ([900], 100), ([], 130), ([], 0)]
+    tables, counts, starts, lens, n_pages = _table(
+        rng, [p + [ql] if ql else [] for p, ql in rows], 16)
+    q_len = np.array([ql for _, ql in rows], np.int32)
+    q_start = np.array([n - ql for n, (_, ql) in zip(lens, rows)], np.int32)
+    q_start[q_len == 0] = 0
+    shape = (2, n_pages + 1, 16, KV, 128)
+    q = _randn(rng, (4, 160, R * KV, 128), dtype, dev).transpose(1, 2)
+    return dict(q=q, k=_randn(rng, shape, dtype, dev),
+                v=_randn(rng, shape, dtype, dev),
+                ints=[torch.from_numpy(a).to(dev)
+                      for a in (tables, counts, starts, q_start, q_len)],
+                window=window, cap=0.0)
+
+
+def _check_bf16_rows(got, exact, dtype):
+    if dtype == torch.bfloat16:
+        rel = _row_err(got, exact)
+        assert rel <= ROW_TOL, rel
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("model,KV,R,window", PAPER, ids=PAPER_IDS)
+def test_decode_kernel_at_paper_shapes(dev, model, KV, R, window, dtype):
+    c = paper_decode_case(KV, R, window, dtype, dev)
+    got = _decode(PA.paged_decode_attention, c)
+    want = _decode(PA.paged_decode_torch, c)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    _check_bf16_rows(got, _decode(PA.paged_decode_torch, c,
+                                  q=c["q"].float(), k=c["k"].float(),
+                                  v=c["v"].float()), dtype)
+    assert bool((got.float()[7] == 0).all())
+    for b in range(8):                 # each row alone, bit for bit
+        alone = _decode(PA.paged_decode_attention, c, q=c["q"][b:b + 1],
+                        ints=[t[b:b + 1] for t in c["ints"]])
+        assert torch.equal(alone, got[b:b + 1]), b
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("model,KV,R,window", PAPER, ids=PAPER_IDS)
+def test_paged_prefill_kernel_at_paper_shapes(dev, model, KV, R, window,
+                                              dtype):
+    c = paper_prefill_case(KV, R, window, dtype, dev)
+    got = _paged(PP.paged_prefill_attention, c)
+    want = _paged(PP.paged_prefill_torch, c)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    _check_bf16_rows(got, _paged(PP.paged_prefill_torch,
+                                 dict(c, q=c["q"].float(), k=c["k"].float(),
+                                      v=c["v"].float())), dtype)
+    q_start, q_len = c["ints"][3], c["ints"][4]
+    pad = torch.arange(160, device=dev)[None] >= q_len[:, None]
+    assert bool((got.float().permute(0, 2, 1, 3)[pad] == 0).all())
+    for cut in (1, 77, 159):           # rows as a later chunk, bit for bit
+        b = _paged(PP.paged_prefill_attention, c, q=c["q"][:, :, cut:],
+                   q_start=q_start + cut,
+                   q_len=torch.clamp(q_len - cut, min=0).to(q_len.dtype))
+        assert torch.equal(got[:, :, cut:], b), cut
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("model,KV,R,window", PAPER, ids=PAPER_IDS)
+def test_prefix_kernel_at_paper_shapes(dev, model, KV, R, window, dtype):
+    rng = np.random.default_rng(KV + window + 2)
+    P, Sq = (4200, 200) if window else (300, 200)
+    q = _randn(rng, (1, Sq, R * KV, 128), dtype, dev).transpose(1, 2)
+    k = _randn(rng, (1, P + Sq, KV, 128), dtype, dev).transpose(1, 2)
+    v = _randn(rng, (1, P + Sq, KV, 128), dtype, dev).transpose(1, 2)
+    c = dict(q=q, k=k, v=v, prefix_len=P, window=window, logit_cap=0.0)
+    got = _prefix(PX.prefix_flash_attention, c)
+    want = _prefix(PX.prefix_attention_torch, c)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    _check_bf16_rows(got, _prefix(PX.prefix_attention_torch, c,
+                                  q=q.float(), k=k.float(), v=v.float()),
+                     dtype)
+    for cut in (1, 64, 150):           # rows as a later chunk, bit for bit
+        b = _prefix(PX.prefix_flash_attention, c, q=q[:, :, cut:],
+                    prefix_len=P + cut)
+        assert torch.equal(got[:, :, cut:], b), cut

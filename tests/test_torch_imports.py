@@ -38,6 +38,9 @@ VERBATIM = [
     "retrieval/traffic.py",
     "serving/router.py",
     "serving/frontdoor.py",
+    "configs/qwen2_0p5b.py",
+    "configs/mistral_7b.py",
+    "configs/llama2_7b.py",
 ]
 
 JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M)
@@ -85,6 +88,8 @@ SLICE_MODULES = [
     "repro_torch.serving.router",
     "repro_torch.serving.frontdoor",
     "repro_torch.retrieval.traffic",
+    "repro_torch.configs.mistral_7b",
+    "repro_torch.configs.llama2_7b",
 ]
 
 
