@@ -66,9 +66,10 @@ Phases, each fatal on failure:
                Mistral KV, 1,024 of LLaMA2 KV), hit rates and tier hits
                side by side; the row probe and the chunk split, bit for
                bit; the serve without the slab helper; (c) 4 requests
-               through the plain versions; (e) Mistral only: 4 requests of
-               ~4,800 tokens, past its 4096-token window, against the
-               sequential engine and the plain versions; the profile of
+               through the plain versions; (e) Mistral only, through its
+               first 16 layers: 4 requests of ~4,450 tokens, past its
+               4096-token window, against the sequential engine and the
+               plain versions; the profile of
                phase 14; (b) serve.main --full-size --check-tokens on 8
                requests.  Their eps comes from the measured logits
                (paper_eps).
@@ -88,6 +89,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -147,6 +149,32 @@ PAPER_HOST_BYTES = 512 * 2**20
 # 4096-token window, prefilled in 512-token chunks
 WINDOW_ARGV = ["--docs", "12", "--doc-tokens", "2400", "--requests", "4",
                "--prefill-chunk", "512"]
+# ... through the first 16 of Mistral-7B's 32 layers (views of its
+# weights), with the GPU tier scaled so that the pool keeps its 3,904
+# blocks: a depth cut that holds the script's wall under ~800 s once
+# phases 16-17 run (the whole window phase took 176-187 s at 32 layers)
+WINDOW_LAYERS = 16
+# phase 16: Mixtral-8x7B (8 experts, top 2) at full published width and 24
+# of its 32 identical layers: 35.09e9 params, 70.2e9 B of bf16 weights (all
+# 32 layers take 93.4e9 B, past one 80 GB card).  The depth is fixed here;
+# nothing picks it at run time.
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 24
+# its GPU tier: 4,032 blocks of its KV (98,304 B a token at 24 layers), so
+# that the pool (the tier's blocks + 64, clipped at 4096) holds every block
+# the tree budgets; 7.5 GiB would be 5,120 blocks, past the clip
+MOE_GPU_BYTES = 4032 * 16 * 98_304
+# phase 16's capacity check: rows of one layer through moe_capacity and
+# moe_dense.  Rows both of whose experts kept them must agree within
+# CAPACITY_TOL x the largest |dense output| of those rows, four bf16 ulps
+# at that value: dense rounds each expert's weighted term to bf16 and the
+# sum after each add, capacity sums in f32 and rounds once, and the two
+# run each expert's products as GEMMs of other shapes
+CAPACITY_ROWS = 2048
+CAPACITY_TOL = 2.0 ** -5
+# phase 17: InternVL2-1B at full published width, its text backbone served
+# on the main trace; its dense prefill also takes its 256 patch embeddings
+VLM_ARCH = "internvl2-1b"
 # card clock cycles (~1 ms) the card spins before each timed call
 SPIN_CYCLES = 2_000_000
 # rows per call in the row-invariance probe; 8192 is the largest prefill
@@ -553,10 +581,12 @@ def recording_margins():
         v, i = v.cpu().numpy(), i.cpu().numpy()
         return [(int(a[0]), float(b[0] - b[1])) for a, b in zip(i, v)]
 
+    @functools.wraps(orig["paged"])
     def paged_step(*a, **k):
         state["logits"] = orig["paged"](*a, **k)
         return state["logits"]
 
+    @functools.wraps(orig["dense"])
     def dense_step(*a, **k):
         state["logits"] = out = orig["dense"](*a, **k)
         if state["seq"] is not None:
@@ -605,6 +635,108 @@ def recording_margins():
         ContinuousRuntime.serve = orig["serve"]
         RAGServer._serve_one = orig["one"]
         serve.token_mismatches = orig["check"]
+
+
+@contextlib.contextmanager
+def pinned_routes(routes, replay):
+    """While open, each MoE routing (layers.route, once a layer a step) is
+    keyed by (layer, absolute position, token id) of each of its rows,
+    from the model step that runs it.  Without ``replay`` the experts each
+    row chose are recorded into ``routes``; with it, a row whose key is in
+    ``routes`` takes the recorded experts, gated by the softmax of its own
+    logits at them.  Top-k routing is discontinuous: two runs that differ
+    only in arithmetic order choose other experts for rows whose k-th and
+    next logits lie within a rounding of each other, and the difference
+    grows through the layers.  Pinned, the reference computes the same
+    function as the run it is held against.  Yields counts: rows keyed,
+    rows pinned, and pinned rows whose own choice differed."""
+    import inspect
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    orig = dict(route=L.route, paged_prefill_step=M.paged_prefill_step,
+                paged_decode_step=M.paged_decode_step, prefill=M.prefill,
+                decode_step=M.decode_step)
+    state = {"keys": None, "layer": 0}
+    counts = {"rows": 0, "pinned": 0, "changed": 0}
+
+    def positions(name, args):
+        """(B, S) absolute positions of a step's rows, -1 for padding."""
+        if name == "paged_prefill_step":
+            Sq = args["tokens"].shape[1]
+            ar = torch.arange(Sq, device=args["tokens"].device)
+            pos = args["q_start"][:, None] + ar
+            return torch.where(ar < args["q_len"][:, None], pos, -1)
+        if name == "prefill":
+            S = args["tokens"].shape[1]
+            ar = torch.arange(S, device=args["tokens"].device)
+            return (args["prefix_len"] + ar)[None].expand(
+                args["tokens"].shape)
+        return (args["pos"] - 1)[:, None]                # the decode steps
+
+    def keyed(name):
+        fn, sig = orig[name], inspect.signature(orig[name])
+
+        @functools.wraps(fn)
+        def step(*a, **kw):
+            args = sig.bind(*a, **kw)
+            args.apply_defaults()
+            args = args.arguments
+            if args.get("patch_embeds") is not None:
+                return fn(*a, **kw)
+            pos = positions(name, args)
+            state["keys"] = list(zip(pos.flatten().tolist(),
+                                     args["tokens"].flatten().tolist()))
+            state["layer"] = 0
+            try:
+                return fn(*a, **kw)
+            finally:
+                state["keys"] = None
+        return step
+
+    def route(x, router_w, k):
+        keys, li = state["keys"], state["layer"]
+        state["layer"] += 1
+        gates, topi = orig["route"](x, router_w, k)
+        if keys is None:
+            return gates, topi
+        own = topi.reshape(-1, k).tolist()
+        if not replay:
+            for key, t in zip(keys, own):
+                if key[0] >= 0:
+                    # a key that recurs with other experts (rows of two
+                    # requests with one token at one position) stays
+                    # unpinned
+                    prev = routes.setdefault((li,) + key, sorted(t))
+                    if prev is not None and prev != sorted(t):
+                        routes[(li,) + key] = None
+            return gates, topi
+        want = [routes.get((li,) + key) if key[0] >= 0 else None
+                for key in keys]
+        counts["rows"] += sum(key[0] >= 0 for key in keys)
+        counts["pinned"] += sum(w is not None for w in want)
+        changed = sum(w is not None and w != sorted(t)
+                      for w, t in zip(want, own))
+        counts["changed"] += changed
+        if not changed:
+            return gates, topi
+        pin = torch.tensor([w if w is not None else t
+                            for w, t in zip(want, own)],
+                           device=topi.device).reshape(topi.shape)
+        logits = L.proj(x, router_w).float()
+        return torch.softmax(logits.gather(-1, pin), dim=-1), pin
+
+    L.route = route
+    for name in ("paged_prefill_step", "paged_decode_step", "prefill",
+                 "decode_step"):
+        setattr(M, name, keyed(name))
+    try:
+        yield counts
+    finally:
+        L.route = orig["route"]
+        for name in ("paged_prefill_step", "paged_decode_step", "prefill",
+                     "decode_step"):
+            setattr(M, name, orig[name])
 
 
 # (comparison, pairs compared, streams that flipped, smallest reference
@@ -1286,12 +1418,23 @@ def phase_row_invariance(torch, cfg, params, tag="rows"):
     for name in ("q", "k", "v"):
         ops.append((f"proj {name}", x, lambda t, w=p[f"w{name}"],
                     b=p.get(f"b{name}"): L.proj(t, w, b)))
-    ops += [("proj o", o, lambda t: L.proj(t, p["wo"])),
-            ("proj gate (d_ff out)", x, lambda t: L.proj(t, p["wg"])),
-            ("proj up (d_ff out)", x, lambda t: L.proj(t, p["wu"])),
-            ("proj down (d_ff in)", h, lambda t: L.proj(t, p["wd"])),
-            ("swiglu", x, lambda t: L.swiglu(t, p["wg"], p["wu"], p["wd"])),
-            ("lm_logits", x, lambda t: M.lm_logits(cfg, params, t))]
+    ops.append(("proj o", o, lambda t: L.proj(t, p["wo"])))
+    if cfg.moe_experts:
+        # every expert's products have expert 0's shapes
+        wg, wu, wd = p["wg"][0], p["wu"][0], p["wd"][0]
+        ops.append(("proj router", x, lambda t: L.proj(t, p["router"])))
+        pre = "expert 0 "
+    else:
+        wg, wu, wd = p["wg"], p["wu"], p["wd"]
+        pre = ""
+    ops += [(f"{pre}proj gate (d_ff out)", x, lambda t: L.proj(t, wg)),
+            (f"{pre}proj up (d_ff out)", x, lambda t: L.proj(t, wu)),
+            (f"{pre}proj down (d_ff in)", h, lambda t: L.proj(t, wd)),
+            (f"{pre}swiglu", x, lambda t: L.swiglu(t, wg, wu, wd))]
+    if cfg.moe_experts:
+        ops.append(("moe_dense (all experts)", x, lambda t: L.moe_dense(
+            t, p["router"], p["wg"], p["wu"], p["wd"], cfg.moe_top_k)))
+    ops.append(("lm_logits", x, lambda t: M.lm_logits(cfg, params, t)))
     slab = L.ROW_SLAB
     variant = []
     try:
@@ -1353,6 +1496,7 @@ def phase_check(torch, np, cfg, params, corpus, idx, wl, args, results,
     sub = sorted(wl, key=lambda r: r.req_id)[:n]
     econf = dataclasses.replace(EngineConfig.from_args(args),
                                 attn_impl="torch")
+    gc.collect()
     reset_counts()
     t0 = time.perf_counter()
     rt = ContinuousRuntime(cfg, params, corpus, idx, config=econf,
@@ -1370,6 +1514,72 @@ def phase_check(torch, np, cfg, params, corpus, idx, wl, args, results,
     check_flips(tag, [(by_id[b.req_id], b) for b in plain], eps)
 
 
+def phase_pinned_check(torch, np, cfg, params, corpus, idx, wl, args,
+                       eps, tag, n=4):
+    """phase_check for the MoE family, its routes pinned (pinned_routes):
+    the first ``n`` requests through the kernels, recording each row's
+    experts; again through the kernels without the slab helper, which
+    changes only the order of the GEMMs' sums (the floor); then through
+    the plain versions.  The paper models' eps does not bound the floor
+    (a 24-layer top-2 MoE amplifies rounding more than the dense models
+    it was reckoned on), so the MoE eps is the larger of it and twice the
+    floor: a kernel may move the logits at most twice as far as
+    reordering the model's own GEMMs does.  Plain within that eps, and no
+    flip above it.  Returns (the MoE eps, pin counts)."""
+    from repro_torch.models import layers as L
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.runtime import ContinuousRuntime
+    sub = sorted(wl, key=lambda r: r.req_id)[:n]
+    econf = EngineConfig.from_args(args)
+    routes = {}
+    t0 = time.perf_counter()
+
+    def serve_sub(conf, replay):
+        gc.collect()
+        rt = ContinuousRuntime(cfg, params, corpus, idx, config=conf,
+                               device="cuda")
+        with pinned_routes(routes, replay=replay) as pin:
+            res = rt.serve(sub, max_new_tokens=args.max_new_tokens)
+        torch.cuda.synchronize()
+        return {r.req_id: r for r in res}, pin
+
+    kern, _ = serve_sub(econf, False)
+    slab = L.ROW_SLAB
+    L.ROW_SLAB = 0
+    try:
+        floor_run, floor_pin = serve_sub(econf, True)
+    finally:
+        L.ROW_SLAB = slab
+    floor = max(float(np.max(np.abs(
+        kern[i].first_logits.astype(np.float64)
+        - floor_run[i].first_logits.astype(np.float64)))) for i in kern)
+    moe_eps = max(eps, 2 * floor)
+    print(f"[{tag}] floor: the kernels with and without the slab helper, "
+          f"routes pinned ({floor_pin['changed']} of "
+          f"{floor_pin['pinned']} pinned rows routed otherwise): "
+          f"first-token L-inf {floor:.4e}; MoE eps max({eps:g}, 2 x floor) "
+          f"= {moe_eps:.4f}", flush=True)
+    reset_counts()
+    with recording_margins():
+        plain, pin = serve_sub(dataclasses.replace(econf, attn_impl="torch"),
+                               True)
+    launches, _ = read_counts()
+    print(f"[{tag}] {len(sub)} requests through the kernels (twice) and "
+          f"the plain versions, routes pinned, in "
+          f"{time.perf_counter() - t0:.1f}s: {pin['pinned']} of "
+          f"{pin['rows']} routed rows pinned, {pin['changed']} of them "
+          f"routed otherwise by the plain run's own logits", flush=True)
+    if any(launches.values()):
+        die(f"the plain-version runtime launched a kernel: {launches}")
+    if pin["pinned"] < pin["rows"] // 2:
+        die(f"[{tag}] too few rows pinned: {pin}")
+    against = "the kernels' serve, routes pinned"
+    compare_logits(np, tag, list(plain.values()), list(kern.values()),
+                   moe_eps, against)
+    check_flips(tag, [(kern[i], plain[i]) for i in kern], moe_eps)
+    return moe_eps, pin
+
+
 def phase_chunk_split(torch, np, cfg, params, corpus, idx, wl, args,
                       tag="chunk-split"):
     """The first 8 requests unchunked and in 128-token prefill chunks,
@@ -1381,10 +1591,13 @@ def phase_chunk_split(torch, np, cfg, params, corpus, idx, wl, args,
     for chunk in (0, 128):
         econf = dataclasses.replace(EngineConfig.from_args(args),
                                     prefill_chunk=chunk)
+        # runtimes form reference cycles: free the last one's pool first
+        gc.collect()
         rt = ContinuousRuntime(cfg, params, corpus, idx, config=econf,
                                device="cuda")
         runs.append({r.req_id: r for r in
                      rt.serve(sub, max_new_tokens=args.max_new_tokens)})
+        del rt
     a, b = runs
     bitwise = all(np.array_equal(a[i].first_logits, b[i].first_logits)
                   for i in a)
@@ -1818,18 +2031,44 @@ def phase_frontdoor(torch, cfg, corpus):
                 shed=shed, served=served, warmed=warmed)
 
 
+# the profiler span over each expert's products in the MoE profile, and the
+# kernel names that are cuBLAS GEMMs (nvjet_* on Hopper)
+EXPERT_SPAN = "moe expert swiglu"
+GEMM_KERNEL = re.compile(r"nvjet|gemm|gemv|xmma|cutlass", re.I)
+
+
+def span_kernels(prof, span):
+    """{kernel name: device ms} of the kernels launched under every CPU
+    event named ``span``."""
+    from torch.autograd import DeviceType
+    out = {}
+    for ev in prof.events():
+        if ev.name != span or ev.device_type != DeviceType.CPU:
+            continue
+        stack = [ev]
+        while stack:
+            e = stack.pop()
+            for k in e.kernels:
+                out[k.name] = out.get(k.name, 0.0) + k.duration / 1e3
+            stack.extend(e.cpu_children)
+    return out
+
+
 def phase_profile(torch, cfg, params, corpus, idx, wl, args, tag="profile"):
     """Device time by kernel over a short serve (8 requests on a fresh
     runtime, under torch.profiler), beside the wall time of the same serve
     on another fresh runtime without the profiler: their ratio is the
-    device's busy share."""
+    device's busy share.  For the MoE family each expert's products run
+    under one span (EXPERT_SPAN), whose kernels give the experts' share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as L
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.runtime import ContinuousRuntime
     sub = sorted(wl, key=lambda r: r.req_id)[8:16]
 
     def serve_once():
+        gc.collect()
         rt = ContinuousRuntime(cfg, params, corpus, idx,
                                config=EngineConfig.from_args(args),
                                device="cuda")
@@ -1838,15 +2077,27 @@ def phase_profile(torch, cfg, params, corpus, idx, wl, args, tag="profile"):
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0), rt.metrics.summary()
 
+    def expert_swiglu(*a):
+        with record_function(EXPERT_SPAN):
+            return swiglu(*a)
+
     wall_ms, summ = serve_once()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        serve_once()
+    swiglu = L.swiglu
+    if cfg.moe_experts:
+        L.swiglu = expert_swiglu        # moe_dense's per-expert call
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            serve_once()
+    finally:
+        L.swiglu = swiglu
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if getattr(e, "device_type", None) == DeviceType.CUDA and us > 0:
+        # the span's device-side twin covers its kernels; they count once
+        if getattr(e, "device_type", None) == DeviceType.CUDA and us > 0 \
+                and e.key != EXPERT_SPAN:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     if not rows:
@@ -1868,6 +2119,24 @@ def phase_profile(torch, cfg, params, corpus, idx, wl, args, tag="profile"):
           f"{100 * dec_ms / busy:.1f}% of device time, "
           f"{' + '.join(str(r[1]) for r in dec) or 0} launches "
           f"({', '.join(names)})", flush=True)
+    gemm_ms = sum(r[0] for r in rows if GEMM_KERNEL.search(r[2]))
+    print(f"[{tag}] cuBLAS GEMMs: {gemm_ms:.2f} ms = "
+          f"{100 * gemm_ms / busy:.1f}% of device time", flush=True)
+    if cfg.moe_experts:
+        ker = span_kernels(prof, EXPERT_SPAN)
+        if not ker:
+            print(f"[{tag}] experts' device time: not measured (no kernel "
+                  f"under the {EXPERT_SPAN!r} span)", flush=True)
+            return
+        exp_ms = sum(ker.values())
+        gemm = sum(ms for name, ms in ker.items() if GEMM_KERNEL.search(name))
+        print(f"[{tag}] experts ({cfg.moe_experts} a layer, every row "
+              f"through each; top {cfg.moe_top_k} used): {exp_ms:.2f} ms = "
+              f"{100 * exp_ms / busy:.1f}% of device time, their GEMMs "
+              f"{gemm:.2f} ms = {100 * gemm / busy:.1f}%", flush=True)
+        for name, ms in sorted(ker.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"[{tag}]   expert span {ms:9.2f} ms {name[:80]}",
+                  flush=True)
 
 
 def paper_argv(arch, n_requests, *extra):
@@ -1879,6 +2148,65 @@ def paper_argv(arch, n_requests, *extra):
     return argv
 
 
+def model_setup(torch, args, cfg, tag):
+    """Seeded random weights of ``cfg`` on the card, and the data of
+    ``args``: prints the shape, the weights' bytes, the init's peak above
+    what was held before and the card's free memory after.  Returns
+    (cfg, params, corpus, idx, wl)."""
+    from repro_torch.launch import serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, corpus, idx, wl, _ = serve.make_setup(args, cfg=cfg)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - held
+    init_peak = torch.cuda.max_memory_allocated() - held
+    free, total = torch.cuda.mem_get_info()
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
+    moe = (f"experts {cfg.moe_experts} (top {cfg.moe_top_k}, "
+           f"{cfg.moe_impl}), " if cfg.moe_experts else "")
+    print(f"[{tag}] {cfg.family}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (R "
+          f"{cfg.q_rep}), hd {cfg.hd}, d_ff {cfg.d_ff}, {moe}vocab "
+          f"{cfg.vocab_size}, windows {sorted(set(cfg.layer_windows()))}, "
+          f"{cfg.dtype}; {cfg.n_params()} params = {weights} B on the card, "
+          f"init peak {init_peak} B above the {held} B held before; free "
+          f"after the init {free} of {total} B; KV {kv} B a token; set-up "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return cfg, params, corpus, idx, wl
+
+
+def model_serve(torch, np, tag, cfg, params, corpus, idx, wl, args):
+    """The main serve of ``cfg`` (serve_main_path), its hit rates and tier
+    hits, and its eps from the max |first-token logit| (paper_eps).
+    Returns (results, figures)."""
+    results, rt, launches, stats = serve_main_path(
+        torch, np, tag, cfg, params, corpus, idx, wl, args)
+    summ = rt.metrics.summary()
+    top = max(float(np.max(np.abs(r.first_logits))) for r in results)
+    eps = paper_eps(top)
+    print(f"[{tag}] main serve: {stats[0]:.1f} tokens/s, TTFT p50 "
+          f"{stats[1]:.1f} ms; doc hit rate {summ['doc_hit_rate']:.4f}, "
+          f"tier hit tokens {summ['tier_hit_tokens']}; pool "
+          f"{rt.store.pool.n_blocks} blocks = "
+          f"{rt.store.pool.n_blocks * args.block_size} tokens", flush=True)
+    print(f"[{tag}] max |first-token logit| {top:.4f}: eps {eps:g} "
+          f"(LOGIT_EPS {LOGIT_EPS} x the bf16 ulp ratio)", flush=True)
+    if not PAPER_EPS_RANGE[0] <= top < PAPER_EPS_RANGE[1]:
+        print(f"[{tag}] note: max |logit| outside {PAPER_EPS_RANGE}, "
+              f"where the rule was reckoned", flush=True)
+    out = dict(stats=stats, doc_hit_rate=summ["doc_hit_rate"],
+               tier=summ["tier_hit_tokens"], eps=eps, launches=launches,
+               blocks=rt.store.pool.n_blocks)
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, out
+
+
 def phase_paper(torch, np, arch):
     """One paper model at full published width, its weights the only ones
     on the card: (a) the main serve, (d) the row probe, the chunk split and
@@ -1888,45 +2216,12 @@ def phase_paper(torch, np, arch):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     args = serve.build_parser().parse_args(paper_argv(arch, 32))
-    t0 = time.perf_counter()
-    cfg, params, corpus, idx, wl, _ = serve.make_setup(
-        args, cfg=get_config(arch))
-    torch.cuda.synchronize()
-    weights = torch.cuda.memory_allocated() - held
-    init_peak = torch.cuda.max_memory_allocated() - held
-    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
-    print(f"[{arch}] {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} (R {cfg.q_rep}), hd {cfg.hd}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, windows "
-          f"{sorted(set(cfg.layer_windows()))}, {cfg.dtype}; "
-          f"{cfg.n_params()} params = {weights} B on the card, init peak "
-          f"{init_peak} B above the {held} B held before; KV {kv} B a "
-          f"token; set-up {time.perf_counter() - t0:.1f}s", flush=True)
-    results, rt, launches, stats = serve_main_path(
-        torch, np, arch, cfg, params, corpus, idx, wl, args)
-    summ = rt.metrics.summary()
-    top = max(float(np.max(np.abs(r.first_logits))) for r in results)
-    eps = paper_eps(top)
-    print(f"[{arch}] main serve: {stats[0]:.1f} tokens/s, TTFT p50 "
-          f"{stats[1]:.1f} ms; doc hit rate {summ['doc_hit_rate']:.4f}, "
-          f"tier hit tokens {summ['tier_hit_tokens']}; pool "
-          f"{rt.store.pool.n_blocks} blocks = "
-          f"{rt.store.pool.n_blocks * args.block_size} tokens", flush=True)
-    print(f"[{arch}] max |first-token logit| {top:.4f}: eps {eps:g} "
-          f"(LOGIT_EPS {LOGIT_EPS} x the bf16 ulp ratio)", flush=True)
-    if not PAPER_EPS_RANGE[0] <= top < PAPER_EPS_RANGE[1]:
-        print(f"[{arch}] note: max |logit| outside {PAPER_EPS_RANGE}, "
-              f"where the rule was reckoned", flush=True)
-    out = dict(stats=stats, doc_hit_rate=summ["doc_hit_rate"],
-               tier=summ["tier_hit_tokens"], eps=eps, launches=launches,
-               blocks=rt.store.pool.n_blocks)
-    del rt
+    cfg, params, corpus, idx, wl = model_setup(torch, args,
+                                               get_config(arch), arch)
+    results, out = model_serve(torch, np, arch, cfg, params, corpus, idx,
+                               wl, args)
+    stats, eps = out["stats"], out["eps"]
     variant = phase_row_invariance(torch, cfg, params, tag=f"{arch} rows")
     phase_chunk_split(torch, np, cfg, params, corpus, idx, wl, args,
                       tag=f"{arch} chunk-split")
@@ -1960,17 +2255,22 @@ def phase_paper(torch, np, arch):
 
 
 def phase_window(torch, np, cfg, params, eps):
-    """Mistral-7B past its 4096-token window: 4 requests of 4,401-4,478
-    tokens in 512-token prefill chunks through the kernels, against the
-    sequential engine and against the plain versions."""
+    """Mistral-7B past its 4096-token window, through its first
+    WINDOW_LAYERS layers: 4 requests of 4,401-4,478 tokens in 512-token
+    prefill chunks through the kernels, against the sequential engine and
+    against the plain versions."""
     from repro_torch.launch import serve
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import RAGServer
     from repro_torch.serving.runtime import ContinuousRuntime
+    tier = PAPER_GPU_BYTES * WINDOW_LAYERS // cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=WINDOW_LAYERS)
+    params = dict(params, blocks={k: w[:WINDOW_LAYERS]
+                                  for k, w in params["blocks"].items()})
     tag = f"{cfg.name} window"
     t0 = time.perf_counter()
-    args = serve.build_parser().parse_args(
-        paper_argv(cfg.name, 4, *WINDOW_ARGV))
+    args = serve.build_parser().parse_args(paper_argv(
+        cfg.name, 4, *WINDOW_ARGV, "--gpu-cache-bytes", str(tier)))
     corpus, idx, wl, _ = serve.make_data(args, cfg)
     econf = EngineConfig.from_args(args)
     rt = ContinuousRuntime(cfg, params, corpus, idx, config=econf,
@@ -1983,7 +2283,8 @@ def phase_window(torch, np, cfg, params, eps):
             + len(wq.question_tokens) + len(r.tokens)
             for r, wq in zip(res, sorted(wl, key=lambda w: w.req_id))]
     window = max(cfg.layer_windows())
-    print(f"[{tag}] {len(res)} requests, sequences of {lens} tokens "
+    print(f"[{tag}] {cfg.n_layers} layers, pool {rt.store.pool.n_blocks} "
+          f"blocks; {len(res)} requests, sequences of {lens} tokens "
           f"(longest {max(lens)}, window {window}); table entries "
           f"{rt._n_tbl}; launches {launches}; plain-version calls {plain}",
           flush=True)
@@ -2026,6 +2327,215 @@ def phase_window(torch, np, cfg, params, eps):
                 prefill=launches["paged_prefill_attention"])
 
 
+def phase_seq_in_process(torch, np, cfg, params, corpus, idx, wl, args,
+                         eps, tag):
+    """What serve.main --check-tokens tol:<eps> does, on the weights
+    already on the card: the first 8 requests through a fresh continuous
+    runtime, then through the sequential RAGServer (the prefix kernel),
+    tokens equal or first-token logits within eps, and no flip above eps.
+    Returns the sequential engine's prefix-kernel launches."""
+    from repro_torch.launch import serve
+    sub = sorted(wl, key=lambda r: r.req_id)[:8]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    routes = {}
+    with recording_margins() as pairs:
+        with contextlib.redirect_stdout(io.StringIO()), \
+                pinned_routes(routes, replay=False):
+            cont, rts = serve.serve_continuous(cfg, params, corpus, idx,
+                                               sub, args)
+        del rts
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                pinned_routes(routes, replay=True) as pin:
+            seq, srv = serve.serve_sequential(cfg, params, corpus, idx, sub,
+                                              args)
+        torch.cuda.synchronize()
+        del srv
+        launches, plain = read_counts()
+        bad = serve.token_mismatches(zip(cont, seq), "tol", eps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {len(sub)} requests, continuous then sequential with "
+          f"the continuous run's routes pinned, in "
+          f"{time.perf_counter() - t0:.1f}s: {pin['pinned']} of "
+          f"{pin['rows']} routed rows pinned, {pin['changed']} of them "
+          f"routed otherwise by the sequential run's own logits; "
+          f"sequential launches {launches}, plain-version calls {plain}",
+          flush=True)
+    if pin["pinned"] < pin["rows"] // 2:
+        die(f"[{tag}] too few rows pinned: {pin}")
+    compare_logits(np, tag, cont, seq, eps,
+                   "the sequential engine, routes pinned")
+    if bad:
+        die(f"[{tag}] continuous and sequential disagree past tol {eps}: "
+            f"{bad}")
+    check_flips(tag, pairs, eps)
+    if launches["prefix_flash_attention"] <= 0 or plain:
+        die(f"[{tag}] sequential path: launches {launches}, plain calls "
+            f"{plain}")
+    return launches["prefix_flash_attention"]
+
+
+def phase_capacity(torch, np, cfg, params, tag):
+    """moe_capacity against moe_dense on CAPACITY_ROWS rows through layer
+    0's router and experts at full width.  The rows share one random
+    direction, which skews the router so that some experts overflow their
+    buffers.  Prints the expert loads, the rows the capacity dropped (for
+    one expert or both) and each function's time; the rows kept for both
+    their experts must agree within CAPACITY_TOL x their max |dense|."""
+    from repro_torch.models import layers as L
+    gc.collect()
+    torch.cuda.empty_cache()
+    p = {k: w[0] for k, w in params["blocks"].items()}
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shared = torch.randn((cfg.d_model,), generator=gen, device="cuda")
+    x = torch.randn((1, CAPACITY_ROWS, cfg.d_model), generator=gen,
+                    device="cuda")
+    x = (x + shared).to(cfg.tdtype)
+    ws = (p["router"], p["wg"], p["wu"], p["wd"])
+    dense = L.moe_dense(x, *ws, k)[0].float()
+    capped = L.moe_capacity(x, *ws, k)[0].float()
+    # moe_capacity's defaults: one chunk of CAPACITY_ROWS tokens, factor
+    # 1.25
+    cap = max(int(1.25 * CAPACITY_ROWS * k / E), 1)
+    _, topi = L.route(x[0], p["router"], k)
+    _, _, keep = L.capacity_slots(topi, E, cap)
+    kept = keep.any(dim=-1).all(dim=-1)                     # (rows,)
+    loads = torch.bincount(topi.flatten(), minlength=E).tolist()
+    n_kept = int(kept.sum())
+    if not n_kept or not (torch.isfinite(dense).all()
+                          and torch.isfinite(capped).all()):
+        die(f"[{tag}] no row kept both experts, or outputs not finite")
+    err = float((capped - dense).abs()[kept].max())
+    scale = float(dense.abs()[kept].max())
+    dense_ms = time_ms(torch, lambda: L.moe_dense(x, *ws, k), reps=5,
+                       warm=1)
+    cap_ms = time_ms(torch, lambda: L.moe_capacity(x, *ws, k), reps=5,
+                     warm=1)
+    print(f"[{tag}] moe_capacity vs moe_dense, {CAPACITY_ROWS} rows, layer "
+          f"0: expert loads {loads} (capacity {cap} each); rows dropped for "
+          f"an expert {CAPACITY_ROWS - n_kept}, kept for both {n_kept}; "
+          f"max |capacity - dense| over the kept rows {err:.4e} (tol "
+          f"{CAPACITY_TOL:g} x max |dense| {scale:.4e} = "
+          f"{CAPACITY_TOL * scale:.4e}); moe_dense {dense_ms:.3f} ms, "
+          f"moe_capacity {cap_ms:.3f} ms", flush=True)
+    if err > CAPACITY_TOL * scale:
+        die(f"[{tag}] moe_capacity disagrees with moe_dense on the rows it "
+            f"kept: {err} > {CAPACITY_TOL * scale}")
+    return dict(dropped=CAPACITY_ROWS - n_kept, err=err, dense_ms=dense_ms,
+                capacity_ms=cap_ms)
+
+
+def phase_moe(torch, np):
+    """Mixtral-8x7B at full published width and MOE_LAYERS layers, its
+    weights the only ones on the card: (a) the main serve, (d) the row
+    probe (router and expert products included) and the chunk split, (c)
+    kernels against plain versions, moe_capacity against moe_dense,
+    continuous against sequential in this process, and the profile with
+    the experts' share.  Returns its figures and launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    tag = MOE_ARCH
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    argv = paper_argv(MOE_ARCH, 32)
+    argv[argv.index("--gpu-cache-bytes") + 1] = str(MOE_GPU_BYTES)
+    args = serve.build_parser().parse_args(argv)
+    cfg, params, corpus, idx, wl = model_setup(torch, args, cfg, tag)
+    results, out = model_serve(torch, np, tag, cfg, params, corpus, idx,
+                               wl, args)
+    eps = out["eps"]
+    variant = phase_row_invariance(torch, cfg, params, tag=f"{tag} rows")
+    if variant:
+        die(f"[{tag}] row-variant with the helper: {variant}")
+    phase_chunk_split(torch, np, cfg, params, corpus, idx, wl, args,
+                      tag=f"{tag} chunk-split")
+    eps, out["pinned"] = phase_pinned_check(torch, np, cfg, params, corpus,
+                                            idx, wl, args, eps,
+                                            f"{tag} check")
+    out["moe_eps"] = eps
+    out["capacity"] = phase_capacity(torch, np, cfg, params,
+                                     f"{tag} capacity")
+    out["seq"] = phase_seq_in_process(torch, np, cfg, params, corpus, idx,
+                                      wl, args, eps, f"{tag} seq")
+    phase_profile(torch, cfg, params, corpus, idx, wl, args,
+                  tag=f"{tag} profile")
+    del params, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[{tag}] phase wall {out['wall']:.1f}s", flush=True)
+    return out
+
+
+def phase_patch_prefill(torch, np, cfg, params, eps, tag):
+    """One dense prefill of 2 rows, each the model's vision_tokens random
+    patch embeddings ahead of 256 tokens, through the prefix kernel and
+    through the plain version: last-position logits within eps."""
+    from repro_torch.models import model as M
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    B, S, P = 2, 256, cfg.vision_tokens
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    pe = torch.randn((B, P, cfg.d_model), generator=gen, device="cuda")
+    reset_counts()
+    got, cache = M.prefill(cfg, params, toks, patch_embeds=pe)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    want, _ = M.prefill(cfg, params, toks, patch_embeds=pe,
+                        attn_impl="torch")
+    text, _ = M.prefill(cfg, params, toks)
+    linf = float((got - want).abs().max())
+    moved = float((got - text).abs().max())
+    print(f"[{tag}] prefill of {P} patches + {S} tokens x {B} rows: cache "
+          f"{tuple(cache['k'].shape)}; launches {launches}, plain-version "
+          f"calls {plain}; kernel vs plain logits max L-inf {linf:.4e} "
+          f"(eps {eps:g}); the patches move the logits by {moved:.4e}",
+          flush=True)
+    if cache["k"].shape[2] != P + S or not torch.isfinite(got).all():
+        die(f"[{tag}] the cache does not cover patches and tokens, or the "
+            f"logits are not finite")
+    if launches["prefix_flash_attention"] != cfg.n_layers or plain:
+        die(f"[{tag}] launches {launches}, plain calls {plain}")
+    if linf > eps:
+        die(f"[{tag}] kernel and plain prefill disagree: {linf} > {eps}")
+    return launches["prefix_flash_attention"]
+
+
+def phase_vlm(torch, np):
+    """InternVL2-1B at full published width, its text backbone on the main
+    trace (Qwen's corpus, requests and tiers): the main serve, the chunk
+    split, 4 requests through the plain versions, and one prefill with its
+    patch embeddings.  Returns its figures and launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    tag = VLM_ARCH
+    args = serve.build_parser().parse_args(MAIN_ARGV)
+    cfg, params, corpus, idx, wl = model_setup(torch, args,
+                                               get_config(VLM_ARCH), tag)
+    results, out = model_serve(torch, np, tag, cfg, params, corpus, idx,
+                               wl, args)
+    eps = out["eps"]
+    phase_chunk_split(torch, np, cfg, params, corpus, idx, wl, args,
+                      tag=f"{tag} chunk-split")
+    phase_check(torch, np, cfg, params, corpus, idx, wl, args, results,
+                n=4, eps=eps, tag=f"{tag} check")
+    out["patches"] = phase_patch_prefill(torch, np, cfg, params, eps,
+                                         f"{tag} patches")
+    del params, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[{tag}] phase wall {out['wall']:.1f}s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2056,6 +2566,8 @@ def main() -> None:
     phase_profile(torch, cfg, params, corpus, idx, wl, args)
     del params, results
     paper = {arch: phase_paper(torch, np, arch) for arch in PAPER_MODELS}
+    moe = phase_moe(torch, np)
+    vlm = phase_vlm(torch, np)
     for arch, o in paper.items():
         print(f"[paper] {arch}: GPU tier {PAPER_GPU_BYTES} B = {o['blocks']} "
               f"blocks, host tier {PAPER_HOST_BYTES} B; doc hit rate "
@@ -2095,6 +2607,26 @@ def main() -> None:
                 o["window"]["decode"]
             by_path["paged_prefill_attention"][f"{arch} window"] = \
                 o["window"]["prefill"]
+    for arch, o in ((MOE_ARCH, moe), (VLM_ARCH, vlm)):
+        for name, n in o["launches"].items():
+            if name != "prefix_flash_attention":
+                by_path[name][f"{arch} main serve"] = n
+    by_path["prefix_flash_attention"][f"{MOE_ARCH} sequential check"] = \
+        moe["seq"]
+    by_path["prefix_flash_attention"][f"{VLM_ARCH} patch prefill"] = \
+        vlm["patches"]
+    print(f"[moe] {MOE_ARCH} ({MOE_LAYERS} layers): GPU tier "
+          f"{MOE_GPU_BYTES} B = {moe['blocks']} pool blocks; doc hit rate "
+          f"{moe['doc_hit_rate']:.4f}; tier hit tokens {moe['tier']}; "
+          f"{moe['stats'][0]:.1f} tokens/s, TTFT p50 {moe['stats'][1]:.1f} "
+          f"ms; paper eps {moe['eps']:g}, MoE eps {moe['moe_eps']:.4f}; "
+          f"capacity dropped "
+          f"{moe['capacity']['dropped']} of {CAPACITY_ROWS} rows; phase "
+          f"wall {moe['wall']:.1f}s", flush=True)
+    print(f"[vlm] {VLM_ARCH}: doc hit rate {vlm['doc_hit_rate']:.4f}; "
+          f"{vlm['stats'][0]:.1f} tokens/s, TTFT p50 {vlm['stats'][1]:.1f} "
+          f"ms; eps {vlm['eps']:g}; phase wall {vlm['wall']:.1f}s",
+          flush=True)
     count = dict(launches, prefix_flash_attention=cag["preload"]
                  + cag["serve"])
     kernels = []

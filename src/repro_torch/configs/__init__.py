@@ -2,10 +2,12 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_reduced(arch_id)`` the CPU-test variant of the same family.  Only the
-dense models the port serves are registered: Qwen2-0.5B, and the paper's
-two evaluation models, Mistral-7B (GQA, a 4096-token sliding window on
-every layer) and LLaMA2-7B (MHA).  The other architectures join with their
-model code (ROADMAP.md, Queue A).
+models the port serves are registered: Qwen2-0.5B; the paper's two
+evaluation models, Mistral-7B (GQA, a 4096-token sliding window on every
+layer) and LLaMA2-7B (MHA); the MoE family, Mixtral-8x7B (8 experts, top
+2, the paper's large-model target) and Phi-3.5-MoE (16 experts, top 2);
+and the VLM family's InternVL2-1B, whose text backbone the runtimes serve.
+The other architectures join with their model code (ROADMAP.md, Queue A).
 """
 from __future__ import annotations
 
@@ -19,12 +21,20 @@ _ARCHS = [
     # paper's own evaluation models
     "mistral_7b",
     "llama2_7b",
+    # mixture of experts
+    "mixtral_8x7b",
+    "phi35_moe_42b",
+    # vision-language backbone
+    "internvl2_1b",
 ]
 
 _ALIASES = {
     "qwen2-0.5b": "qwen2_0p5b",
     "mistral-7b": "mistral_7b",
     "llama2-7b": "llama2_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "internvl2-1b": "internvl2_1b",
 }
 
 

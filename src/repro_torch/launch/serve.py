@@ -43,11 +43,15 @@ from the cache and shed requests never run.
 The CLI uses the reduced config unless ``--full-size`` asks for the
 published one; ``make_setup(args, cfg=...)`` takes any.  ``--arch`` takes
 ``qwen2-0.5b`` (the default), ``mistral-7b`` and ``llama2-7b``, the paper's
-evaluation models; at full size their seeded random bf16 weights take
-14.5 GB and 13.5 GB on the card.  ``--gpu-cache-bytes`` sizes the paged
-pool, clipped at 4096 blocks: keep it at or below 4096 blocks of KV (7.875
-GiB for Mistral-7B, 31.5 GiB for LLaMA2-7B at block 16), or the knowledge
-tree budgets GPU space the pool lacks.
+evaluation models, ``mixtral-8x7b`` and ``phi3.5-moe-42b-a6.6b`` (MoE) and
+``internvl2-1b`` (VLM: its text backbone is served).  At full size the
+seeded random bf16 weights take 14.5 GB (Mistral-7B) and 13.5 GB
+(LLaMA2-7B) on the card; Mixtral-8x7B's (93.4 GB) and Phi-3.5-MoE's
+(83.7 GB) do not fit one 80 GB card, so ``--full-size`` serves neither
+there.  ``--gpu-cache-bytes`` sizes the paged pool, clipped at 4096
+blocks: keep it at or below 4096 blocks of KV (7.875 GiB for Mistral-7B,
+31.5 GiB for LLaMA2-7B at block 16), or the knowledge tree budgets GPU
+space the pool lacks.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full-size \
         --arch mistral-7b --gpu-cache-bytes 8053063680 --check-tokens tol:0.3

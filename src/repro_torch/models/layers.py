@@ -1,5 +1,5 @@
-"""Building blocks of the dense model family (counterpart of the parts of
-``repro.models.layers`` that the serving steps use).
+"""Building blocks of the dense, MoE and VLM families (counterpart of the
+parts of ``repro.models.layers`` that the serving steps use).
 
 Rounding points follow the JAX package: norms and RoPE compute in f32 and
 cast back; ``dense`` rounds the matmul to the activation dtype, then adds
@@ -24,6 +24,14 @@ products need it was measured by chip_smoke.py's row-invariance probe
               or the logits (N 32000)
   LLaMA2-7B   the down projection (K 11008); not q, k, v, o, gate, up or
               the logits, all K 4096 with N >= 4096
+  Mixtral-8x7B  k (K 4096, N 1024; v, of k's shape, showed no
+              difference in its probe) and each expert's down projection
+              (K 14336); not q, o, the experts' gate and up, the router
+              (K 4096, N 8) or the logits.  The rule slabs the router
+              too: a 512 x 4096 x 8 product.
+
+Phi-3.5-MoE's gate and up (K 4096, N 6400) and down (K 6400) are not
+measured on the card; the rule slabs only the down.
 
 ``slabbed`` holds that rule: deeper than SLAB_MIN_K, or SLAB_MIN_K deep
 with at most a quarter as many outputs.  The norm's mean is row-invariant
@@ -161,3 +169,83 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def stable_top_k(logits: torch.Tensor, k: int):
+    """The ``k`` largest of the last axis, largest first, the lower index
+    first among equal values (``lax.top_k``'s order; ``torch.topk``
+    promises none).  Returns (values, int64 indices)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(x: torch.Tensor, router_w: torch.Tensor, k: int):
+    """Top-``k`` routing: router logits (rounded to the activation dtype,
+    then f32), their top ``k`` and the softmax of those in f32.  Returns
+    (gates (..., k) f32, expert ids (..., k) int64)."""
+    logits = proj(x, router_w).float()
+    topv, topi = stable_top_k(logits, k)
+    return torch.softmax(topv, dim=-1), topi
+
+
+def moe_dense(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
+              wu: torch.Tensor, wd: torch.Tensor,
+              top_k: int) -> torch.Tensor:
+    """Dense-compute MoE: every expert over every row, weighted by the
+    top-k gates (zero for the experts a row did not pick).  The expert
+    terms are summed in expert order in the activation dtype, each
+    ``(y * gate.to(y.dtype)).to(acc_dt)`` as ``repro.models.layers``
+    rounds them.  wg/wu (E, D, F), wd (E, F, D), router_w (D, E)."""
+    E = router_w.shape[-1]
+    gates, topi = route(x, router_w, top_k)
+    w_full = torch.zeros(x.shape[:-1] + (E,), dtype=torch.float32,
+                         device=x.device).scatter_(-1, topi, gates)
+    acc = torch.zeros_like(x)
+    for e in range(E):
+        y = swiglu(x, wg[e], wu[e], wd[e])
+        acc = acc + (y * w_full[..., e, None].to(y.dtype)).to(acc.dtype)
+    return acc
+
+
+def capacity_slots(topi: torch.Tensor, n_experts: int, cap: int):
+    """Each (token, choice)'s slot in its expert's buffer, in token order,
+    and whether it fits: topi (C, k) -> (one-hot (C, k, E) f32, slot
+    (C, k, E) f32, -1 off the chosen expert, keep (C, k, E) bool)."""
+    oh = F.one_hot(topi, n_experts).float()
+    pos = torch.cumsum(oh.reshape(-1, n_experts), dim=0).reshape(oh.shape)
+    pos = pos * oh - 1.0
+    return oh, pos, (pos < cap) & (oh > 0)
+
+
+def moe_capacity(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
+                 wu: torch.Tensor, wd: torch.Tensor, top_k: int, *,
+                 capacity_factor: float = 1.25,
+                 token_chunk: int = 4096) -> torch.Tensor:
+    """Capacity-based dispatch MoE: per chunk of ``token_chunk`` tokens,
+    one-hot dispatch into per-expert buffers of ``cap`` slots (tokens past
+    an expert's capacity are dropped for that expert), each expert over
+    its buffer only, and a gate-weighted one-hot combine; the dispatch and
+    combine in f32, the expert products in the activation dtype."""
+    B, S, D = x.shape
+    E = router_w.shape[-1]
+    T = B * S
+    token_chunk = min(token_chunk, T)
+    n_chunks = -(-T // token_chunk)
+    xt = F.pad(x.reshape(T, D), (0, 0, 0, n_chunks * token_chunk - T))
+    cap = max(int(capacity_factor * token_chunk * top_k / E), 1)
+    slots = torch.arange(cap, device=x.device)
+    out = []
+    for xc in xt.split(token_chunk):
+        gates, topi = route(xc, router_w, top_k)
+        oh, pos, keep = capacity_slots(topi, E, cap)
+        pos_oh = (pos.long()[..., None] == slots).float()
+        disp = oh[..., None] * keep[..., None] * pos_oh         # (C,k,E,cap)
+        xbuf = torch.einsum("ceC,cd->eCd", disp.sum(dim=1),
+                            xc.float()).to(xc.dtype)
+        h = F.silu(torch.einsum("eCd,edf->eCf", xbuf, wg))
+        h = h * torch.einsum("eCd,edf->eCf", xbuf, wu)
+        ybuf = torch.einsum("eCf,efd->eCd", h, wd)
+        comb = (disp * gates[:, :, None, None]).sum(dim=1)      # (C,E,cap)
+        yc = torch.einsum("ceC,eCd->cd", comb, ybuf.float())
+        out.append(yc.to(xc.dtype))
+    return torch.cat(out)[:T].reshape(B, S, D)

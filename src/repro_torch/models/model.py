@@ -13,11 +13,15 @@ its flat checkpoint).  Every step runs eagerly, layer by layer:
                      straight against the paged pool, whose new K/V they
                      write IN PLACE before attention
 
-Only the dense family (GQA or MHA, an optional QKV bias, optional sliding
-windows) is ported.  It serves Qwen2-0.5B (GQA with a QKV bias, hd 64) and
-the paper's evaluation models, Mistral-7B (GQA R 4, a 4096-token window on
-every layer, hd 128) and LLaMA2-7B (MHA, hd 128); MoE, VLM, audio and the
-recurrent families wait (ROADMAP.md Queue A).
+The attention families are ported: dense (GQA or MHA, an optional QKV
+bias, optional sliding windows), MoE (the dense block with a routed
+expert FFN, ``moe_impl`` dense or capacity) and VLM (the dense block
+behind an optional projected patch-embedding prefix, which only
+``prefill`` takes: the runtimes serve the text backbone).  They serve
+Qwen2-0.5B (GQA with a QKV bias, hd 64), the paper's evaluation models,
+Mistral-7B (GQA R 4, a 4096-token window on every layer, hd 128) and
+LLaMA2-7B (MHA, hd 128), Mixtral-8x7B, Phi-3.5-MoE and InternVL2-1B; audio
+and the recurrent families wait (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -31,18 +35,29 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe_experts or cfg.n_codebooks:
+    if cfg.family not in FAMILIES or cfg.n_codebooks:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A); "
-            f"the port serves the dense family")
+            f"the port serves {', '.join(FAMILIES)}")
 
 
 def init_params(cfg: ModelConfig, seed: int,
                 device="cpu") -> Dict[str, Any]:
-    """Seeded random params of the dense family (the JAX package's init
-    scheme — normal(0, 0.02), output projections scaled by 1/sqrt(2L),
-    zero norms and biases — drawn from one ``torch.Generator``)."""
+    """Seeded random params (the JAX package's init scheme and tree —
+    normal(0, 0.02), output projections scaled by 1/sqrt(2L), zero norms
+    and biases — drawn from one ``torch.Generator``).
+
+    Each tensor is drawn whole in f32 and cast, except the expert weights,
+    which are drawn one (layer, expert) slice at a time into a tensor
+    allocated in the params' dtype, so that the transient f32 is one
+    slice (Mixtral-8x7B's whole stacked expert tensor would be 45 GB in
+    f32).  The dense families draw from the stream in the order they
+    always have; the MoE and VLM tensors are drawn where they appear in
+    the tree."""
     _check_family(cfg)
     D, F, V, nl = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -58,11 +73,21 @@ def init_params(cfg: ModelConfig, seed: int,
                         dtype=torch.float32)
         return (w * s).to(dt)
 
+    def mk_slices(shape, s=scale):
+        # drawn over the two leading axes, (layer, expert), slice by slice
+        w = torch.empty(shape, dtype=dt, device=device)
+        for li in range(shape[0]):
+            for e in range(shape[1]):
+                w[li, e] = mk(shape[2:], s)
+        return w
+
     def zeros(shape):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    params: Dict[str, Any] = {"embed": mk((V, D)),
-                              "final_norm": zeros((D,))}
+    params: Dict[str, Any] = {"embed": mk((V, D))}
+    if cfg.family == "vlm":
+        params["vision_proj"] = mk((D, D))
+    params["final_norm"] = zeros((D,))
     if not cfg.tie_embeddings:
         params["lm_head"] = mk((D, V))
     blk = {
@@ -72,10 +97,17 @@ def init_params(cfg: ModelConfig, seed: int,
         "wv": mk((nl, D, KV * hd)),
         "wo": mk((nl, H * hd, D), out_scale),
         "ln2": zeros((nl, D)),
-        "wg": mk((nl, D, F)),
-        "wu": mk((nl, D, F)),
-        "wd": mk((nl, F, D), out_scale),
     }
+    if cfg.moe_experts:
+        E = cfg.moe_experts
+        blk["router"] = mk((nl, D, E))
+        blk["wg"] = mk_slices((nl, E, D, F))
+        blk["wu"] = mk_slices((nl, E, D, F))
+        blk["wd"] = mk_slices((nl, E, F, D), out_scale)
+    else:
+        blk["wg"] = mk((nl, D, F))
+        blk["wu"] = mk((nl, D, F))
+        blk["wd"] = mk((nl, F, D), out_scale)
     if cfg.qkv_bias:
         blk["bq"] = zeros((nl, H * hd))
         blk["bk"] = zeros((nl, KV * hd))
@@ -103,9 +135,16 @@ def params_from_numpy(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
     return out
 
 
-def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor):
-    """(B, S) token ids -> (B, S, D) embeddings."""
-    return params["embed"][tokens]
+def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
+                 patch_embeds: torch.Tensor | None = None):
+    """(B, S) token ids -> (B, S, D) embeddings; for the VLM family with
+    ``patch_embeds`` (B, Simg, D), their projection through
+    ``vision_proj`` is prepended: (B, Simg + S, D)."""
+    x = params["embed"][tokens]
+    if cfg.family == "vlm" and patch_embeds is not None:
+        pe = L.proj(patch_embeds.to(cfg.tdtype), params["vision_proj"])
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -124,6 +163,9 @@ def _layer(params, li: int) -> Dict[str, torch.Tensor]:
 
 
 def _ffn(cfg: ModelConfig, p, x):
+    if cfg.moe_experts:
+        moe = L.moe_capacity if cfg.moe_impl == "capacity" else L.moe_dense
+        return moe(x, p["router"], p["wg"], p["wu"], p["wd"], cfg.moe_top_k)
     return L.swiglu(x, p["wg"], p["wu"], p["wd"])
 
 
@@ -145,7 +187,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
-            prefix_len: int = 0, *, attn_impl: str | None = None):
+            prefix_len: int = 0, *, attn_impl: str | None = None,
+            patch_embeds: torch.Tensor | None = None):
     """Serving prefill over an optional cached document prefix.
 
     tokens: (B, S) ids of the new tokens, the first at absolute position
@@ -154,11 +197,13 @@ def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
     (logits_last (B, 1, V) f32, cache) where the cache holds the FULL
     sequence, (L, B, prefix_len + S, KV, hd), so the caller can page the
     new documents' KV into the tree.  Each layer's K/V is written into that
-    cache once and attended from it in place.
+    cache once and attended from it in place.  patch_embeds: (B, Simg, D)
+    for the VLM family, prepended (projected) ahead of the tokens, so S
+    counts Simg + the token count.
     """
     _check_family(cfg)
-    x = embed_inputs(cfg, params, tokens)
-    B, S = tokens.shape
+    x = embed_inputs(cfg, params, tokens, patch_embeds)
+    B, S = x.shape[:2]
     P = int(prefix_len)
     if prefix_cache is not None and prefix_cache["k"].shape[2] != P:
         raise ValueError(f"prefix cache holds {prefix_cache['k'].shape[2]} "

@@ -8,8 +8,9 @@ It is the single-device token oracle that ``--check-tokens`` holds the
 continuous runtime against.  Document payloads are per-document {k, v}
 tensors of shape (L, 1, T, KV, hd): on the device in the GPU tier, CPU
 tensors (pinned for a CUDA device) in the host tier, one raw-byte file each
-in the optional disk tier.  Only the dense family is ported; the recurrent
-families wait (ROADMAP.md Queue A).
+in the optional disk tier.  The attention families are ported (dense, MoE,
+and the VLM's text backbone); the recurrent families wait (ROADMAP.md
+Queue A).
 """
 from __future__ import annotations
 
@@ -115,7 +116,7 @@ class RAGServer:
         if cfg.family in ("ssm", "hybrid"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue "
-                f"A); the port serves the dense family")
+                f"A); the port serves {', '.join(M.FAMILIES)}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -40,8 +40,10 @@ position: an exact hit shares its pages whole, a relocated hit recomputes
 its page-aligned head at the new position and shares its tail in place
 (approximate; results carry ``exact=False``).
 
-Not ported yet (ROADMAP.md Queue A): tensor parallelism; asking for it
-raises ``NotImplementedError``.
+Families: the attention families (dense, MoE, and the VLM's text
+backbone).  Recurrent state cannot be paged per-block.  Not ported yet
+(ROADMAP.md Queue A): tensor parallelism; asking for it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -41,6 +41,9 @@ VERBATIM = [
     "configs/qwen2_0p5b.py",
     "configs/mistral_7b.py",
     "configs/llama2_7b.py",
+    "configs/mixtral_8x7b.py",
+    "configs/phi35_moe_42b.py",
+    "configs/internvl2_1b.py",
 ]
 
 JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M)
@@ -90,6 +93,9 @@ SLICE_MODULES = [
     "repro_torch.retrieval.traffic",
     "repro_torch.configs.mistral_7b",
     "repro_torch.configs.llama2_7b",
+    "repro_torch.configs.mixtral_8x7b",
+    "repro_torch.configs.phi35_moe_42b",
+    "repro_torch.configs.internvl2_1b",
 ]
 
 
