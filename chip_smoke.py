@@ -72,11 +72,33 @@ Phases, each fatal on failure:
                plain versions; the profile of
                phase 14; (b) serve.main --full-size --check-tokens on 8
                requests.  Their eps comes from the measured logits
-               (paper_eps).
+               (paper_eps);
+ 16. moe     — Mixtral-8x7B at full width and 24 of its 32 layers: the
+               main serve, row probe, chunk split, kernels vs plain and
+               continuous vs sequential with the routes pinned,
+               moe_capacity vs moe_dense, the profile;
+ 17. vlm     — InternVL2-1B at full width: the main serve, chunk split,
+               plain versions, a prefill with 256 patch embeddings;
+ 18. xlstm   — xLSTM-1.3B at full width and depth through the sequential
+               RAGServer, its state snapshots in the knowledge tree: 8
+               requests cold, then 4 whose docs are cached (one through
+               the pinned host tier) bit-identical to their cold results,
+               every snapshot's checksum unchanged across the hits; billed
+               and real tier bytes side by side; mlstm_chunkwise against
+               mlstm_scan on one full-width layer;
+ 19. hymba   — Hymba-1.5B at full width and depth the same way, its
+               attention on the prefix kernel (R 5, windows of 1024 and 2
+               global layers), and the 8 cold requests through the plain
+               versions, and in f32 through both (HYBRID_ARCH's eps
+               rule); its profile is scripts/profile_recurrent.py;
+ 20. audio   — MusicGen-large's model steps at full width: a codebook
+               prefill and 8 decode steps, kernel vs plain, and the prefill
+               as 256 cached + 256 new tokens against the whole.
 
 Phases 3-4 also hold and time each kernel at the paper models' head shapes
 (hd 128; KV 8 and R 4, KV 32 and R 1; Mistral's window over rows past 4096
-keys).  Every comparison of kernels against plain versions and of the
+keys), and the prefix kernel at Hymba-1.5B's (R 5, hd 64, a window layer
+and a global one) and MusicGen-large's (R 1, 32 heads, hd 64).  Every comparison of kernels against plain versions and of the
 continuous runtime against the sequential engine records the reference's
 top-2 logit margin at each stream's first differing token, and dies on a
 flip where that margin exceeds the comparison's eps (check_flips).
@@ -175,6 +197,42 @@ CAPACITY_TOL = 2.0 ** -5
 # phase 17: InternVL2-1B at full published width, its text backbone served
 # on the main trace; its dense prefill also takes its 256 patch embeddings
 VLM_ARCH = "internvl2-1b"
+# phases 18-19: the recurrent families at full published width and depth,
+# served by the sequential RAGServer on the first 8 requests of the main
+# trace (Qwen's corpus), then 4 of them again with their docs cached.  The
+# tiers are sized in billed bytes: 3,000 tokens on the GPU tier and 6,000
+# on the host tier (the reference bills an xLSTM state node at 4 B a token
+# whatever its real size, 706,560,672 B at full width; Hymba's K/V at
+# 40,960 B a token, its 3,317,760 B of SSM state unbilled), so that the
+# cold serve swaps state snapshots to the pinned host tier and a warm hit
+# promotes one back
+RECURRENT_REQUESTS = 8
+WARM_REQUESTS = 4
+TIER_TOKENS = (3000, 6000)
+XLSTM_ARCH = "xlstm-1.3b"
+# Hymba's comparisons of two bf16 serves take eps = max(paper_eps, 2 x F),
+# F the first-token L-inf of its plain-version serve in bf16 against the
+# same serve in f32, measured in the same run: each bf16 serve may lie F
+# from the f32 one.  On the card its bf16 rounding alone moves the
+# first-token logits ~0.4, past paper_eps (0.30), while in f32 the kernels'
+# serve matches the plain versions' within HYBRID_F32_TOL (f32 sums in
+# other orders through 32 layers).  The rule was set after reading a card
+# run.
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_F32_TOL = 1e-3
+# phase 18's chunkwise-vs-recurrent check: one mLSTM layer at full width
+# (4 heads of 1024) over this many tokens of f32 inputs; the outputs must
+# agree within MLSTM_TOL x the largest |h| of the recurrent form (the CPU
+# tests' rule: h is a quotient that reaches ~35 where its normaliser is
+# small, and the two forms sum in other orders)
+MLSTM_TOKENS = 1100
+MLSTM_TOL = 1e-4
+# phase 20: MusicGen-large's model steps at full width on codebook tokens
+# (B, K, S): a prefill of 2 x 4 x 512, 8 decode steps, and the prefill as
+# 256 cached + 256 new tokens
+AUDIO_ARCH = "musicgen-large"
+AUDIO_TOKENS = 512
+AUDIO_STEPS = 8
 # card clock cycles (~1 ms) the card spins before each timed call
 SPIN_CYCLES = 2_000_000
 # rows per call in the row-invariance probe; 8192 is the largest prefill
@@ -926,8 +984,11 @@ def paper_cases(torch, np):
     heads over Mistral-7B's 8 KV heads (R 4) and LLaMA2-7B's 32 (R 1);
     decode and paged prefill with the main case's rows, the prefix kernel
     at prefix 0; for Mistral also decode rows of ~4,800 keys and a 512-row
-    chunk after ~4,500 cached keys, both under its 4096-token window.
-    Returns {key: (kind, case)}, kind in decode / prefill / prefix."""
+    chunk after ~4,500 cached keys, both under its 4096-token window; the
+    prefix kernel also at Hymba-1.5B's heads (R 5, hd 64; a 1024 window
+    and a global layer over 1,200 rows) and MusicGen-large's (R 1, 32
+    heads, hd 64).  Returns {key: (kind, case)}, kind in decode / prefill
+    / prefix."""
     cases = {}
     for model, KV in (("mistral", 8), ("llama2", 32)):
         rng = np.random.default_rng(7)
@@ -947,6 +1008,17 @@ def paper_cases(torch, np):
         cases[f"{model}_prefix"] = ("prefix", prefix_case(
             torch, B=1, H=32, KV=KV, hd=128, P=0, Sq=2048,
             dtype=torch.bfloat16, seed=20))
+    # Hymba-1.5B's attention heads (25 over 5 KV heads, R 5, hd 64): a
+    # window layer (1024) and a global one, rows past the window; and
+    # MusicGen-large's (MHA, 32 heads, hd 64) codebook prefill
+    for key, window in (("hymba_prefix_window", 1024),
+                        ("hymba_prefix_global", 0)):
+        cases[key] = ("prefix", prefix_case(
+            torch, B=1, H=25, KV=5, hd=64, P=0, Sq=1200,
+            dtype=torch.bfloat16, seed=21, window=window))
+    cases["musicgen_prefix"] = ("prefix", prefix_case(
+        torch, B=2, H=32, KV=32, hd=64, P=0, Sq=AUDIO_TOKENS,
+        dtype=torch.bfloat16, seed=22))
     cases["mistral_decode_window"] = ("decode", decode_case(
         torch, np, B=8, H=32, KV=8, hd=128, page=16, n_slots=330,
         dtype=torch.bfloat16, seed=15, window=4096,
@@ -1011,7 +1083,7 @@ def parity_paper(torch, np, cases, errs):
             decode_bits(torch, case)
         elif kind == "prefill" and case["q"].shape[2] == 2048:
             chunk_split_paged(torch, case)
-        elif kind == "prefix":
+        elif kind == "prefix" and case["q"].shape[2] > 1048:
             prefix_split(torch, case, 1048)
 
 
@@ -2536,6 +2608,458 @@ def phase_vlm(torch, np):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 18-20: the recurrent and audio families
+# ---------------------------------------------------------------------------
+
+def tensor_sum(torch, t):
+    """A checksum of a tensor's bits, computed on the card: the sum of its
+    elements' bit patterns (as integers of their width) weighted by (index
+    mod 65521) + 1, in int64 (wrapping), over 2**25-element slices."""
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    flat = t.detach().reshape(-1).view(ints[t.element_size()])
+    total, step = 0, 1 << 25
+    for i in range(0, flat.numel(), step):
+        part = flat[i:i + step].to("cuda", non_blocking=True).long()
+        w = torch.arange(i, i + part.numel(), device="cuda") % 65521 + 1
+        total += int((part * w).sum())
+    return total
+
+
+def payload_sums(torch, payload):
+    """The checksums of a nested payload's tensors, in tree order."""
+    if isinstance(payload, dict):
+        return tuple(payload_sums(torch, payload[k]) for k in sorted(payload))
+    if isinstance(payload, (tuple, list)):
+        return tuple(payload_sums(torch, v) for v in payload)
+    return None if payload is None else tensor_sum(torch, payload)
+
+
+def payload_bytes(payload):
+    if isinstance(payload, dict):
+        return sum(payload_bytes(v) for v in payload.values())
+    if isinstance(payload, (tuple, list)):
+        return sum(payload_bytes(v) for v in payload)
+    return 0 if payload is None else payload.numel() * payload.element_size()
+
+
+def snapshot_sums(torch, tree):
+    """{(node id, tier): checksums} of every GPU- and host-tier payload."""
+    out = {}
+    for n in tree.nodes():
+        if n is tree.root:
+            continue
+        if n.in_gpu and n.payload_gpu is not None:
+            out[(id(n), "gpu")] = payload_sums(torch, n.payload_gpu)
+        if n.in_host and n.payload_host is not None:
+            out[(id(n), "host")] = payload_sums(torch, n.payload_host)
+    return out
+
+
+def tier_line(tree):
+    """Billed and real bytes of the GPU and host tiers."""
+    parts = []
+    for tier, held in (("gpu", lambda n: n.in_gpu and n.payload_gpu),
+                       ("host", lambda n: n.in_host and n.payload_host)):
+        nodes = [n for n in tree.nodes() if n is not tree.root and held(n)]
+        real = sum(payload_bytes(held(n)) for n in nodes)
+        billed = sum(n.bytes_ for n in nodes)
+        parts.append(f"{tier} {len(nodes)} nodes, billed {billed} B, real "
+                     f"{real} B")
+    return "; ".join(parts)
+
+
+def recurrent_argv(arch, bytes_per_token):
+    """The main configuration for a recurrent family, its tiers sized in
+    billed bytes (TIER_TOKENS)."""
+    argv = main_argv(32, "--arch", arch)
+    argv[argv.index("--gpu-cache-bytes") + 1] = \
+        str(TIER_TOKENS[0] * bytes_per_token)
+    return argv + ["--host-cache-bytes", str(TIER_TOKENS[1]
+                                             * bytes_per_token)]
+
+
+def recurrent_serve(torch, np, tag, cfg, params, corpus, idx, wl, args,
+                    attn_impl=None):
+    """The first RECURRENT_REQUESTS requests through the sequential
+    RAGServer (cold), then WARM_REQUESTS of them whose docs are all cached,
+    one through the host tier (warm): the warm tokens and first-token
+    logits must equal the cold ones bit for bit, a host-tier snapshot must
+    come back, and no snapshot the tree held may change (checksums before
+    and after the warm pass).  Returns (cold results, launches of the cold
+    serve, figures)."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import RAGServer
+    sub = sorted(wl, key=lambda r: r.req_id)[:RECURRENT_REQUESTS]
+    econf = dataclasses.replace(EngineConfig.from_args(args),
+                                attn_impl=attn_impl)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = RAGServer(cfg, params, corpus, idx, config=econf, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    cold = {r.req_id: r for r in
+            srv.serve(sub, max_new_tokens=args.max_new_tokens)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    tree = srv.tree
+    n_tok = sum(len(r.tokens) for r in cold.values())
+    print(f"[{tag}] cold: {len(cold)} requests, {n_tok} tokens in "
+          f"{wall:.2f}s wall = {n_tok / wall:.2f} tokens/s; mean TTFT "
+          f"{1e3 * np.mean([r.ttft for r in cold.values()]):.1f} ms; peak "
+          f"device memory {torch.cuda.max_memory_allocated()} B; launches "
+          f"{launches}; plain-version calls {plain}", flush=True)
+    print(f"[{tag}] tiers after the cold serve: {tier_line(tree)}; "
+          f"budgets gpu {econf.gpu_cache_bytes} B, host "
+          f"{econf.host_cache_bytes} B (billed); swapped out "
+          f"{tree.stats['swap_out_bytes']} B billed", flush=True)
+    if len(cold) != len(sub) or any(len(r.tokens) != args.max_new_tokens
+                                    for r in cold.values()):
+        die(f"[{tag}] not every request was served in full")
+    for r in cold.values():
+        fl = r.first_logits
+        if fl is None or fl.shape != (cfg.vocab_size,) \
+                or not np.isfinite(fl).all():
+            die(f"[{tag}] request {r.req_id}: first-token logits missing, "
+                f"misshapen or not finite")
+    # warm: requests whose every doc is cached, served one at a time, the
+    # one cached through the host tier last (its promotion evicts GPU
+    # nodes, which could drop another warm request's host copy)
+    full, host = [], []
+    for r in sub:
+        path = tree.match_prefix(cold[r.req_id].docs)
+        if len(path) == len(cold[r.req_id].docs):
+            (host if any(not n.in_gpu for n in path) else full).append(r)
+    warm_sub = full[:WARM_REQUESTS - 1] + host[:1]
+    if len(warm_sub) < WARM_REQUESTS or not host:
+        die(f"[{tag}] {len(full)} requests cached on the GPU tier and "
+            f"{len(host)} through the host tier: no warm set")
+    before = snapshot_sums(torch, tree)
+    loads = tree.stats["load_bytes"]
+    t0 = time.perf_counter()
+    warm = [res for r in warm_sub
+            for res in srv.serve([r], max_new_tokens=args.max_new_tokens)]
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    after = snapshot_sums(torch, tree)
+    common = sorted(before.keys() & after.keys())
+    changed = [k for k in common if before[k] != after[k]]
+    same = [np.array_equal(r.first_logits, cold[r.req_id].first_logits)
+            and r.tokens == cold[r.req_id].tokens for r in warm]
+    alphas = [(r.alpha, r.beta) for r in warm]
+    print(f"[{tag}] warm: requests {[r.req_id for r in warm_sub]} "
+          f"({len(host)} of the cold set cached through the host tier) in "
+          f"{warm_wall:.2f}s; (alpha, beta) {alphas}; promoted "
+          f"{tree.stats['load_bytes'] - loads} B billed back from the host "
+          f"tier; tokens and first-token logits bit-identical to the cold "
+          f"serve for {sum(same)}/{len(warm)}; snapshot checksums compared "
+          f"{len(common)} (of {len(before)} before, {len(after)} after), "
+          f"changed {len(changed)}", flush=True)
+    print(f"[{tag}] tiers after the warm serve: {tier_line(tree)}",
+          flush=True)
+    if tree.stats["load_bytes"] <= loads:
+        die(f"[{tag}] no snapshot came back from the host tier")
+    if not all(same):
+        die(f"[{tag}] warm hits differ from the cold serve: {same}")
+    if any(a != sum(int(corpus.doc_lengths[d]) for d in r.docs)
+           for (a, _), r in zip(alphas, warm)):
+        die(f"[{tag}] a warm request missed the tree: {alphas}")
+    if not common or changed:
+        die(f"[{tag}] snapshots changed across the warm hits: {changed}")
+    out = dict(wall=wall, tokens_per_s=n_tok / wall,
+               peak=torch.cuda.max_memory_allocated(), launches=launches,
+               plain=plain, warm=[r.req_id for r in warm_sub],
+               compared=len(common))
+    del srv, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return list(cold.values()), launches, out
+
+
+def model_setup_only(torch, cfg, tag):
+    """Seeded random weights of ``cfg`` on the card (the serve's seed), and
+    their bytes and init peak."""
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - held
+    print(f"[{tag}] {cfg.family}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, {cfg.n_codebooks} codebooks of "
+          f"{cfg.vocab_size}, {cfg.dtype}; weights {weights} B on the card, "
+          f"init peak {torch.cuda.max_memory_allocated() - held} B above "
+          f"the {held} B held before; set-up "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return params
+
+
+def phase_mlstm_forms(torch, cfg, tag):
+    """mlstm_chunkwise against mlstm_scan on one full-width mLSTM layer
+    (its heads and head dim) over MLSTM_TOKENS tokens of f32 inputs, forget
+    gates around 0 (log f ~ -0.69 a step: the reference's chunkwise form
+    overflows there, the port's must not)."""
+    from repro_torch.models import layers as L
+    Dp = int(cfg.proj_factor * cfg.d_model)
+    H, hd = cfg.n_heads, Dp // cfg.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, MLSTM_TOKENS, H, hd), generator=gen,
+                           device="cuda") for _ in range(3))
+    ig, fg = (torch.randn((1, MLSTM_TOKENS, H), generator=gen,
+                          device="cuda") for _ in range(2))
+    t0 = time.perf_counter()
+    hc, sc = L.mlstm_chunkwise(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hs, ss = L.mlstm_scan(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    top = float(hs.abs().max())
+    err = float((hc - hs).abs().max())
+    st = [float((a - b).abs().max()) for a, b in zip(sc, ss)]
+    finite = bool(torch.isfinite(hc).all() and torch.isfinite(hs).all())
+    print(f"[{tag}] mlstm_chunkwise vs mlstm_scan, (1, {MLSTM_TOKENS}, {H}, "
+          f"{hd}) f32: max |h| {top:.4f}, max |chunkwise - recurrent| "
+          f"{err:.4e} = {err / top:.3e} of it (tol {MLSTM_TOL:g}); final "
+          f"state (C, n, m) max diffs {', '.join(f'{x:.3e}' for x in st)}; "
+          f"finite {finite}; chunkwise {1e3 * (t1 - t0):.1f} ms, recurrent "
+          f"{1e3 * (t2 - t1):.1f} ms (host clock)", flush=True)
+    if not finite or err > MLSTM_TOL * max(1.0, top):
+        die(f"[{tag}] chunkwise and recurrent mLSTM disagree: {err} (max "
+            f"|h| {top})")
+    return err / top
+
+
+def phase_xlstm(torch, np):
+    """Phase 18: xLSTM-1.3B at full published width and depth, its weights
+    the only ones on the card: the cold and warm serves through the
+    sequential engine with its state snapshots in the tree, and the two
+    mLSTM forms on one full-width layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    tag = XLSTM_ARCH
+    cfg = get_config(XLSTM_ARCH)
+    args = serve.build_parser().parse_args(recurrent_argv(XLSTM_ARCH, 4))
+    params = model_setup_only(torch, cfg, tag)
+    corpus, idx, wl, _ = serve.make_data(args, cfg)
+    snap = payload_bytes(M.init_decode_cache(cfg, 1, 0, device="meta"))
+    print(f"[{tag}] a state snapshot: {snap} B real, billed 4 B a token",
+          flush=True)
+    _, _, out = recurrent_serve(torch, np, tag, cfg, params, corpus, idx,
+                                wl, args)
+    out["snapshot"] = snap
+    out["mlstm_rel"] = phase_mlstm_forms(torch, cfg, f"{tag} mlstm")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_wall"] = time.perf_counter() - t_phase
+    print(f"[{tag}] phase wall {out['phase_wall']:.1f}s", flush=True)
+    return out
+
+
+def f32_params(params):
+    return {k: f32_params(v) if isinstance(v, dict) else v.float()
+            for k, v in params.items()}
+
+
+def phase_hybrid(torch, np):
+    """Phase 19: Hymba-1.5B at full published width and depth: the cold
+    and warm serves through the sequential engine on the prefix kernel
+    (R 5), the same cold requests through the plain versions and through
+    the plain versions in f32.  The kernels' serve must lie
+    within eps of the plain versions' and of the f32 serve, with no flip
+    above eps, where eps = max(paper_eps, 2 x the bf16 floor) and the
+    floor is the plain versions' own distance from the f32 serve: this
+    model's bf16 rounding moves its first-token logits further than
+    paper_eps (see HYBRID_ARCH)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    tag = HYBRID_ARCH
+    cfg = get_config(HYBRID_ARCH)
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * cfg.tdtype.itemsize
+    args = serve.build_parser().parse_args(recurrent_argv(HYBRID_ARCH, kv))
+    params = model_setup_only(torch, cfg, tag)
+    corpus, idx, wl, _ = serve.make_data(args, cfg)
+    ssm = cfg.n_layers * cfg.n_heads * cfg.hd * cfg.ssm_state * 4
+    print(f"[{tag}] K/V {kv} B a token (billed); SSM state {ssm} B a "
+          f"snapshot (not billed)", flush=True)
+    with recording_margins():
+        cold, launches, out = recurrent_serve(
+            torch, np, tag, cfg, params, corpus, idx, wl, args)
+        if launches["prefix_flash_attention"] <= 0 or out["plain"]:
+            die(f"[{tag}] the serve did not run on the prefix kernel: "
+                f"{launches}, plain calls {out['plain']}")
+        top = max(float(np.max(np.abs(r.first_logits))) for r in cold)
+        p_eps = paper_eps(top)
+        reset_counts()
+        plain, plain_launches, _ = recurrent_serve(
+            torch, np, f"{tag} plain", cfg, params, corpus, idx, wl, args,
+            attn_impl="torch")
+        if any(plain_launches.values()):
+            die(f"[{tag}] the plain-version serve launched a kernel: "
+                f"{plain_launches}")
+        exact = serve_f32(torch, cfg, params, corpus, idx, wl, args,
+                          "torch")
+    f32_kernels = serve_f32(torch, cfg, params, corpus, idx, wl, args, None)
+    by_id = {r.req_id: r for r in cold}
+    f32_err = max_linf(np, f32_kernels, exact)
+    print(f"[{tag}] in f32, the kernels' serve vs the plain versions': "
+          f"first-token max L-inf {f32_err:.4e} (tol {HYBRID_F32_TOL:g})",
+          flush=True)
+    if f32_err > HYBRID_F32_TOL:
+        die(f"[{tag}] in f32 the kernels' serve is {f32_err} from the "
+            f"plain versions'")
+    floor = max_linf(np, plain, exact)
+    eps = max(p_eps, 2 * floor)
+    print(f"[{tag}] max |first-token logit| {top:.4f}: paper_eps {p_eps:g}; "
+          f"first-token L-inf against the f32 plain serve: plain "
+          f"versions (bf16) {floor:.4e}, kernels {max_linf(np, cold, exact):.4e}"
+          f"; kernels vs plain {max_linf(np, cold, plain):.4e}; eps = max("
+          f"paper_eps, 2 x {floor:.4e}) = {eps:.4f}", flush=True)
+    compare_logits(np, f"{tag} plain", plain, cold, eps,
+                   "the kernels' serve")
+    check_flips(f"{tag} kernels vs plain",
+                [(by_id[b.req_id], b) for b in plain], eps)
+    compare_logits(np, f"{tag} f32", exact, cold, eps, "the kernels' serve")
+    check_flips(f"{tag} kernels vs f32",
+                [(by_id[b.req_id], b) for b in exact], eps)
+    out.update(paper_eps=p_eps, floor=floor, f32_err=f32_err,
+               plain_linf=max_linf(np, cold, plain),
+               f32_linf=max_linf(np, cold, exact))
+    out["eps"] = eps
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_wall"] = time.perf_counter() - t_phase
+    print(f"[{tag}] phase wall {out['phase_wall']:.1f}s", flush=True)
+    return out
+
+
+def max_linf(np, got, want):
+    """The largest first-token L-inf between two serves' results."""
+    by_id = {r.req_id: r for r in want}
+    return max(float(np.max(np.abs(
+        a.first_logits.astype(np.float64)
+        - by_id[a.req_id].first_logits.astype(np.float64)))) for a in got)
+
+
+def serve_f32(torch, cfg, params, corpus, idx, wl, args, attn_impl):
+    """The cold requests of recurrent_serve in f32 (weights and
+    activations; the same seeded bf16 weights, widened), through the
+    kernels (attn_impl None) or the plain versions ("torch")."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import RAGServer
+    sub = sorted(wl, key=lambda r: r.req_id)[:RECURRENT_REQUESTS]
+    econf = dataclasses.replace(EngineConfig.from_args(args),
+                                attn_impl=attn_impl)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    srv = RAGServer(dataclasses.replace(cfg, dtype="float32"),
+                    f32_params(params), corpus, idx, config=econf,
+                    device="cuda")
+    res = srv.serve(sub, max_new_tokens=args.max_new_tokens)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    print(f"[{cfg.name} f32] {len(res)} requests in f32 through the "
+          f"{'plain versions' if attn_impl else 'kernels'} in "
+          f"{time.perf_counter() - t0:.1f}s; launches {launches}, "
+          f"plain-version calls {plain}", flush=True)
+    if bool(attn_impl) != bool(plain) or bool(attn_impl) == bool(
+            launches["prefix_flash_attention"]):
+        die(f"[{cfg.name} f32] the serve ran the wrong attention: "
+            f"{launches}, plain calls {plain}")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_audio(torch, np):
+    """Phase 20: MusicGen-large's model steps at full published width on
+    codebook tokens: a prefill of (2, 4, AUDIO_TOKENS) through the prefix
+    kernel and through the plain version, AUDIO_STEPS decode steps over
+    each one's cache, and the prefill as half cached + half new against
+    the whole: logits within paper_eps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    tag = AUDIO_ARCH
+    cfg = get_config(AUDIO_ARCH)
+    params = model_setup_only(torch, cfg, tag)
+    K, B, S = cfg.n_codebooks, 2, AUDIO_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (B, K, S), generator=gen,
+                         device="cuda")
+    steps = torch.randint(0, cfg.vocab_size, (AUDIO_STEPS, B, K, 1),
+                          generator=gen, device="cuda")
+    reset_counts()
+    got, cache = M.prefill(cfg, params, toks)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    want, pcache = M.prefill(cfg, params, toks, attn_impl="torch")
+    if tuple(got.shape) != (B, 1, K, cfg.vocab_size) \
+            or not torch.isfinite(got).all():
+        die(f"[{tag}] prefill logits {tuple(got.shape)} misshapen or not "
+            f"finite")
+    if launches["prefix_flash_attention"] != cfg.n_layers or plain:
+        die(f"[{tag}] prefill launches {launches}, plain calls {plain}")
+    top = float(got.abs().max())
+    eps = paper_eps(top)
+    errs = [float((got - want).abs().max())]
+
+    def decode(c):
+        dc = M.init_decode_cache(cfg, B, S + AUDIO_STEPS, device="cuda")
+        dc["k"][:, :, :S], dc["v"][:, :, :S] = c["k"], c["v"]
+        pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        out = []
+        for t in range(AUDIO_STEPS):
+            pos = pos + 1
+            out.append(M.decode_step(cfg, params, steps[t], dc, pos))
+        return out
+
+    for a, b in zip(decode(cache), decode(pcache)):
+        if not torch.isfinite(a).all():
+            die(f"[{tag}] decode logits not finite")
+        errs.append(float((a - b).abs().max()))
+    del cache, pcache
+    half = S // 2
+    _, doc = M.prefill(cfg, params, toks[..., :half])
+    cached, _ = M.prefill(cfg, params, toks[..., half:], doc, half)
+    split = float((cached - got).abs().max())
+    bitwise = bool(torch.equal(cached, got))
+    print(f"[{tag}] prefill (B, K, S) = {(B, K, S)}: launches {launches}; "
+          f"max |logit| {top:.4f}, eps {eps:g}; kernel vs plain max L-inf: "
+          f"prefill {errs[0]:.4e}, decode steps "
+          f"{', '.join(f'{e:.3e}' for e in errs[1:])}; {half} cached + "
+          f"{S - half} new vs the whole prefill: max L-inf {split:.4e}, "
+          f"bit-identical {bitwise}", flush=True)
+    if max(errs) > eps:
+        die(f"[{tag}] kernel and plain disagree past eps {eps}: {errs}")
+    if split > eps:
+        die(f"[{tag}] the prefix-cached prefill differs from the whole: "
+            f"{split}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[{tag}] phase wall {wall:.1f}s", flush=True)
+    return dict(launches=launches["prefix_flash_attention"], eps=eps,
+                err=max(errs), split=split, bitwise=bitwise,
+                phase_wall=wall)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2568,6 +3092,9 @@ def main() -> None:
     paper = {arch: phase_paper(torch, np, arch) for arch in PAPER_MODELS}
     moe = phase_moe(torch, np)
     vlm = phase_vlm(torch, np)
+    xlstm = phase_xlstm(torch, np)
+    hybrid = phase_hybrid(torch, np)
+    audio = phase_audio(torch, np)
     for arch, o in paper.items():
         print(f"[paper] {arch}: GPU tier {PAPER_GPU_BYTES} B = {o['blocks']} "
               f"blocks, host tier {PAPER_HOST_BYTES} B; doc hit rate "
@@ -2615,6 +3142,10 @@ def main() -> None:
         moe["seq"]
     by_path["prefix_flash_attention"][f"{VLM_ARCH} patch prefill"] = \
         vlm["patches"]
+    by_path["prefix_flash_attention"][f"{HYBRID_ARCH} serve"] = \
+        hybrid["launches"]["prefix_flash_attention"]
+    by_path["prefix_flash_attention"][f"{AUDIO_ARCH} prefill"] = \
+        audio["launches"]
     print(f"[moe] {MOE_ARCH} ({MOE_LAYERS} layers): GPU tier "
           f"{MOE_GPU_BYTES} B = {moe['blocks']} pool blocks; doc hit rate "
           f"{moe['doc_hit_rate']:.4f}; tier hit tokens {moe['tier']}; "
@@ -2623,6 +3154,15 @@ def main() -> None:
           f"capacity dropped "
           f"{moe['capacity']['dropped']} of {CAPACITY_ROWS} rows; phase "
           f"wall {moe['wall']:.1f}s", flush=True)
+    for arch, o in ((XLSTM_ARCH, xlstm), (HYBRID_ARCH, hybrid)):
+        print(f"[recurrent] {arch}: cold {o['tokens_per_s']:.2f} tokens/s, "
+              f"peak {o['peak']} B; warm requests {o['warm']} bit-identical, "
+              f"{o['compared']} snapshots unchanged; phase wall "
+              f"{o['phase_wall']:.1f}s", flush=True)
+    print(f"[audio] {AUDIO_ARCH}: kernel vs plain max L-inf "
+          f"{audio['err']:.4e} (eps {audio['eps']:g}); cached vs whole "
+          f"{audio['split']:.4e}; phase wall {audio['phase_wall']:.1f}s",
+          flush=True)
     print(f"[vlm] {VLM_ARCH}: doc hit rate {vlm['doc_hit_rate']:.4f}; "
           f"{vlm['stats'][0]:.1f} tokens/s, TTFT p50 {vlm['stats'][1]:.1f} "
           f"ms; eps {vlm['eps']:g}; phase wall {vlm['wall']:.1f}s",
@@ -2635,7 +3175,10 @@ def main() -> None:
             ({"at_long_rows": times["decode_long"]},
              {"at_sq64": times["prefill64"]},
              {"at_prefix0_sq512": times["prefix512"],
-              "at_prefix1700_sq300": times["prefix1700+300"]}),
+              "at_prefix1700_sq300": times["prefix1700+300"],
+              "at_hymba": {k: times[f"hymba_prefix_{k}"]
+                           for k in ("window", "global")},
+              "at_musicgen": times["musicgen_prefix"]}),
             (("mistral_decode", "llama2_decode", "mistral_decode_window"),
              ("mistral_prefill", "llama2_prefill", "mistral_prefill_window"),
              ("mistral_prefix", "llama2_prefix"))):

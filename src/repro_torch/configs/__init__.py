@@ -6,8 +6,11 @@ models the port serves are registered: Qwen2-0.5B; the paper's two
 evaluation models, Mistral-7B (GQA, a 4096-token sliding window on every
 layer) and LLaMA2-7B (MHA); the MoE family, Mixtral-8x7B (8 experts, top
 2, the paper's large-model target) and Phi-3.5-MoE (16 experts, top 2);
-and the VLM family's InternVL2-1B, whose text backbone the runtimes serve.
-The other architectures join with their model code (ROADMAP.md, Queue A).
+the VLM family's InternVL2-1B, whose text backbone the runtimes serve; the
+recurrent families, xLSTM-1.3B (ssm) and Hymba-1.5B (hybrid), which the
+sequential engine serves; and the audio family's MusicGen-large, which runs
+through the model steps only.  The other architectures join with their
+model code (ROADMAP.md, Queue A).
 """
 from __future__ import annotations
 
@@ -26,6 +29,11 @@ _ARCHS = [
     "phi35_moe_42b",
     # vision-language backbone
     "internvl2_1b",
+    # recurrent state: xLSTM (ssm) and Hymba (hybrid)
+    "xlstm_1p3b",
+    "hymba_1p5b",
+    # audio codebooks
+    "musicgen_large",
 ]
 
 _ALIASES = {
@@ -35,6 +43,9 @@ _ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "internvl2-1b": "internvl2_1b",
+    "xlstm-1.3b": "xlstm_1p3b",
+    "hymba-1.5b": "hymba_1p5b",
+    "musicgen-large": "musicgen_large",
 }
 
 

@@ -43,8 +43,15 @@ from the cache and shed requests never run.
 The CLI uses the reduced config unless ``--full-size`` asks for the
 published one; ``make_setup(args, cfg=...)`` takes any.  ``--arch`` takes
 ``qwen2-0.5b`` (the default), ``mistral-7b`` and ``llama2-7b``, the paper's
-evaluation models, ``mixtral-8x7b`` and ``phi3.5-moe-42b-a6.6b`` (MoE) and
-``internvl2-1b`` (VLM: its text backbone is served).  At full size the
+evaluation models, ``mixtral-8x7b`` and ``phi3.5-moe-42b-a6.6b`` (MoE),
+``internvl2-1b`` (VLM: its text backbone is served), and the recurrent
+families ``xlstm-1.3b`` (ssm) and ``hymba-1.5b`` (hybrid), which always go
+to the sequential engine, caching each document's state snapshot
+(``--check-tokens``, ``--frontdoor``, ``--replicas`` and ``--tp`` apply to
+the continuous engine only, and say so).  ``musicgen-large`` (audio) is
+registered but served by neither engine: its model steps take codebook
+tokens (B, K, S), and the engines raise ``ValueError`` on its (B, S)
+requests, as the reference's do.  At full size the
 seeded random bf16 weights take 14.5 GB (Mistral-7B) and 13.5 GB
 (LLaMA2-7B) on the card; Mixtral-8x7B's (93.4 GB) and Phi-3.5-MoE's
 (83.7 GB) do not fit one 80 GB card, so ``--full-size`` serves neither
@@ -523,7 +530,8 @@ def main(argv=None) -> None:
     cfg, params, corpus, idx, wl, tenants = make_setup(args)
     print(f"model={cfg.name} family={cfg.family} layers={cfg.n_layers} "
           f"d_model={cfg.d_model} device={args.device}")
-    if args.mode == "cag" and econf.disk_cache_bytes == 0:
+    if args.mode == "cag" and econf.disk_cache_bytes == 0 \
+            and cfg.family not in M.RECURRENT:
         # auto-size the disk tier to hold the whole corpus KV exactly
         kv_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd
                     * cfg.tdtype.itemsize)
@@ -531,13 +539,22 @@ def main(argv=None) -> None:
         econf = dataclasses.replace(econf, disk_cache_bytes=need)
         print(f"[cag] --disk-cache-bytes 0 -> auto-sized to {need} B "
               f"({len(corpus.doc_lengths)} docs, {kv_bytes} B/token)")
-    if args.replicas > 1 and args.sequential:
+    recurrent = cfg.family in M.RECURRENT
+    if recurrent and not args.sequential:
+        print("note: recurrent-state family -> sequential engine")
+    if args.replicas > 1 and (recurrent or args.sequential):
         print("note: --replicas applies to the continuous engine only; "
               "the sequential A/B side stays a single engine")
-    if args.frontdoor and args.sequential:
+    if recurrent and args.check_tokens:
+        print("note: --check-tokens unavailable for recurrent families "
+              "(no continuous engine to compare against); NOT checked")
+    if args.frontdoor and (recurrent or args.sequential):
         print("note: --frontdoor requires the continuous engine; ignored")
+    if econf.mesh.tp > 1 and (recurrent or args.sequential):
+        print("note: --tp applies to the continuous engine only; the "
+              "sequential engine is the single-device token oracle")
     mode, eps = parse_check_mode(args.check_tokens)
-    if args.frontdoor and not args.sequential:
+    if args.frontdoor and not recurrent and not args.sequential:
         miss_results, part = serve_frontdoor(cfg, params, corpus, idx, wl,
                                              tenants, args, econf=econf,
                                              fleet_conf=fleet_conf, fdc=fdc)
@@ -556,7 +573,7 @@ def main(argv=None) -> None:
                        eps, f"; {len(part.hits)} hits + {len(part.shed)} "
                             f"shed excluded by construction")
         return
-    if args.check_tokens:
+    if args.check_tokens and not recurrent:
         cont, _ = serve_continuous(cfg, params, corpus, idx, wl, args,
                                    econf=econf, fleet_conf=fleet_conf)
         seq, _ = serve_sequential(cfg, params, corpus, idx, wl, args,
@@ -565,7 +582,7 @@ def main(argv=None) -> None:
         if mismatches:
             raise SystemExit(f"token mismatch: {mismatches}")
         check_line("requests", len(cont), mode, eps)
-    elif args.sequential:
+    elif args.sequential or recurrent:
         serve_sequential(cfg, params, corpus, idx, wl, args, econf=econf)
     else:
         serve_continuous(cfg, params, corpus, idx, wl, args, econf=econf,

@@ -1,5 +1,5 @@
-"""Building blocks of the dense, MoE and VLM families (counterpart of the
-parts of ``repro.models.layers`` that the serving steps use).
+"""Building blocks of the model families (counterpart of the parts of
+``repro.models.layers`` that the serving steps use).
 
 Rounding points follow the JAX package: norms and RoPE compute in f32 and
 cast back; ``dense`` rounds the matmul to the activation dtype, then adds
@@ -37,9 +37,22 @@ measured on the card; the rule slabs only the down.
 with at most a quarter as many outputs.  The norm's mean is row-invariant
 as it is.  The probe runs every op with and without the helper, so a
 product this rule misses shows there.
+
+The recurrent scans (``causal_conv1d``, ``mlstm_scan``,
+``mlstm_chunkwise``, ``slstm_scan``, ``mamba_scan``) are plain PyTorch
+loops over time in the reference's arithmetic order, their state in f32.
+Each returns new state tensors and never writes the state it was given:
+the knowledge tree holds those tensors as document snapshots.  Their f32
+products run with TF32 off (``full_f32``), as the reference's f32 einsums
+compute.  ``mlstm_chunkwise`` masks the chunk's upper triangle with a
+select where the reference multiplies by the causal mask: past ~128 steps
+a chunk's masked weights overflow to inf there, and inf x 0 made the
+reference's outputs NaN (ROADMAP.md Queue C); wherever the reference is
+finite the two agree.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -249,3 +262,197 @@ def moe_capacity(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
         yc = torch.einsum("ceC,eCd->cd", comb, ybuf.float())
         out.append(yc.to(xc.dtype))
     return torch.cat(out)[:T].reshape(B, S, D)
+
+
+# ---------------------------------------------------------------------------
+# recurrent families: xLSTM (mLSTM + sLSTM) and Hymba's SSM heads
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 matrix products at full f32 precision for the duration: TF32,
+    which would round their inputs to 10 mantissa bits on the card, is
+    turned off and restored after.  The reference's scans are f32."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _log_sigmoid(f: torch.Tensor) -> torch.Tensor:
+    return -F.softplus(-f)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Causal depthwise conv.  x: (B, S, D), w: (K, D); ``state`` carries
+    the last K-1 inputs.  Returns (y, new_state)."""
+    K = w.shape[0]
+    if K == 1:
+        return x * w[0], state
+    if state is None:
+        state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xc = torch.cat([state, x], dim=1)
+    S = x.shape[1]
+    y = 0
+    for i in range(K):
+        y = y + xc[:, i:i + S] * w[i]
+    return y.to(x.dtype), xc[:, -(K - 1):]
+
+
+def mlstm_init(B: int, H: int, hd: int, device=None):
+    """Fresh mLSTM state (C (B, H, hd, hd), n (B, H, hd), m (B, H)), f32."""
+    return (torch.zeros((B, H, hd, hd), device=device),
+            torch.zeros((B, H, hd), device=device),
+            torch.full((B, H), NEG_INF, device=device))
+
+
+@full_f32()
+def mlstm_scan(q, k, v, i_gate, f_gate, state=None):
+    """Strictly recurrent mLSTM (matrix memory, stabilised exp gating), one
+    step at a time: the S == 1 decode form and the chunkwise form's oracle.
+    q/k/v (B, S, H, hd), gates (B, S, H).  Returns (h, (C, n, m))."""
+    B, S, H, hd = q.shape
+    C, n, m = state if state is not None else mlstm_init(B, H, hd, q.device)
+    qs, vs = q.float(), v.float()
+    ks = k.float() * hd ** -0.5
+    igs, fgs = i_gate.float(), f_gate.float()
+    hs = []
+    for t in range(S):
+        qt, kt, vt, ig = qs[:, t], ks[:, t], vs[:, t], igs[:, t]
+        log_f = _log_sigmoid(fgs[:, t])
+        m_new = torch.maximum(log_f + m, ig)
+        i_sc = torch.exp(ig - m_new)
+        f_sc = torch.exp(log_f + m - m_new)
+        C = f_sc[..., None, None] * C + i_sc[..., None, None] * (
+            vt[..., :, None] * kt[..., None, :])
+        n = f_sc[..., None] * n + i_sc[..., None] * kt
+        num = torch.einsum("bhij,bhj->bhi", C, qt)
+        den = torch.abs(torch.einsum("bhj,bhj->bh", n, qt))
+        floor = torch.exp(torch.clamp(-m_new, max=30.0))
+        hs.append(num / torch.maximum(den, floor)[..., None])
+        m = m_new
+    return torch.stack(hs, dim=1).to(q.dtype), (C, n, m)
+
+
+@full_f32()
+def mlstm_chunkwise(q, k, v, i_gate, f_gate, state=None, chunk: int = 256):
+    """Chunkwise-parallel mLSTM: within a chunk (C x C) and (C x hd)
+    products, across chunks only the (hd x hd) state.  Equal to
+    ``mlstm_scan`` up to f32 association.  Time is padded to whole chunks
+    with steps that neither write (i = NEG_INF) nor decay (f = 80)."""
+    B, S, H, hd = q.shape
+    C_in, n_in, m_in = (state if state is not None
+                        else mlstm_init(B, H, hd, q.device))
+    chunk = min(chunk, S)
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+
+    def padt(x, value=0.0):
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad), value=value)
+
+    qf, vf = padt(q.float()), padt(v.float())
+    kf = padt(k.float()) * hd ** -0.5
+    ig = padt(i_gate.float(), NEG_INF)
+    fg = padt(f_gate.float(), 80.0)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=q.device))
+    hs = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        qi, ki, vi, ii, fi = qf[:, sl], kf[:, sl], vf[:, sl], ig[:, sl], \
+            fg[:, sl]
+        lf = _log_sigmoid(fi)                              # (B, C, H)
+        Fc = torch.cumsum(lf, dim=1)
+        g = ii - Fc
+        Mt = torch.maximum(m_in[:, None], torch.cummax(g, dim=1).values)
+        m_t = Fc + Mt
+        in_scale = torch.exp(m_in[:, None] - Mt)           # (B, C, H)
+        # intra-chunk scores A[t, s] = (q_t . k_s) exp(g_s - M_t), s <= t
+        qk = torch.einsum("bthd,bshd->bhts", qi, ki)
+        wts = torch.exp(g.transpose(1, 2)[:, :, None, :]
+                        - Mt.transpose(1, 2)[:, :, :, None])
+        A = torch.where(causal, qk * wts, 0.0)
+        Cq = torch.einsum("bhij,bthj->bthi", C_in, qi)
+        num = in_scale[..., None] * Cq + torch.einsum("bhts,bshd->bthd",
+                                                      A, vi)
+        nq = torch.einsum("bhj,bthj->bth", n_in, qi)
+        den = in_scale * nq + A.sum(dim=-1).transpose(1, 2)
+        floor = torch.exp(torch.clamp(-m_t, max=30.0))
+        hs.append(num / torch.maximum(torch.abs(den), floor)[..., None])
+        # the state at the chunk's end
+        MT = Mt[:, -1]                                     # (B, H)
+        state_scale = torch.exp(m_in - MT)
+        wk = torch.exp(g - MT[:, None])                    # (B, C, H)
+        C_in = state_scale[..., None, None] * C_in + torch.einsum(
+            "bshd,bsh,bshe->bhde", vi, wk, ki)
+        n_in = state_scale[..., None] * n_in + torch.einsum(
+            "bsh,bshd->bhd", wk, ki)
+        m_in = Fc[:, -1] + MT
+    h = torch.cat(hs, dim=1)[:, :S]
+    return h.to(q.dtype), (C_in, n_in, m_in)
+
+
+def slstm_init(B: int, H: int, hd: int, device=None):
+    """Fresh sLSTM state (c, n, h, m), each (B, H, hd) f32; n starts at
+    1."""
+    z = torch.zeros((B, H, hd), device=device)
+    return (z, torch.ones_like(z), z.clone(), z.clone())
+
+
+@full_f32()
+def slstm_scan(zifo, r_w, state=None):
+    """sLSTM: scalar memory, block-diagonal recurrence, exp gating, one step
+    at a time.  zifo: (B, S, H, 4 hd) input pre-activations; r_w (H, hd,
+    4 hd).  Returns (h (B, S, H, hd), (c, n, h, m))."""
+    B, S, H, hd4 = zifo.shape
+    c, n, h, m = (state if state is not None
+                  else slstm_init(B, H, hd4 // 4, zifo.device))
+    xs = zifo.float()
+    rw = r_w.float()
+    hs = []
+    for t in range(S):
+        rec = torch.einsum("bhi,hio->bho", h, rw)
+        z, i, f, o = (xs[:, t] + rec).chunk(4, dim=-1)
+        z = torch.tanh(z)
+        o = torch.sigmoid(o)
+        log_f = _log_sigmoid(f)
+        m_new = torch.maximum(log_f + m, i)
+        i_sc = torch.exp(i - m_new)
+        f_sc = torch.exp(log_f + m - m_new)
+        c = f_sc * c + i_sc * z
+        n = f_sc * n + i_sc
+        h = o * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(zifo.dtype), (c, n, h, m)
+
+
+@full_f32()
+def mamba_scan(x, delta, A, Bm, Cm, D, state=None):
+    """Selective SSM: h_t = exp(delta_t A) h_{t-1} + delta_t (B_t (x) x_t),
+    y_t = C_t . h_t + D x_t.  x (B, S, H, hd), delta (B, S, H), A (H, hd,
+    N), Bm/Cm (B, S, N), D (H, hd); state (B, H, hd, N) f32, the Hymba
+    document snapshot.  The step's decay and input are computed for every
+    step at once and the readout after the loop, elementwise as the
+    reference computes them per step.  Returns (y, new_state)."""
+    Bb, S, H, hd = x.shape
+    N = A.shape[-1]
+    h = (state if state is not None
+         else torch.zeros((Bb, H, hd, N), device=x.device))
+    xs, ds = x.float(), delta.float()
+    Bs, Cs = Bm.float(), Cm.float()
+    # time-major (S, B, H, hd, N)
+    decay = torch.exp(ds.transpose(0, 1)[..., None, None] * A.float())
+    inp = (ds[..., None] * xs).transpose(0, 1)[..., None] \
+        * Bs.transpose(0, 1)[:, :, None, None, :]
+    hs = torch.empty_like(decay)
+    for t in range(S):
+        h = torch.mul(decay[t], h, out=hs[t])
+        h += inp[t]
+    y = torch.einsum("sbhdn,bsn->bshd", hs, Cs) + D.float() * xs
+    # a copy: the last step's view would keep every step's state alive
+    return y.to(x.dtype), h.clone()

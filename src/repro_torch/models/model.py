@@ -13,36 +13,56 @@ its flat checkpoint).  Every step runs eagerly, layer by layer:
                      straight against the paged pool, whose new K/V they
                      write IN PLACE before attention
 
-The attention families are ported: dense (GQA or MHA, an optional QKV
-bias, optional sliding windows), MoE (the dense block with a routed
-expert FFN, ``moe_impl`` dense or capacity) and VLM (the dense block
-behind an optional projected patch-embedding prefix, which only
-``prefill`` takes: the runtimes serve the text backbone).  They serve
-Qwen2-0.5B (GQA with a QKV bias, hd 64), the paper's evaluation models,
-Mistral-7B (GQA R 4, a 4096-token window on every layer, hd 128) and
-LLaMA2-7B (MHA, hd 128), Mixtral-8x7B, Phi-3.5-MoE and InternVL2-1B; audio
-and the recurrent families wait (ROADMAP.md Queue A).
+Every family of the JAX package is ported: dense (GQA or MHA, an optional
+QKV bias, optional sliding windows), MoE (the dense block with a routed
+expert FFN, ``moe_impl`` dense or capacity), VLM (the dense block behind an
+optional projected patch-embedding prefix, which only ``prefill`` takes:
+the runtimes serve the text backbone), audio (the dense block over the sum
+of K codebook embeddings of tokens (B, K, S), logits (B, S, K, V)), and
+the two recurrent families, which only ``prefill`` and ``decode_step``
+run:
+
+  ssm     xLSTM: periods of ``slstm_every - 1`` mLSTM blocks and one sLSTM
+          block.  Its cache is the recurrent state, {"mlstm": (C, n, m,
+          conv), "slstm": (c, n, h, m)}, each stacked over (period, block)
+          or period as in the reference.
+  hybrid  Hymba: the attention block, then (on the updated residual) a
+          selective-SSM branch; its cache adds "ssm" (L, B, H, hd, N) f32.
+
+The recurrent steps never write a state tensor they were given: they
+build new ones, and replace the cache dict's entries.  The sequential
+engine hands one step's state on as the next segment's prefix and keeps
+it in the knowledge tree as a document snapshot.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 
-FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+RECURRENT = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.n_codebooks:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A); "
             f"the port serves {', '.join(FAMILIES)}")
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    if cfg.family in RECURRENT:
+        raise ValueError("paged steps require per-token KV; ssm/hybrid "
+                         "families use prefill and decode_step")
 
 
 def init_params(cfg: ModelConfig, seed: int,
@@ -51,45 +71,52 @@ def init_params(cfg: ModelConfig, seed: int,
     normal(0, 0.02), output projections scaled by 1/sqrt(2L), zero norms
     and biases — drawn from one ``torch.Generator``).
 
-    Each tensor is drawn whole in f32 and cast, except the expert weights,
-    which are drawn one (layer, expert) slice at a time into a tensor
-    allocated in the params' dtype, so that the transient f32 is one
-    slice (Mixtral-8x7B's whole stacked expert tensor would be 45 GB in
-    f32).  The dense families draw from the stream in the order they
-    always have; the MoE and VLM tensors are drawn where they appear in
-    the tree."""
+    Each tensor is drawn whole in f32 and cast, except the expert weights
+    and the recurrent families' layer weights, which are drawn one slice
+    of their leading (layer, expert) or (period, block) axes at a time
+    into a tensor allocated in its final dtype, so that the transient f32
+    is one slice (Mixtral-8x7B's whole stacked expert tensor would be 45
+    GB in f32).  The dense families draw from the stream in the order they
+    always have; the other families' tensors are drawn where they appear
+    in the tree.  On the ``meta`` device no value is drawn: the tree's
+    shapes and dtypes only."""
     _check_family(cfg)
     D, F, V, nl = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.tdtype
     device = torch.device(device)
-    gen = torch.Generator(device=device)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(seed)
     scale = 0.02
     out_scale = scale / (2 * nl) ** 0.5
 
-    def mk(shape, s=scale):
-        w = torch.randn(shape, generator=gen, device=device,
-                        dtype=torch.float32)
-        return (w * s).to(dt)
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32)
 
-    def mk_slices(shape, s=scale):
-        # drawn over the two leading axes, (layer, expert), slice by slice
-        w = torch.empty(shape, dtype=dt, device=device)
-        for li in range(shape[0]):
-            for e in range(shape[1]):
-                w[li, e] = mk(shape[2:], s)
+    def mk(shape, s=scale):
+        return (normal(shape) * s).to(dt)
+
+    def mk_slices(shape, s=scale, lead=2, draw=None, dtype=dt):
+        # drawn over the ``lead`` leading axes, slice by slice
+        w = torch.empty(shape, dtype=dtype, device=device)
+        for idx in itertools.product(*map(range, shape[:lead])):
+            w[idx] = draw(shape[lead:]) if draw else mk(shape[lead:], s)
         return w
 
     def zeros(shape):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    params: Dict[str, Any] = {"embed": mk((V, D))}
+    K = cfg.n_codebooks
+    params: Dict[str, Any] = {"embed": mk((K, V, D) if K else (V, D))}
     if cfg.family == "vlm":
         params["vision_proj"] = mk((D, D))
     params["final_norm"] = zeros((D,))
     if not cfg.tie_embeddings:
-        params["lm_head"] = mk((D, V))
+        params["lm_head"] = mk((D, V * max(1, K)))
+    if cfg.family == "ssm":
+        params["blocks"] = _init_xlstm_blocks(cfg, mk_slices, zeros)
+        return params
     blk = {
         "ln1": zeros((nl, D)),
         "wq": mk((nl, D, H * hd)),
@@ -112,34 +139,113 @@ def init_params(cfg: ModelConfig, seed: int,
         blk["bq"] = zeros((nl, H * hd))
         blk["bk"] = zeros((nl, KV * hd))
         blk["bv"] = zeros((nl, KV * hd))
+    if cfg.family == "hybrid":
+        N = cfg.ssm_state
+        blk["ssm_ln"] = zeros((nl, D))
+        blk["ssm_in"] = mk_slices((nl, D, H * hd), lead=1)
+        blk["ssm_dt"] = mk_slices((nl, D, H), lead=1)
+        blk["ssm_B"] = mk_slices((nl, D, N), lead=1)
+        blk["ssm_C"] = mk_slices((nl, D, N), lead=1)
+        # A and D are f32 in the reference
+        blk["ssm_A"] = mk_slices((nl, H, hd, N), lead=1,
+                                 draw=lambda sh: -torch.exp(normal(sh)),
+                                 dtype=torch.float32)
+        blk["ssm_D"] = torch.ones((nl, H, hd), device=device)
+        blk["ssm_out"] = mk_slices((nl, H * hd, D), out_scale, lead=1)
     params["blocks"] = blk
     return params
+
+
+def _xlstm_dims(cfg: ModelConfig):
+    """(Dp, mLSTM head dim, sLSTM head dim, sLSTM FFN width, leads of the
+    mLSTM and sLSTM stacks)."""
+    D, H = cfg.d_model, cfg.n_heads
+    Dp = int(cfg.proj_factor * D)
+    if cfg.slstm_every > 0:
+        n_periods = cfg.n_layers // cfg.slstm_every
+        m_lead, s_lead = (n_periods, cfg.slstm_every - 1), (n_periods,)
+    else:
+        m_lead, s_lead = (cfg.n_layers,), (0,)
+    return Dp, Dp // H, D // H, max(128, (4 * D // 3) // 128 * 128), \
+        m_lead, s_lead
+
+
+def _init_xlstm_blocks(cfg: ModelConfig, mk_slices, zeros):
+    """The xLSTM blocks' params, the reference's tree: "mlstm" stacked over
+    (period, block), "slstm" over period."""
+    D, H = cfg.d_model, cfg.n_heads
+    Dp, _, hd_s, F2, m_lead, s_lead = _xlstm_dims(cfg)
+    out_scale = 0.02 / (2 * cfg.n_layers) ** 0.5
+
+    def mk(lead, shape, s=0.02):
+        return mk_slices(lead + shape, s, lead=len(lead))
+
+    out = {"mlstm": {
+        "ln": zeros(m_lead + (D,)),
+        "w_up": mk(m_lead, (D, 2 * Dp)),
+        "conv_w": mk(m_lead, (cfg.conv_kernel, Dp)),
+        "wq": mk(m_lead, (Dp, Dp)),
+        "wk": mk(m_lead, (Dp, Dp)),
+        "wv": mk(m_lead, (Dp, Dp)),
+        "w_if": mk(m_lead, (Dp, 2 * H)),
+        "b_if": zeros(m_lead + (2 * H,)),
+        "gn": zeros(m_lead + (Dp,)),
+        "w_down": mk(m_lead, (Dp, D), out_scale),
+    }}
+    if cfg.slstm_every > 0:
+        out["slstm"] = {
+            "ln": zeros(s_lead + (D,)),
+            "w_x": mk(s_lead, (D, 4 * D)),
+            "b_x": zeros(s_lead + (4 * D,)),
+            "r_w": mk(s_lead, (H, hd_s, 4 * hd_s)),
+            "gn": zeros(s_lead + (D,)),
+            "ln2": zeros(s_lead + (D,)),
+            "wg": mk(s_lead, (D, F2)),
+            "wu": mk(s_lead, (D, F2)),
+            "wd": mk(s_lead, (F2, D), out_scale),
+        }
+    return out
 
 
 def params_from_numpy(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
                       device="cpu") -> Dict[str, Any]:
     """Params from the flat dict that ``repro/training/checkpoint.py::save``
-    writes: ``/``-joined keys (``"blocks/wq"``), bf16 stored as f32.  The
-    cast to ``cfg.tdtype`` is lossless for bf16-representable values."""
-    _check_family(cfg)
+    writes: ``/``-joined keys (``"blocks/wq"``), bf16 stored as f32.  Each
+    leaf takes the dtype of the same leaf of the port's own tree for
+    ``cfg`` (as the reference's ``checkpoint.restore(path, like)`` does):
+    ``cfg.tdtype``, or f32 for Hymba's ``ssm_A``/``ssm_D``.  The cast is
+    lossless for values representable in that dtype."""
+    like = init_params(cfg, 0, device="meta")
     out: Dict[str, Any] = {}
     for key, arr in flat.items():
         if key.startswith("__"):            # checkpoint metadata (__step__)
             continue
-        node = out
+        node, ref = out, like
         *parents, leaf = key.split("/")
         for p in parents:
-            node = node.setdefault(p, {})
+            node, ref = node.setdefault(p, {}), ref[p]
         t = torch.tensor(np.asarray(arr, dtype=np.float32))
-        node[leaf] = t.to(device=device, dtype=cfg.tdtype)
+        node[leaf] = t.to(device=device, dtype=ref[leaf].dtype)
     return out
 
 
 def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
                  patch_embeds: torch.Tensor | None = None):
-    """(B, S) token ids -> (B, S, D) embeddings; for the VLM family with
-    ``patch_embeds`` (B, Simg, D), their projection through
-    ``vision_proj`` is prepended: (B, Simg + S, D)."""
+    """(B, S) token ids -> (B, S, D) embeddings; with codebooks, (B, K, S)
+    ids -> the sum of the K codebooks' embeddings, in codebook order; for
+    the VLM family with ``patch_embeds`` (B, Simg, D), their projection
+    through ``vision_proj`` is prepended: (B, Simg + S, D)."""
+    if cfg.n_codebooks:
+        if tokens.dim() != 3:
+            raise ValueError(f"codebook models take tokens (B, K, S); got "
+                             f"{tuple(tokens.shape)}")
+        emb = params["embed"]
+        x = torch.zeros(tokens.shape[:1] + tokens.shape[2:]
+                        + (cfg.d_model,), dtype=emb.dtype,
+                        device=tokens.device)
+        for kk in range(cfg.n_codebooks):
+            x = x + emb[kk][tokens[:, kk]]
+        return x
     x = params["embed"][tokens]
     if cfg.family == "vlm" and patch_embeds is not None:
         pe = L.proj(patch_embeds.to(cfg.tdtype), params["vision_proj"])
@@ -149,10 +255,15 @@ def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
 
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.n_codebooks:
+        logits = torch.einsum("bsd,kvd->bskv", x, params["embed"])
+    elif cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"].t())
     else:
         logits = L.proj(x, params["lm_head"])
+        if cfg.n_codebooks:
+            logits = logits.reshape(x.shape[:2] + (cfg.n_codebooks,
+                                                   cfg.vocab_size))
     if cfg.final_logit_softcap:
         logits = L.softcap(logits.float(), cfg.final_logit_softcap)
     return logits.float()
@@ -178,12 +289,121 @@ def _qkv(cfg: ModelConfig, p, h):
     return q, k, v
 
 
+# ---------------------------------------------------------------------------
+# recurrent blocks
+# ---------------------------------------------------------------------------
+
+def _mlstm_block(cfg: ModelConfig, p, x, state):
+    """state: (C, n, m, conv_buf).  Returns (x_out, new_state)."""
+    B, S, D = x.shape
+    Dp, hd, _, _, _, _ = _xlstm_dims(cfg)
+    H = cfg.n_heads
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    xp, z = L.proj(h, p["w_up"]).chunk(2, dim=-1)         # (B, S, Dp) each
+    xc, conv_buf = L.causal_conv1d(xp, p["conv_w"], state[3])
+    xc = F.silu(xc)
+    q = L.proj(xc, p["wq"]).reshape(B, S, H, hd)
+    k = L.proj(xc, p["wk"]).reshape(B, S, H, hd)
+    v = L.proj(xp, p["wv"]).reshape(B, S, H, hd)
+    i_g, f_g = L.proj(xc, p["w_if"], p["b_if"]).chunk(2, dim=-1)
+    scan = L.mlstm_scan if S == 1 else L.mlstm_chunkwise
+    hout, (C, n, m) = scan(q, k, v, i_g, f_g, state=state[:3])
+    hout = L.rms_norm(hout.reshape(B, S, Dp), p["gn"], cfg.norm_eps)
+    hout = hout * F.silu(z)
+    return x + L.proj(hout, p["w_down"]), (C, n, m, conv_buf)
+
+
+def _slstm_block(cfg: ModelConfig, p, x, state):
+    B, S, D = x.shape
+    H = cfg.n_heads
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    zifo = L.proj(h, p["w_x"], p["b_x"]).reshape(B, S, H, 4 * (D // H))
+    out, new_state = L.slstm_scan(zifo, p["r_w"], state)
+    x = x + L.rms_norm(out.reshape(B, S, D), p["gn"], cfg.norm_eps)
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.swiglu(h2, p["wg"], p["wu"], p["wd"]), new_state
+
+
+def _xlstm_init_state(cfg: ModelConfig, batch: int, device="cpu"):
+    """Fresh stacked xLSTM state: {"mlstm": (C, n, m, conv), "slstm": (c,
+    n, h, m) or None}, f32 but the conv buffer (``cfg.tdtype``)."""
+    Dp, hd_m, hd_s, _, m_lead, s_lead = _xlstm_dims(cfg)
+    H, K = cfg.n_heads, cfg.conv_kernel
+    m = (torch.zeros(m_lead + (batch, H, hd_m, hd_m), device=device),
+         torch.zeros(m_lead + (batch, H, hd_m), device=device),
+         torch.full(m_lead + (batch, H), L.NEG_INF, device=device),
+         torch.zeros(m_lead + (batch, K - 1, Dp), dtype=cfg.tdtype,
+                     device=device))
+    if cfg.slstm_every <= 0:
+        return {"mlstm": m, "slstm": None}
+    z = torch.zeros(s_lead + (batch, H, hd_s), device=device)
+    return {"mlstm": m,
+            "slstm": (z, torch.ones_like(z), z.clone(), z.clone())}
+
+
+def _run_xlstm(cfg: ModelConfig, params, x, state):
+    """The xLSTM blocks in order over ``state`` (the full stacked state;
+    ``_xlstm_init_state`` for a fresh one).  Returns (x, new_state): new
+    tensors, each block's state written into them; ``state`` is only
+    read."""
+    mblk = params["blocks"]["mlstm"]
+    new_m = tuple(torch.empty_like(t) for t in state["mlstm"])
+    lead = new_m[0].shape[:new_m[0].dim() - 4]
+
+    def m_layer(x, idx):
+        p = {k: w[idx] for k, w in mblk.items()}
+        x, st = _mlstm_block(cfg, p, x, tuple(t[idx] for t in state["mlstm"]))
+        for dst, t in zip(new_m, st):
+            dst[idx] = t
+        return x
+
+    if cfg.slstm_every <= 0:
+        for li in range(lead[0]):
+            x = m_layer(x, li)
+        return x, {"mlstm": new_m, "slstm": None}
+    sblk = params["blocks"]["slstm"]
+    new_s = tuple(torch.empty_like(t) for t in state["slstm"])
+    for per in range(lead[0]):
+        for j in range(lead[1]):
+            x = m_layer(x, (per, j))
+        p = {k: w[per] for k, w in sblk.items()}
+        x, st = _slstm_block(cfg, p, x, tuple(t[per] for t in state["slstm"]))
+        for dst, t in zip(new_s, st):
+            dst[per] = t
+    return x, {"mlstm": new_m, "slstm": new_s}
+
+
+def _ssm_branch_seq(cfg: ModelConfig, p, x, state=None):
+    """Hymba's SSM heads over the residual ``x``: (out, new_state)."""
+    B, S, D = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    h = L.rms_norm(x, p["ssm_ln"], cfg.norm_eps)
+    xin = F.silu(L.proj(h, p["ssm_in"])).reshape(B, S, H, hd)
+    delta = F.softplus(L.proj(h, p["ssm_dt"]).float())
+    y, new_state = L.mamba_scan(xin, delta, p["ssm_A"], L.proj(h, p["ssm_B"]),
+                                L.proj(h, p["ssm_C"]), p["ssm_D"],
+                                state=state)
+    return L.proj(y.reshape(B, S, H * hd), p["ssm_out"]), new_state
+
+
+def _hybrid_ssm_init(cfg: ModelConfig, batch: int, device="cpu"):
+    return torch.zeros((cfg.n_layers, batch, cfg.n_heads, cfg.hd,
+                        cfg.ssm_state), device=device)
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device="cpu") -> Dict[str, torch.Tensor]:
-    """Zeroed dense decode cache: {"k", "v"} each (L, B, max_len, KV, hd)."""
+                      device="cpu") -> Dict[str, Any]:
+    """Zeroed dense decode cache: {"k", "v"} each (L, B, max_len, KV, hd),
+    and for the hybrid family "ssm" (L, B, H, hd, N) f32; for the ssm
+    family the fresh recurrent state."""
+    if cfg.family == "ssm":
+        return _xlstm_init_state(cfg, batch, device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+    if cfg.family == "hybrid":
+        cache["ssm"] = _hybrid_ssm_init(cfg, batch, device)
+    return cache
 
 
 def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
@@ -192,18 +412,27 @@ def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
     """Serving prefill over an optional cached document prefix.
 
     tokens: (B, S) ids of the new tokens, the first at absolute position
-    ``prefix_len``.  prefix_cache: {"k", "v"} each (L, B, prefix_len, KV,
-    hd) — the RAGCache hook, the knowledge tree's cached prefix.  Returns
+    ``prefix_len``; (B, K, S) for codebook models.  prefix_cache: {"k",
+    "v"} each (L, B, prefix_len, KV, hd) — the RAGCache hook, the knowledge
+    tree's cached prefix; for the hybrid family also "ssm", the state after
+    the prefix; for the ssm family the recurrent state after it (see the
+    module docstring), which ``prefix_len`` does not size.  Returns
     (logits_last (B, 1, V) f32, cache) where the cache holds the FULL
     sequence, (L, B, prefix_len + S, KV, hd), so the caller can page the
-    new documents' KV into the tree.  Each layer's K/V is written into that
-    cache once and attended from it in place.  patch_embeds: (B, Simg, D)
-    for the VLM family, prepended (projected) ahead of the tokens, so S
-    counts Simg + the token count.
+    new documents' KV into the tree, and the state after it (new tensors;
+    the prefix's state is only read).  Each layer's K/V is written into
+    that cache once and attended from it in place.  patch_embeds: (B,
+    Simg, D) for the VLM family, prepended (projected) ahead of the tokens,
+    so S counts Simg + the token count.
     """
     _check_family(cfg)
     x = embed_inputs(cfg, params, tokens, patch_embeds)
     B, S = x.shape[:2]
+    if cfg.family == "ssm":
+        state = (prefix_cache if prefix_cache is not None
+                 else _xlstm_init_state(cfg, B, tokens.device))
+        x, new_state = _run_xlstm(cfg, params, x, state)
+        return lm_logits(cfg, params, x[:, -1:]), new_state
     P = int(prefix_len)
     if prefix_cache is not None and prefix_cache["k"].shape[2] != P:
         raise ValueError(f"prefix cache holds {prefix_cache['k'].shape[2]} "
@@ -212,6 +441,10 @@ def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
     if prefix_cache is not None:
         cache["k"][:, :, :P] = prefix_cache["k"]
         cache["v"][:, :, :P] = prefix_cache["v"]
+    hybrid = cfg.family == "hybrid"
+    if hybrid:
+        ssm0 = prefix_cache["ssm"] if prefix_cache is not None else None
+        new_ssm = []
     windows = cfg.layer_windows()
     positions = P + torch.arange(S, dtype=torch.int32, device=tokens.device)
     for li in range(cfg.n_layers):
@@ -226,26 +459,41 @@ def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
                               logit_cap=cfg.attn_logit_softcap,
                               impl=attn_impl)
         x = x + L.proj(o.reshape(B, S, -1), p["wo"])
+        if hybrid:
+            y, st = _ssm_branch_seq(cfg, p, x,
+                                    None if ssm0 is None else ssm0[li])
+            x = x + y
+            new_ssm.append(st)
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, p, h2)
+    if hybrid:
+        cache["ssm"] = torch.stack(new_ssm)
     return lm_logits(cfg, params, x[:, -1:]), cache
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos) -> torch.Tensor:
     """One decode iteration over a dense cache.
 
-    tokens: (B, 1).  cache: {"k", "v"} each (L, B, Smax, KV, hd) — MUTATED
-    IN PLACE: each layer writes the new token's K/V at position pos - 1
-    before attending.  pos: (B,) sequence length including that token.
-    Returns the (B, 1, V) f32 logits.
+    tokens: (B, 1), or (B, K, 1) for codebook models.  cache: {"k", "v"}
+    each (L, B, Smax, KV, hd) — MUTATED IN PLACE: each layer writes the new
+    token's K/V at position pos - 1 before attending.  The recurrent state
+    (the hybrid family's "ssm", the ssm family's whole cache) is never
+    written: the step replaces the dict's entries with new state tensors.
+    pos: (B,) sequence length including that token.  Returns the (B, 1,
+    V) f32 logits.
     """
     _check_family(cfg)
     x = embed_inputs(cfg, params, tokens)
+    if cfg.family == "ssm":
+        x, new_state = _run_xlstm(cfg, params, x, cache)
+        cache.update(new_state)
+        return lm_logits(cfg, params, x)
     B = x.shape[0]
     windows = cfg.layer_windows()
     rope_pos = (pos - 1)[:, None]
     bidx = torch.arange(B, device=tokens.device)
     at = (pos - 1).long()
+    new_ssm = []
     for li in range(cfg.n_layers):
         p = _layer(params, li)
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -258,8 +506,14 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos) -> torch.Tensor:
         o = L.decode_attention(q, kc, vc, pos=pos, window=windows[li],
                                logit_cap=cfg.attn_logit_softcap)
         x = x + L.proj(o.reshape(B, 1, -1), p["wo"])
+        if cfg.family == "hybrid":
+            y, st = _ssm_branch_seq(cfg, p, x, cache["ssm"][li])
+            x = x + y
+            new_ssm.append(st)
         h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _ffn(cfg, p, h2)
+    if new_ssm:
+        cache["ssm"] = torch.stack(new_ssm)
     return lm_logits(cfg, params, x)
 
 
@@ -274,8 +528,10 @@ def paged_decode_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
     attention reads the pool.  tables/counts/starts: (B, n_slots) int32 run
     descriptors whose counts already include that token.  pos: (B,) int32
     sequence length including it.  Returns the (B, 1, V) f32 logits.
+    Attention families only: recurrent state cannot be paged per block.
     """
     _check_family(cfg)
+    _check_paged(cfg)
     x = embed_inputs(cfg, params, tokens)
     B = x.shape[0]
     windows = cfg.layer_windows()
@@ -312,9 +568,11 @@ def paged_prefill_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
     before attention (padding rows point at the store's scratch block,
     which no live run reads).  tables/counts/starts: (B, n_slots) run
     descriptors covering the cached prefix plus this chunk.  Returns the
-    (B, 1, V) f32 logits at each row's last valid token.
+    (B, 1, V) f32 logits at each row's last valid token.  Attention
+    families only.
     """
     _check_family(cfg)
+    _check_paged(cfg)
     x = embed_inputs(cfg, params, tokens)
     B, Sq = tokens.shape
     windows = cfg.layer_windows()

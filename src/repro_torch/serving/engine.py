@@ -5,12 +5,24 @@ dense prefix prefill, greedy decode over a dense cache, and PGDSF-managed
 insertion of the newly computed document KV.
 
 It is the single-device token oracle that ``--check-tokens`` holds the
-continuous runtime against.  Document payloads are per-document {k, v}
-tensors of shape (L, 1, T, KV, hd): on the device in the GPU tier, CPU
-tensors (pinned for a CUDA device) in the host tier, one raw-byte file each
-in the optional disk tier.  The attention families are ported (dense, MoE,
-and the VLM's text backbone); the recurrent families wait (ROADMAP.md
-Queue A).
+continuous runtime against, and the engine that serves the recurrent
+families.  Document payloads:
+
+  * attention families: per-document {k, v} tensors of shape (L, 1, T, KV,
+    hd): on the device in the GPU tier, CPU tensors (pinned for a CUDA
+    device) in the host tier, one raw-byte file each in the optional disk
+    tier;
+  * ssm (xLSTM): the recurrent state snapshot after the document, the
+    model's nested state; only the deepest hit node's state is promoted
+    into the prefix.  The tree bills it at 4 B a token, as the reference
+    does, whatever its real size;
+  * hybrid (Hymba): both, the {k, v} segment and "ssm", the SSM state after
+    the document.
+
+Recurrent snapshots have no disk tier.  A snapshot is the very tensor the
+model step produced and the next segment reads: no step writes a state
+tensor it was given (``models.model``), so a tree hit replays the cold
+run's calls on the same bits.
 """
 from __future__ import annotations
 
@@ -35,10 +47,21 @@ from repro_torch.serving.runtime import pinned, resolve_device, sync
 from repro_torch.serving.scheduler import prefill_piece_sizes
 
 
+def tree_map(fn, payload):
+    """``fn`` over every tensor of a nested payload (dicts, tuples, None),
+    keeping its structure."""
+    if isinstance(payload, dict):
+        return {key: tree_map(fn, v) for key, v in payload.items()}
+    if isinstance(payload, (tuple, list)):
+        return type(payload)(tree_map(fn, v) for v in payload)
+    return None if payload is None else fn(payload)
+
+
 class TorchBackend(CacheBackend):
     """Device tier: tensors on the engine's device; host tier: CPU copies
     (pinned for a CUDA device, so the promote back is an asynchronous
-    copy); optional disk tier: one raw-byte file per node.  Transfer
+    copy); optional disk tier: one raw-byte file per node ({k, v}
+    payloads only).  Payloads may nest (the xLSTM state).  Transfer
     seconds are measured, each hop ending in a device synchronise."""
 
     def __init__(self, device: torch.device, disk=None):
@@ -47,14 +70,15 @@ class TorchBackend(CacheBackend):
 
     def swap_out(self, node):
         t0 = time.perf_counter()
-        node.payload_host = {key: pinned(t.cpu(), self.device)
-                             for key, t in node.payload_gpu.items()}
+        node.payload_host = tree_map(lambda t: pinned(t.cpu(), self.device),
+                                     node.payload_gpu)
         return time.perf_counter() - t0
 
     def load(self, node):
         t0 = time.perf_counter()
-        node.payload_gpu = {key: t.to(self.device, non_blocking=True)
-                            for key, t in node.payload_host.items()}
+        node.payload_gpu = tree_map(
+            lambda t: t.to(self.device, non_blocking=True),
+            node.payload_host)
         sync(self.device)
         return time.perf_counter() - t0
 
@@ -113,10 +137,6 @@ class RAGServer:
         # to CUDA and raises without it; the CPU runs only when asked for.
         reject_legacy_kwargs("RAGServer", legacy, EngineConfig)
         config = config if config is not None else EngineConfig()
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue "
-                f"A); the port serves {', '.join(M.FAMILIES)}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -129,16 +149,22 @@ class RAGServer:
         self.prefill_chunk = config.prefill_chunk
         kv_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd
                     * cfg.tdtype.itemsize)
+        disk_cache_bytes = config.disk_cache_bytes
+        if cfg.family == "ssm":
+            kv_bytes = 4  # state nodes are O(1); bill ~per-token trivially
+        if cfg.family in M.RECURRENT:
+            disk_cache_bytes = 0   # recurrent snapshots are not {k, v} dicts
         self.mode = config.mode
-        if self.mode == "cag" and config.disk_cache_bytes <= 0:
+        if self.mode == "cag" and disk_cache_bytes <= 0:
             raise ValueError(
                 "mode='cag' preloads the whole corpus KV into the disk tier "
-                "and needs disk_cache_bytes > 0 sized for the corpus")
-        self.disk = make_disk_store(config.disk_cache_dir,
-                                    config.disk_cache_bytes)
+                "and needs disk_cache_bytes > 0 sized for the corpus"
+                + (" (recurrent-state families have no disk tier)"
+                   if cfg.family in M.RECURRENT else ""))
+        self.disk = make_disk_store(config.disk_cache_dir, disk_cache_bytes)
         self.tree = KnowledgeTree(
             config.gpu_cache_bytes, config.host_cache_bytes,
-            config.disk_cache_bytes if self.disk is not None else 0,
+            disk_cache_bytes if self.disk is not None else 0,
             policy=config.policy,
             profiler=profiler or CostProfiler.from_fn(
                 lambda a, b: 1e-4 * b + 2e-8 * b * (a + b),
@@ -175,12 +201,18 @@ class RAGServer:
     # ---- payload plumbing -------------------------------------------------
 
     def _assemble_prefix(self, nodes) -> Tuple[Optional[dict], int]:
-        """Concatenate hit-node payloads into a model prefix_cache."""
+        """Concatenate hit-node payloads into a model prefix_cache; of a
+        recurrent state only the deepest node's matters."""
         if not nodes:
             return None, 0
+        if self.cfg.family == "ssm":
+            return nodes[-1].payload_gpu, sum(n.n_tokens for n in nodes)
         ks = torch.cat([n.payload_gpu["k"] for n in nodes], dim=2)
         vs = torch.cat([n.payload_gpu["v"] for n in nodes], dim=2)
-        return {"k": ks, "v": vs}, int(ks.shape[2])
+        out = {"k": ks, "v": vs}
+        if self.cfg.family == "hybrid":
+            out["ssm"] = nodes[-1].payload_gpu["ssm"]
+        return out, int(ks.shape[2])
 
     # ---- serving ------------------------------------------------------------
 
@@ -285,17 +317,28 @@ class RAGServer:
         return logits, prefix, plen
 
     def _extract_payload(self, cache, start: int, length: int) -> dict:
+        if self.cfg.family == "ssm":
+            return dict(cache)                           # state snapshot
         # a copy, not a view: a view would keep the whole sequence's cache
         # alive in the tree
-        return {key: cache[key][:, :, start:start + length].clone()
-                for key in ("k", "v")}
+        seg = {key: cache[key][:, :, start:start + length].clone()
+               for key in ("k", "v")}
+        if self.cfg.family == "hybrid":
+            seg["ssm"] = cache["ssm"]
+        return seg
 
     def _decode(self, cache, last_tok: int, cur_len: int,
                 n: int) -> List[int]:
-        dc = M.init_decode_cache(self.cfg, 1, cur_len + n + 1,
-                                 device=self.device)
-        dc["k"][:, :, :cur_len] = cache["k"]
-        dc["v"][:, :, :cur_len] = cache["v"]
+        if self.cfg.family == "ssm":
+            # a dict of its own: the decode steps replace its entries
+            dc = dict(cache)
+        else:
+            dc = M.init_decode_cache(self.cfg, 1, cur_len + n + 1,
+                                     device=self.device)
+            dc["k"][:, :, :cur_len] = cache["k"]
+            dc["v"][:, :, :cur_len] = cache["v"]
+            if self.cfg.family == "hybrid":
+                dc["ssm"] = cache["ssm"]
         out = []
         pos = torch.tensor([cur_len], dtype=torch.int32, device=self.device)
         tok = self._tokens([last_tok])

@@ -10,7 +10,8 @@ from repro import configs as jax_configs
 from repro_torch import configs as torch_configs
 
 ARCHS = ["qwen2-0.5b", "mistral-7b", "llama2-7b", "mixtral-8x7b",
-         "phi3.5-moe-42b-a6.6b", "internvl2-1b"]
+         "phi3.5-moe-42b-a6.6b", "internvl2-1b", "xlstm-1.3b", "hymba-1.5b",
+         "musicgen-large"]
 # K and V bytes a token, bf16, all layers (the config modules' docstrings:
 # 0.125 MiB for Mistral-7B, 0.5 MiB for LLaMA2-7B)
 KV_BYTES = {"mistral-7b": 131_072, "llama2-7b": 524_288}
@@ -36,7 +37,8 @@ def test_config_fields_match(arch, getter):
 def test_registry_lists_the_served_models():
     assert torch_configs.list_configs() == [
         "qwen2_0p5b", "mistral_7b", "llama2_7b", "mixtral_8x7b",
-        "phi35_moe_42b", "internvl2_1b"]
+        "phi35_moe_42b", "internvl2_1b", "xlstm_1p3b", "hymba_1p5b",
+        "musicgen_large"]
     assert torch_configs.get_config("mistral-7b").layer_windows() == \
         (4096,) * 32
     assert torch_configs.get_reduced("mistral-7b").layer_windows() == \
@@ -53,3 +55,35 @@ def test_registry_lists_the_served_models():
 def test_unported_architecture_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
         torch_configs.get_config("gemma2-27b")
+
+
+# the published widths of the recurrent and audio models (their config
+# modules' docstrings and papers): layers, d_model, heads / KV heads, d_ff,
+# vocabulary, and the family's own fields
+PUBLISHED = {
+    "xlstm-1.3b": dict(family="ssm", n_layers=48, d_model=2048, n_heads=4,
+                       n_kv_heads=4, d_ff=0, vocab_size=50304,
+                       slstm_every=8, proj_factor=2.0, conv_kernel=4),
+    "hymba-1.5b": dict(family="hybrid", n_layers=32, d_model=1600,
+                       n_heads=25, n_kv_heads=5, d_ff=5504,
+                       vocab_size=32001, ssm_state=16, sliding_window=1024,
+                       global_every=16),
+    "musicgen-large": dict(family="audio", n_layers=48, d_model=2048,
+                           n_heads=32, n_kv_heads=32, d_ff=8192,
+                           vocab_size=2048, n_codebooks=4,
+                           tie_embeddings=False),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(PUBLISHED))
+def test_published_widths_of_the_recurrent_and_audio_models(arch):
+    a, b = jax_configs.get_config(arch), torch_configs.get_config(arch)
+    for field, want in PUBLISHED[arch].items():
+        assert getattr(a, field) == getattr(b, field) == want, field
+    assert a.hd == b.hd == (64 if arch != "xlstm-1.3b" else 512)
+    if arch == "hymba-1.5b":
+        # R 5, the first odd head ratio the prefix kernel serves; two
+        # global layers (15 and 31) among windows of 1024
+        assert b.q_rep == 5
+        assert [i for i, w in enumerate(b.layer_windows()) if w == 0] == \
+            [15, 31]

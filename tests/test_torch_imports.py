@@ -44,6 +44,9 @@ VERBATIM = [
     "configs/mixtral_8x7b.py",
     "configs/phi35_moe_42b.py",
     "configs/internvl2_1b.py",
+    "configs/xlstm_1p3b.py",
+    "configs/hymba_1p5b.py",
+    "configs/musicgen_large.py",
 ]
 
 JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M)
@@ -96,6 +99,10 @@ SLICE_MODULES = [
     "repro_torch.configs.mixtral_8x7b",
     "repro_torch.configs.phi35_moe_42b",
     "repro_torch.configs.internvl2_1b",
+    "repro_torch.configs.xlstm_1p3b",
+    "repro_torch.configs.hymba_1p5b",
+    "repro_torch.configs.musicgen_large",
+    "repro_torch.configs",
 ]
 
 

@@ -428,10 +428,12 @@ def test_serve_main_serves_the_arch(setup, capsys):
     assert "token check: all 3 requests identical" in out
 
 
-@pytest.mark.parametrize("change", [dict(family="ssm"),
-                                    dict(family="hybrid"),
-                                    dict(n_codebooks=4)])
+@pytest.mark.parametrize("change", [dict(family="encdec"),
+                                    dict(family="diffusion"),
+                                    dict(family="retnet", n_codebooks=4)])
 def test_unported_families_raise(change):
+    """Every family of the JAX package is ported (the recurrent and audio
+    ones in tests/test_torch_recurrent.py); any other raises."""
     cfg = dataclasses.replace(get_reduced("qwen2-0.5b"), **change)
     with pytest.raises(NotImplementedError, match="not ported"):
         M.init_params(cfg, 0)
