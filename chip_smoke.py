@@ -59,46 +59,59 @@ Phases, each fatal on failure:
                requests;
  14. profile — torch.profiler over 8 more requests: device time by kernel,
                and the decode kernels' (split + merge) share of it;
- 15. paper   — the paper's evaluation models at full published width,
-               Mistral-7B then LLaMA2-7B, one set of weights on the card at
-               a time (Qwen's deleted first): (a) the main serve of phase 5
-               with one GPU-tier budget for both (7.5 GiB: 3,904 blocks of
-               Mistral KV, 1,024 of LLaMA2 KV), hit rates and tier hits
+ 15. paper   — the paper's evaluation models at full published width and
+               a cut depth (PAPER_LAYERS: Mistral-7B 4 layers, LLaMA2-7B
+               2), Mistral-7B then LLaMA2-7B, one set of weights on the
+               card at a time (Qwen's deleted first): (a) the main serve of
+               phase 5 with pools of 3,904 blocks of Mistral KV and 1,024
+               of LLaMA2 KV (7.5 GiB at 32 layers), hit rates and tier hits
                side by side; the row probe and the chunk split, bit for
                bit; the serve without the slab helper; (c) 4 requests
-               through the plain versions; (e) Mistral only, through its
-               first 16 layers: 4 requests of ~4,450 tokens, past its
-               4096-token window, against the sequential engine and the
-               plain versions; the profile of
-               phase 14; (b) serve.main --full-size --check-tokens on 8
-               requests.  Their eps comes from the measured logits
-               (paper_eps);
- 16. moe     — Mixtral-8x7B at full width and 24 of its 32 layers: the
+               through the plain versions; (e) Mistral only: 4 requests of
+               ~4,450 tokens, past its 4096-token window, against the
+               sequential engine and the plain versions; the profile of
+               phase 14; (b) continuous against sequential on 8 requests.
+               Their eps comes from the measured logits (paper_eps);
+ 16. moe     — Mixtral-8x7B at full width and 4 of its 32 layers: the
                main serve, row probe, chunk split, kernels vs plain and
                continuous vs sequential with the routes pinned,
                moe_capacity vs moe_dense, the profile;
- 17. vlm     — InternVL2-1B at full width: the main serve, chunk split,
+ 17. vlm     — InternVL2-1B at full width and 12 of its 24 layers: the
+               main serve, chunk split,
                plain versions, a prefill with 256 patch embeddings;
- 18. xlstm   — xLSTM-1.3B at full width and depth through the sequential
+ 18. xlstm   — xLSTM-1.3B at full width and 24 of its 48 blocks (a depth
+               cut, RECURRENT_LAYERS) through the sequential
                RAGServer, its state snapshots in the knowledge tree: 8
                requests cold, then 4 whose docs are cached (one through
                the pinned host tier) bit-identical to their cold results,
                every snapshot's checksum unchanged across the hits; billed
                and real tier bytes side by side; mlstm_chunkwise against
                mlstm_scan on one full-width layer;
- 19. hymba   — Hymba-1.5B at full width and depth the same way, its
-               attention on the prefix kernel (R 5, windows of 1024 and 2
-               global layers), and the 8 cold requests through the plain
+ 19. hymba   — Hymba-1.5B at full width and 16 of its 32 layers the same
+               way, its attention on the prefix kernel (R 5, windows of
+               1024 and a global layer), and the 8 cold requests through
+               the plain
                versions, and in f32 through both (HYBRID_ARCH's eps
                rule); its profile is scripts/profile_recurrent.py;
  20. audio   — MusicGen-large's model steps at full width: a codebook
                prefill and 8 decode steps, kernel vs plain, and the prefill
-               as 256 cached + 256 new tokens against the whole.
+               as 256 cached + 256 new tokens against the whole;
+ 21-23. large — Gemma3-12B (hd 256, its 1024 window binding on the main
+               rows), Gemma2-27B (softcaps 50 and 30, a 4096 window the
+               main rows do not reach) and Yi-34B (R 7) at full published
+               width and depth, one set of weights on the card at a time:
+               the main serve of 16 requests, the row probe, the chunk
+               split bit for bit, 2 requests through the plain versions,
+               the profile (Gemma3-12B only), and serve.main --full-size
+               --check-tokens tol:<eps> on 4 requests; eps is paper_eps
+               scaled by sqrt(layers / 32) (large_eps).
 
 Phases 3-4 also hold and time each kernel at the paper models' head shapes
 (hd 128; KV 8 and R 4, KV 32 and R 1; Mistral's window over rows past 4096
-keys), and the prefix kernel at Hymba-1.5B's (R 5, hd 64, a window layer
-and a global one) and MusicGen-large's (R 1, 32 heads, hd 64).  Every comparison of kernels against plain versions and of the
+keys), at Gemma3-12B's (hd 256, KV 8 and R 2, its 1024 window and global),
+Gemma2-27B's (KV 16 and R 2, softcap 50) and Yi-34B's (KV 8 and R 7), and
+the prefix kernel at Hymba-1.5B's (R 5, hd 64, a window layer and a
+global one) and MusicGen-large's (R 1, 32 heads, hd 64).  Every comparison of kernels against plain versions and of the
 continuous runtime against the sequential engine records the reference's
 top-2 logit margin at each stream's first differing token, and dies on a
 flip where that margin exceeds the comparison's eps (check_flips).
@@ -140,6 +153,11 @@ TOL_BF16 = 2e-2
 # the card the plain version's own bf16 rounding gives up to 2.7e-3, the
 # tensor-core kernels 3.5e-3; 16 keys dropped or counted twice give 0.5-0.9
 TOL_ROW_BF16 = 1e-2
+# the hd-256 cases (Gemma3-12B's heads) are held tighter: bf16 within one
+# bf16 ulp of outputs in [1, 2), f32 within 2e-6 (summation order over 256
+# dims, outputs below ~4)
+TOL_BF16_HD256 = 2.0 ** -7
+TOL_F32_HD256 = 2e-6
 # full-path cross-checks, bf16 through 24 layers: first-token logits of two
 # runs that differ only in arithmetic order (kernel vs plain attention, or
 # the GEMM shapes of another chunk split).  |logits| reach ~3, where a bf16
@@ -155,37 +173,46 @@ LOGIT_EPS = 0.15
 # maximum in [4, 8) (paper_eps).  The rule was fixed before the first card
 # run of these models and is not tuned after one.
 PAPER_EPS_RANGE = (4.0, 8.0)
+# Gemma3-12B's sliding window (5 of every 6 layers)
+GEMMA3_WINDOW = 1024
 MAIN_ARGV = ["--docs", "200", "--doc-tokens", "512", "--top-k", "2",
              "--requests", "32", "--max-new-tokens", "8", "--max-batch", "8",
              "--max-prefill-bs", "4", "--gpu-cache-bytes", "805306368",
              "--device", "cuda"]
 # the paper models, served after the Qwen phases; one GPU-tier budget for
-# both: 7.5 GiB, a 3,904-block pool of Mistral-7B KV (0.125 MiB a token)
-# and 1,024 blocks of LLaMA2-7B KV (0.5 MiB), both below the runtime's
-# 4096-block clip; both keep the parser's host-tier default, 512 MiB
+# both at full depth: 7.5 GiB, a 3,904-block pool of Mistral-7B KV (0.125
+# MiB a token) and 1,024 blocks of LLaMA2-7B KV (0.5 MiB), both below the
+# runtime's 4096-block clip; both keep the parser's host-tier default, 512
+# MiB
 PAPER_MODELS = ("mistral-7b", "llama2-7b")
 PAPER_GPU_BYTES = 8_053_063_680
 PAPER_HOST_BYTES = 512 * 2**20
+# phase 15 serves them at full width through their first PAPER_LAYERS
+# layers (views of the weights of all 32), the GPU tier scaled with the
+# depth so that each pool keeps its blocks: depth cuts that hold the
+# script's wall under ~800 s once phases 21-23 run.  LLaMA2-7B first (it
+# runs the kernels Mistral runs, at R 1), then Mistral-7B.  Nothing picks
+# the depth at run time.
+PAPER_LAYERS = {"mistral-7b": 4, "llama2-7b": 2}
 # phase 15 (e): 4 requests whose two docs (of a 12-doc corpus, mean 2,400
 # tokens) make sequences of 4,401-4,478 tokens, past Mistral-7B's
 # 4096-token window, prefilled in 512-token chunks
 WINDOW_ARGV = ["--docs", "12", "--doc-tokens", "2400", "--requests", "4",
                "--prefill-chunk", "512"]
-# ... through the first 16 of Mistral-7B's 32 layers (views of its
-# weights), with the GPU tier scaled so that the pool keeps its 3,904
-# blocks: a depth cut that holds the script's wall under ~800 s once
-# phases 16-17 run (the whole window phase took 176-187 s at 32 layers)
-WINDOW_LAYERS = 16
-# phase 16: Mixtral-8x7B (8 experts, top 2) at full published width and 24
-# of its 32 identical layers: 35.09e9 params, 70.2e9 B of bf16 weights (all
-# 32 layers take 93.4e9 B, past one 80 GB card).  The depth is fixed here;
-# nothing picks it at run time.
+# ... through the layers phase 15 serves (PAPER_LAYERS), the pool keeping
+# its 3,904 blocks (the whole window phase took 176-187 s at 32 layers, 79
+# s at 16)
+# phase 16: Mixtral-8x7B (8 experts, top 2) at full published width and 4
+# of its 32 identical layers: 11.9e9 B of bf16 weights (all 32 layers take
+# 93.4e9 B, past one 80 GB card; 24 layers, 70.2e9 B, until the depth cut
+# that made room for phases 21-23).  The depth is fixed here; nothing
+# picks it at run time.
 MOE_ARCH = "mixtral-8x7b"
-MOE_LAYERS = 24
-# its GPU tier: 4,032 blocks of its KV (98,304 B a token at 24 layers), so
-# that the pool (the tier's blocks + 64, clipped at 4096) holds every block
-# the tree budgets; 7.5 GiB would be 5,120 blocks, past the clip
-MOE_GPU_BYTES = 4032 * 16 * 98_304
+MOE_LAYERS = 4
+# its GPU tier: 4,032 blocks of its KV (4,096 B a token a layer), so that
+# the pool (the tier's blocks + 64, clipped at 4096) holds every block the
+# tree budgets
+MOE_GPU_BYTES = 4032 * 16 * 4096 * MOE_LAYERS
 # phase 16's capacity check: rows of one layer through moe_capacity and
 # moe_dense.  Rows both of whose experts kept them must agree within
 # CAPACITY_TOL x the largest |dense output| of those rows, four bf16 ulps
@@ -194,22 +221,29 @@ MOE_GPU_BYTES = 4032 * 16 * 98_304
 # run each expert's products as GEMMs of other shapes
 CAPACITY_ROWS = 2048
 CAPACITY_TOL = 2.0 ** -5
-# phase 17: InternVL2-1B at full published width, its text backbone served
-# on the main trace; its dense prefill also takes its 256 patch embeddings
+# phase 17: InternVL2-1B at full published width and 12 of its 24 layers
+# (a depth cut for phases 21-23), its text backbone served on the main
+# trace; its dense prefill also takes its 256 patch embeddings
 VLM_ARCH = "internvl2-1b"
-# phases 18-19: the recurrent families at full published width and depth,
-# served by the sequential RAGServer on the first 8 requests of the main
+VLM_LAYERS = 12
+# phases 18-19: the recurrent families at full published width (and, since
+# the depth cuts below, half their depth), served by the sequential RAGServer on the first 8 requests of the main
 # trace (Qwen's corpus), then 4 of them again with their docs cached.  The
 # tiers are sized in billed bytes: 3,000 tokens on the GPU tier and 6,000
 # on the host tier (the reference bills an xLSTM state node at 4 B a token
-# whatever its real size, 706,560,672 B at full width; Hymba's K/V at
-# 40,960 B a token, its 3,317,760 B of SSM state unbilled), so that the
+# whatever its real size, 706,560,672 B at full width and depth; Hymba's
+# K/V at 40,960 B a token, its 3,317,760 B of SSM state unbilled, at full
+# depth), so that the
 # cold serve swaps state snapshots to the pinned host tier and a warm hit
 # promotes one back
 RECURRENT_REQUESTS = 8
 WARM_REQUESTS = 4
 TIER_TOKENS = (3000, 6000)
 XLSTM_ARCH = "xlstm-1.3b"
+# depth cuts that make room for phases 21-23: xLSTM-1.3B through 24 of its
+# 48 blocks (3 periods of 7 mLSTM blocks and an sLSTM block), Hymba-1.5B
+# through 16 of its 32 layers (layer 15 global, the rest windowed)
+RECURRENT_LAYERS = {"xlstm-1.3b": 24, "hymba-1.5b": 16}
 # Hymba's comparisons of two bf16 serves take eps = max(paper_eps, 2 x F),
 # F the first-token L-inf of its plain-version serve in bf16 against the
 # same serve in f32, measured in the same run: each bf16 serve may lie F
@@ -233,6 +267,22 @@ MLSTM_TOL = 1e-4
 AUDIO_ARCH = "musicgen-large"
 AUDIO_TOKENS = 512
 AUDIO_STEPS = 8
+# phases 21-23: the rest of the dense family at full published width and
+# depth, one set of weights on the card at a time (Gemma3-12B 23.5e9 B,
+# Gemma2-27B 54.5e9 B, Yi-34B 68.8e9 B), on the main trace's first 16
+# requests with the paper models' tiers; Yi-34B's GPU tier is 5 GiB (1,365
+# blocks of its 245,760 B a token, where 7.5 GiB would be 2,048), so that
+# its weights, pool and prefill activations stay well inside the card.
+# serve.main --check-tokens runs 4 requests with a 2 GiB tier: it keeps the
+# continuous runtime's pool while the sequential engine serves.
+LARGE_DENSE = ("gemma3-12b", "gemma2-27b", "yi-34b")
+LARGE_REQUESTS = 16
+LARGE_GPU_BYTES = {"yi-34b": 5 * 2**30}
+LARGE_SEQ_GPU_BYTES = 2 * 2**30
+# requests of each through the plain versions (phase_check)
+LARGE_PLAIN = 2
+# the one of them profiled: the hd-256 kernels' share of device time
+LARGE_PROFILE = "gemma3-12b"
 # card clock cycles (~1 ms) the card spins before each timed call
 SPIN_CYCLES = 2_000_000
 # rows per call in the row-invariance probe; 8192 is the largest prefill
@@ -599,6 +649,7 @@ def compare_logits(np, name, got, want, eps=LOGIT_EPS,
           f"{len(got)}", flush=True)
     if bad:
         die(f"{name} and the main serve disagree: {bad}")
+    return worst
 
 
 def paper_eps(max_abs: float) -> float:
@@ -1019,6 +1070,39 @@ def paper_cases(torch, np):
     cases["musicgen_prefix"] = ("prefix", prefix_case(
         torch, B=2, H=32, KV=32, hd=64, P=0, Sq=AUDIO_TOKENS,
         dtype=torch.bfloat16, seed=22))
+    # Gemma3-12B's heads (16 over 8 KV heads, R 2, hd 256) on the main
+    # rows, under its 1024 window (which rows of ~1,100 keys pass) and on
+    # its global layers
+    for tag, window in (("window", GEMMA3_WINDOW), ("global", 0)):
+        rng = np.random.default_rng(7)
+        cases[f"gemma3_decode_{tag}"] = ("decode", decode_case(
+            torch, np, B=8, H=16, KV=8, hd=256, page=16, n_slots=220,
+            dtype=torch.bfloat16, seed=11, window=window,
+            rows=[[doc(), doc(), 8 + int(rng.integers(1, 9))]
+                  for _ in range(8)]))
+        cases[f"gemma3_prefill_{tag}"] = ("prefill", prefill_case(
+            torch, np, B=4, H=16, KV=8, hd=256, page=16, n_slots=220,
+            Sq=2048, dtype=torch.bfloat16, seed=12, window=window,
+            rows=[([], 2048), ([700], 1500), ([900, 800], 300), ([], 0)]))
+        cases[f"gemma3_prefix_{tag}"] = ("prefix", prefix_case(
+            torch, B=1, H=16, KV=8, hd=256, P=0, Sq=2048,
+            dtype=torch.bfloat16, seed=20, window=window))
+    # Gemma2-27B's (32 over 16 KV heads, R 2, softcap 50) and Yi-34B's (56
+    # over 8, R 7) at hd 128 on the main rows
+    for model, H, KV, cap in (("gemma2", 32, 16, 50.0), ("yi", 56, 8, 0.0)):
+        rng = np.random.default_rng(7)
+        cases[f"{model}_decode"] = ("decode", decode_case(
+            torch, np, B=8, H=H, KV=KV, hd=128, page=16, n_slots=220,
+            dtype=torch.bfloat16, seed=11, cap=cap,
+            rows=[[doc(), doc(), 8 + int(rng.integers(1, 9))]
+                  for _ in range(8)]))
+        cases[f"{model}_prefill"] = ("prefill", prefill_case(
+            torch, np, B=4, H=H, KV=KV, hd=128, page=16, n_slots=220,
+            Sq=2048, dtype=torch.bfloat16, seed=12, cap=cap,
+            rows=[([], 2048), ([700], 1500), ([900, 800], 300), ([], 0)]))
+        cases[f"{model}_prefix"] = ("prefix", prefix_case(
+            torch, B=1, H=H, KV=KV, hd=128, P=0, Sq=2048,
+            dtype=torch.bfloat16, seed=20, cap=cap))
     cases["mistral_decode_window"] = ("decode", decode_case(
         torch, np, B=8, H=32, KV=8, hd=128, page=16, n_slots=330,
         dtype=torch.bfloat16, seed=15, window=4096,
@@ -1063,21 +1147,28 @@ def parity_paper(torch, np, cases, errs):
                 case["q_len"][:, None]
             pad = pad[:, None, :].expand(-1, case["q"].shape[1], -1)
         exact = run(plain, as_f32(case))
+        wide = case["q"].shape[-1] == 256
         errs[key] = check(torch, f"{key} bf16 {case_tag(kind, case)}",
-                          run(kern, case), run(plain, case), TOL_BF16,
+                          run(kern, case), run(plain, case),
+                          TOL_BF16_HD256 if wide else TOL_BF16,
                           zero_rows=pad, exact=exact)
-        check(torch, f"{key} f32", run(kern, as_f32(case)), exact, TOL_F32,
-              zero_rows=pad)
+        check(torch, f"{key} f32", run(kern, as_f32(case)), exact,
+              TOL_F32_HD256 if wide else TOL_F32, zero_rows=pad)
         del exact
         if kind == "decode":
             n_slots = case["tables"].shape[1]
-            splits = {dt: PA.decode_splits(n_slots, 16, 128, dt)
-                      for dt in (torch.bfloat16, torch.float32)}
-            want = {torch.bfloat16: -(-n_slots // 8),
-                    torch.float32: -(-n_slots // 4)}
+            hd = case["q"].shape[-1]
+            # 128 keys (8 pages of 16) a split, 64 for rows above 256 bytes
+            keys = {dt: 64 if dt.itemsize * hd > 256 else 128
+                    for dt in (torch.bfloat16, torch.float32)}
+            splits = {dt: PA.decode_splits(n_slots, 16, hd, dt)
+                      for dt in keys}
+            want = {dt: -(-n_slots // (n // 16)) for dt, n in keys.items()}
             print(f"[parity] {key}: decode splits over {n_slots} entries: "
-                  f"bf16 {splits[torch.bfloat16]} (128 keys), f32 "
-                  f"{splits[torch.float32]} (64 keys)", flush=True)
+                  f"bf16 {splits[torch.bfloat16]} "
+                  f"({keys[torch.bfloat16]} keys), f32 "
+                  f"{splits[torch.float32]} ({keys[torch.float32]} keys)",
+                  flush=True)
             if splits != want:
                 die(f"{key}: decode splits {splits}, want {want}")
             decode_bits(torch, case)
@@ -1377,8 +1468,19 @@ def phase_times(torch, np, dec, dec_long, pre, pfx, paper, errs):
         print(f"[times] prefix_flash_attention@{key}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
               f"{bnd:.4f} ms ({by})", flush=True)
-    # the paper models' shapes; the plain versions, seconds a call here,
-    # over 5 timings
+    rows.update(time_paper(torch, np, paper, errs, flush))
+    del flush
+    return rows
+
+
+def time_paper(torch, np, paper, errs, flush):
+    """Kernel, plain version and library times at the paper models' shapes
+    (the plain versions, seconds a call here, over 5 timings), with each
+    one's bound."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import paged_prefill as PP
+    from repro_torch.kernels import prefix_attention as PX
+    rows = {}
     for key, (kind, case) in paper.items():
         if kind == "prefix":
             fn = lambda: call_prefix(PX.prefix_flash_attention, case)
@@ -1403,7 +1505,6 @@ def phase_times(torch, np, dec, dec_long, pre, pfx, paper, errs):
         print(f"[times] {key} ({case_tag(kind, case)}): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (factor "
               f"{ms / lib_ms:.2f}x), bound {bnd:.4f} ms ({by})", flush=True)
-    del flush
     return rows
 
 
@@ -1507,6 +1608,13 @@ def phase_row_invariance(torch, cfg, params, tag="rows"):
         ops.append(("moe_dense (all experts)", x, lambda t: L.moe_dense(
             t, p["router"], p["wg"], p["wu"], p["wd"], cfg.moe_top_k)))
     ops.append(("lm_logits", x, lambda t: M.lm_logits(cfg, params, t)))
+    # m rows of logits and a final softcap's temporaries take up to ~16 x
+    # m x vocab B: the logits are probed at the row counts that fit the
+    # free memory (all of them but at Gemma2-27B's width, where 8192 rows
+    # would need 33.6e9 B beside 54.5e9 B of weights)
+    free = torch.cuda.mem_get_info()[0]
+    rows_of = {"lm_logits": [m for m in PROBE_ROWS
+                             if 16 * m * cfg.vocab_size <= free] or [1]}
     slab = L.ROW_SLAB
     variant = []
     try:
@@ -1516,7 +1624,8 @@ def phase_row_invariance(torch, cfg, params, tag="rows"):
                 L.ROW_SLAB = rows
                 ref0 = fn(inp[:1])[0]
                 diffs = {m: (fn(inp[:m])[0].float() - ref0.float())
-                         .abs().max().item() for m in PROBE_ROWS}
+                         .abs().max().item()
+                         for m in rows_of.get(name, PROBE_ROWS)}
                 same = all(d == 0 for d in diffs.values())
                 verdict.append(f"{label}: bit-identical {same}" + (
                     "" if same else f" (max |diff| by rows {diffs})"))
@@ -1526,9 +1635,10 @@ def phase_row_invariance(torch, cfg, params, tag="rows"):
     finally:
         L.ROW_SLAB = slab
     torch.cuda.synchronize()
-    print(f"[{tag}] {cfg.name}: row counts {PROBE_ROWS}, slabs of {slab} "
-          f"rows for the products layers.slabbed names; row-variant with "
-          f"the helper: {variant or 'none'}", flush=True)
+    print(f"[{tag}] {cfg.name}: row counts {PROBE_ROWS} (the logits "
+          f"{tuple(rows_of['lm_logits'])}), slabs of {slab} rows for the "
+          f"products layers.slabbed names; row-variant with the helper: "
+          f"{variant or 'none'}", flush=True)
     return variant
 
 
@@ -1562,7 +1672,7 @@ def phase_check(torch, np, cfg, params, corpus, idx, wl, args, results,
                 n=8, eps=LOGIT_EPS, tag="check"):
     """The first ``n`` requests again on a fresh runtime through the plain
     versions, against the main serve's results: first-token logits within
-    eps, and no token flipped above eps."""
+    eps, and no token flipped above eps.  Returns the first-token L-inf."""
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.runtime import ContinuousRuntime
     sub = sorted(wl, key=lambda r: r.req_id)[:n]
@@ -1581,9 +1691,10 @@ def phase_check(torch, np, cfg, params, corpus, idx, wl, args, results,
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     if any(launches.values()):
         die(f"the plain-version runtime launched a kernel: {launches}")
-    compare_logits(np, tag, plain, results, eps)
+    linf = compare_logits(np, tag, plain, results, eps)
     by_id = {r.req_id: r for r in results}
     check_flips(tag, [(by_id[b.req_id], b) for b in plain], eps)
+    return linf
 
 
 def phase_pinned_check(torch, np, cfg, params, corpus, idx, wl, args,
@@ -1593,11 +1704,11 @@ def phase_pinned_check(torch, np, cfg, params, corpus, idx, wl, args,
     experts; again through the kernels without the slab helper, which
     changes only the order of the GEMMs' sums (the floor); then through
     the plain versions.  The paper models' eps does not bound the floor
-    (a 24-layer top-2 MoE amplifies rounding more than the dense models
-    it was reckoned on), so the MoE eps is the larger of it and twice the
-    floor: a kernel may move the logits at most twice as far as
-    reordering the model's own GEMMs does.  Plain within that eps, and no
-    flip above it.  Returns (the MoE eps, pin counts)."""
+    (a top-2 MoE amplifies rounding more than the dense models it was
+    reckoned on), so the MoE eps is the larger of it and twice the floor:
+    a kernel may move the logits at most twice as far as reordering the
+    model's own GEMMs does.  Plain within that eps, and no flip above it.
+    Returns (the MoE eps, pin counts)."""
     from repro_torch.models import layers as L
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.runtime import ContinuousRuntime
@@ -2175,7 +2286,7 @@ def phase_profile(torch, cfg, params, corpus, idx, wl, args, tag="profile"):
     if not rows:
         print(f"[{tag}] device time: not measured (the profiler recorded "
               "no kernels)", flush=True)
-        return
+        return None
     busy = sum(r[0] for r in rows)
     print(f"[{tag}] 8 requests: wall {wall_ms:.1f} ms unprofiled "
           f"({summ['prefill_iterations']} prefill / "
@@ -2191,6 +2302,11 @@ def phase_profile(torch, cfg, params, corpus, idx, wl, args, tag="profile"):
           f"{100 * dec_ms / busy:.1f}% of device time, "
           f"{' + '.join(str(r[1]) for r in dec) or 0} launches "
           f"({', '.join(names)})", flush=True)
+    pre = [r for r in rows if "paged_prefill_" in r[2]]
+    pre_ms = sum(r[0] for r in pre)
+    print(f"[{tag}] paged prefill: {pre_ms:.2f} ms = "
+          f"{100 * pre_ms / busy:.1f}% of device time, "
+          f"{sum(r[1] for r in pre)} launches", flush=True)
     gemm_ms = sum(r[0] for r in rows if GEMM_KERNEL.search(r[2]))
     print(f"[{tag}] cuBLAS GEMMs: {gemm_ms:.2f} ms = "
           f"{100 * gemm_ms / busy:.1f}% of device time", flush=True)
@@ -2280,17 +2396,23 @@ def model_serve(torch, np, tag, cfg, params, corpus, idx, wl, args):
 
 
 def phase_paper(torch, np, arch):
-    """One paper model at full published width, its weights the only ones
-    on the card: (a) the main serve, (d) the row probe, the chunk split and
-    the serve without the slab helper, (c) kernels against plain versions,
-    (e) for Mistral-7B the window, the profile, then (b) serve.main
-    --check-tokens.  Returns its serve's figures and launch counts."""
+    """One paper model at full published width and PAPER_LAYERS layers,
+    its weights the only ones on the card: (a) the main serve, (d) the row
+    probe, the chunk split and the serve without the slab helper, (c)
+    kernels against plain versions, (e) for Mistral-7B the window, the
+    profile, then (b) continuous against sequential on 8 requests in this
+    process (serve.main --full-size would load all 32 layers).  Returns
+    its serve's figures and launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
-    args = serve.build_parser().parse_args(paper_argv(arch, 32))
-    cfg, params, corpus, idx, wl = model_setup(torch, args,
-                                               get_config(arch), arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=PAPER_LAYERS[arch])
+    argv = paper_argv(arch, 32)
+    argv[argv.index("--gpu-cache-bytes") + 1] = str(
+        PAPER_GPU_BYTES * cfg.n_layers // full.n_layers)
+    args = serve.build_parser().parse_args(argv)
+    cfg, params, corpus, idx, wl = model_setup(torch, args, cfg, arch)
     results, out = model_serve(torch, np, arch, cfg, params, corpus, idx,
                                wl, args)
     stats, eps = out["stats"], out["eps"]
@@ -2304,21 +2426,12 @@ def phase_paper(torch, np, arch):
     phase_check(torch, np, cfg, params, corpus, idx, wl, args, results,
                 n=4, eps=eps, tag=f"{arch} check")
     if arch == "mistral-7b":
-        out["window"] = phase_window(torch, np, cfg, params, eps)
+        out["window"] = phase_window(torch, np, cfg, params, eps, full)
     phase_profile(torch, cfg, params, corpus, idx, wl, args,
                   tag=f"{arch} profile")
+    out["seq"] = {"prefix_flash_attention": phase_seq_in_process(
+        torch, np, cfg, params, corpus, idx, wl, args, eps, f"{arch} seq")}
     del params, results
-    gc.collect()
-    torch.cuda.empty_cache()
-    seq_out, seq, plain = run_main(
-        f"{arch} seq", paper_argv(arch, 8, "--check-tokens", f"tol:{eps}"),
-        keep=("[continuous]", "[sequential]", "mean TTFT", "token check"),
-        flips_eps=eps)
-    if f"token check: all 8 requests within tol {eps:g}" not in seq_out:
-        die(f"[{arch}] serve.main printed no passing token-check line")
-    if seq["prefix_flash_attention"] <= 0 or plain:
-        die(f"[{arch}] sequential path: launches {seq}, plain calls {plain}")
-    out["seq"] = seq
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[{arch}] phase wall {time.perf_counter() - t_phase:.1f}s",
@@ -2326,19 +2439,16 @@ def phase_paper(torch, np, arch):
     return out
 
 
-def phase_window(torch, np, cfg, params, eps):
-    """Mistral-7B past its 4096-token window, through its first
-    WINDOW_LAYERS layers: 4 requests of 4,401-4,478 tokens in 512-token
-    prefill chunks through the kernels, against the sequential engine and
-    against the plain versions."""
+def phase_window(torch, np, cfg, params, eps, full):
+    """Mistral-7B past its 4096-token window, through the layers of
+    ``cfg`` (``full``: the published config): 4 requests of 4,401-4,478
+    tokens in 512-token prefill chunks through the kernels, against the
+    sequential engine and against the plain versions."""
     from repro_torch.launch import serve
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import RAGServer
     from repro_torch.serving.runtime import ContinuousRuntime
-    tier = PAPER_GPU_BYTES * WINDOW_LAYERS // cfg.n_layers
-    cfg = dataclasses.replace(cfg, n_layers=WINDOW_LAYERS)
-    params = dict(params, blocks={k: w[:WINDOW_LAYERS]
-                                  for k, w in params["blocks"].items()})
+    tier = PAPER_GPU_BYTES * cfg.n_layers // full.n_layers
     tag = f"{cfg.name} window"
     t0 = time.perf_counter()
     args = serve.build_parser().parse_args(paper_argv(
@@ -2431,17 +2541,18 @@ def phase_seq_in_process(torch, np, cfg, params, corpus, idx, wl, args,
         bad = serve.token_mismatches(zip(cont, seq), "tol", eps)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[{tag}] {len(sub)} requests, continuous then sequential with "
-          f"the continuous run's routes pinned, in "
-          f"{time.perf_counter() - t0:.1f}s: {pin['pinned']} of "
-          f"{pin['rows']} routed rows pinned, {pin['changed']} of them "
-          f"routed otherwise by the sequential run's own logits; "
-          f"sequential launches {launches}, plain-version calls {plain}",
-          flush=True)
+    pins = (f" with the continuous run's routes pinned ({pin['pinned']} of "
+            f"{pin['rows']} routed rows, {pin['changed']} of them routed "
+            f"otherwise by the sequential run's own logits)"
+            if cfg.moe_experts else "")
+    print(f"[{tag}] {len(sub)} requests, continuous then sequential"
+          f"{pins}, in {time.perf_counter() - t0:.1f}s; sequential "
+          f"launches {launches}, plain-version calls {plain}", flush=True)
     if pin["pinned"] < pin["rows"] // 2:
         die(f"[{tag}] too few rows pinned: {pin}")
     compare_logits(np, tag, cont, seq, eps,
-                   "the sequential engine, routes pinned")
+                   "the sequential engine" + (", routes pinned"
+                                              if cfg.moe_experts else ""))
     if bad:
         die(f"[{tag}] continuous and sequential disagree past tol {eps}: "
             f"{bad}")
@@ -2589,8 +2700,8 @@ def phase_vlm(torch, np):
     t_phase = time.perf_counter()
     tag = VLM_ARCH
     args = serve.build_parser().parse_args(MAIN_ARGV)
-    cfg, params, corpus, idx, wl = model_setup(torch, args,
-                                               get_config(VLM_ARCH), tag)
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    cfg, params, corpus, idx, wl = model_setup(torch, args, cfg, tag)
     results, out = model_serve(torch, np, tag, cfg, params, corpus, idx,
                                wl, args)
     eps = out["eps"]
@@ -2838,16 +2949,17 @@ def phase_mlstm_forms(torch, cfg, tag):
 
 
 def phase_xlstm(torch, np):
-    """Phase 18: xLSTM-1.3B at full published width and depth, its weights
-    the only ones on the card: the cold and warm serves through the
-    sequential engine with its state snapshots in the tree, and the two
-    mLSTM forms on one full-width layer."""
+    """Phase 18: xLSTM-1.3B at full published width and RECURRENT_LAYERS
+    depth, its weights the only ones on the card: the cold and warm
+    serves through the sequential engine with its state snapshots in the
+    tree, and the two mLSTM forms on one full-width layer."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     t_phase = time.perf_counter()
     tag = XLSTM_ARCH
-    cfg = get_config(XLSTM_ARCH)
+    cfg = dataclasses.replace(get_config(XLSTM_ARCH),
+                              n_layers=RECURRENT_LAYERS[XLSTM_ARCH])
     args = serve.build_parser().parse_args(recurrent_argv(XLSTM_ARCH, 4))
     params = model_setup_only(torch, cfg, tag)
     corpus, idx, wl, _ = serve.make_data(args, cfg)
@@ -2872,20 +2984,21 @@ def f32_params(params):
 
 
 def phase_hybrid(torch, np):
-    """Phase 19: Hymba-1.5B at full published width and depth: the cold
-    and warm serves through the sequential engine on the prefix kernel
-    (R 5), the same cold requests through the plain versions and through
-    the plain versions in f32.  The kernels' serve must lie
-    within eps of the plain versions' and of the f32 serve, with no flip
-    above eps, where eps = max(paper_eps, 2 x the bf16 floor) and the
-    floor is the plain versions' own distance from the f32 serve: this
-    model's bf16 rounding moves its first-token logits further than
+    """Phase 19: Hymba-1.5B at full published width and RECURRENT_LAYERS
+    depth: the cold and warm serves through the sequential engine on the
+    prefix kernel (R 5), the same cold requests through the plain
+    versions and through the plain versions in f32.  The kernels' serve
+    must lie within eps of the plain versions' and of the f32 serve, with
+    no flip above eps, where eps = max(paper_eps, 2 x the bf16 floor) and
+    the floor is the plain versions' own distance from the f32 serve:
+    this model's bf16 rounding moves its first-token logits further than
     paper_eps (see HYBRID_ARCH)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
     tag = HYBRID_ARCH
-    cfg = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              n_layers=RECURRENT_LAYERS[HYBRID_ARCH])
     kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * cfg.tdtype.itemsize
     args = serve.build_parser().parse_args(recurrent_argv(HYBRID_ARCH, kv))
     params = model_setup_only(torch, cfg, tag)
@@ -3060,6 +3173,99 @@ def phase_audio(torch, np):
                 phase_wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: the rest of the dense family
+# ---------------------------------------------------------------------------
+
+def large_eps(cfg, p_eps):
+    """The eps of the deep dense models' comparisons: paper_eps, reckoned
+    on 32 layers, times sqrt(layers / 32) past 32 layers.  Each layer rounds its outputs
+    to bf16, so two arithmetic orders of the same model inject ulp-sized
+    differences at every layer, and those add up like a random walk
+    through the depth.  A rule set after reading the card: Gemma3-12B's
+    kernels lay 0.3105-0.3125 from its plain versions (first-token L-inf,
+    48 layers), past paper_eps (0.30), while each kernel call matched its
+    plain version's own bf16 rounding row for row, and running the
+    row-variant products without the slab helper moved nothing (a floor
+    of 0) (PERF.md, section 6)."""
+    return p_eps * max(1.0, cfg.n_layers / 32) ** 0.5
+
+
+def large_argv(arch, n_requests, gpu_bytes, *extra):
+    """serve.main's argv for one of LARGE_DENSE at published width: the
+    paper models' configuration with a GPU tier of ``gpu_bytes``."""
+    argv = paper_argv(arch, n_requests, *extra)
+    argv[argv.index("--gpu-cache-bytes") + 1] = str(gpu_bytes)
+    return argv
+
+
+def phase_large_dense(torch, np, arch):
+    """One of the rest of the dense family at full published width and
+    depth, its weights the only ones on the card: the main serve of
+    LARGE_REQUESTS requests (for Gemma3-12B, rows past its 1024 window),
+    the row probe, the chunk split bit for bit, LARGE_PLAIN requests
+    through the plain versions, the profile (LARGE_PROFILE only), then
+    serve.main --full-size --check-tokens tol:<eps> on 4 requests, eps
+    from large_eps.  Returns its figures and launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    gpu = LARGE_GPU_BYTES.get(arch, PAPER_GPU_BYTES)
+    args = serve.build_parser().parse_args(
+        large_argv(arch, LARGE_REQUESTS, gpu))
+    cfg, params, corpus, idx, wl = model_setup(torch, args,
+                                               get_config(arch), arch)
+    results, out = model_serve(torch, np, arch, cfg, params, corpus, idx,
+                               wl, args)
+    eps = out["eps"]
+    questions = {w.req_id: len(w.question_tokens) for w in wl}
+    lens = [sum(int(corpus.doc_lengths[d]) for d in r.docs)
+            + questions[r.req_id] + len(r.tokens) for r in results]
+    windows = sorted(set(cfg.layer_windows()))
+    print(f"[{arch}] sequences of {min(lens)}-{max(lens)} tokens, "
+          f"{sum(n > max(windows) for n in lens)} of {len(lens)} past the "
+          f"largest window of {windows}", flush=True)
+    if arch == "gemma3-12b" and max(lens) <= GEMMA3_WINDOW:
+        die(f"[{arch}] no sequence passes the {GEMMA3_WINDOW} window")
+    variant = phase_row_invariance(torch, cfg, params, tag=f"{arch} rows")
+    phase_chunk_split(torch, np, cfg, params, corpus, idx, wl, args,
+                      tag=f"{arch} chunk-split")
+    if variant:
+        die(f"[{arch}] row-variant with the helper: {variant}")
+    eps = out["large_eps"] = large_eps(cfg, out["eps"])
+    print(f"[{arch}] eps paper_eps x sqrt({cfg.n_layers} / 32) = {eps:.4f}",
+          flush=True)
+    out["plain_linf"] = phase_check(torch, np, cfg, params, corpus, idx, wl,
+                                    args, results, n=LARGE_PLAIN, eps=eps,
+                                    tag=f"{arch} check")
+    print(f"[{arch} check] kernels vs plain versions "
+          f"{out['plain_linf']:.4e}: "
+          f"{'within' if out['plain_linf'] <= out['eps'] else 'PAST'} "
+          f"paper_eps {out['eps']:g}", flush=True)
+    if arch == LARGE_PROFILE:
+        phase_profile(torch, cfg, params, corpus, idx, wl, args,
+                      tag=f"{arch} profile")
+    del params, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq_out, seq, plain = run_main(
+        f"{arch} seq", large_argv(arch, 4, LARGE_SEQ_GPU_BYTES,
+                                  "--check-tokens", f"tol:{eps}"),
+        keep=("[continuous]", "[sequential]", "mean TTFT", "token check"),
+        flips_eps=eps)
+    if f"token check: all 4 requests within tol {eps:g}" not in seq_out:
+        die(f"[{arch}] serve.main printed no passing token-check line")
+    if seq["prefix_flash_attention"] <= 0 or plain:
+        die(f"[{arch}] sequential path: launches {seq}, plain calls {plain}")
+    out["seq"] = seq
+    out["longest"] = max(lens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[{arch}] phase wall {out['wall']:.1f}s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3095,9 +3301,11 @@ def main() -> None:
     xlstm = phase_xlstm(torch, np)
     hybrid = phase_hybrid(torch, np)
     audio = phase_audio(torch, np)
+    large = {arch: phase_large_dense(torch, np, arch) for arch in LARGE_DENSE}
     for arch, o in paper.items():
-        print(f"[paper] {arch}: GPU tier {PAPER_GPU_BYTES} B = {o['blocks']} "
-              f"blocks, host tier {PAPER_HOST_BYTES} B; doc hit rate "
+        print(f"[paper] {arch} ({PAPER_LAYERS[arch]} layers): "
+              f"{o['blocks']} pool blocks, host tier {PAPER_HOST_BYTES} B; "
+              f"doc hit rate "
               f"{o['doc_hit_rate']:.4f}; tier hit tokens {o['tier']}; "
               f"{o['stats'][0]:.1f} tokens/s, TTFT p50 {o['stats'][1]:.1f} "
               f"ms; eps {o['eps']:g}", flush=True)
@@ -3134,10 +3342,21 @@ def main() -> None:
                 o["window"]["decode"]
             by_path["paged_prefill_attention"][f"{arch} window"] = \
                 o["window"]["prefill"]
-    for arch, o in ((MOE_ARCH, moe), (VLM_ARCH, vlm)):
+    for arch, o in ((MOE_ARCH, moe), (VLM_ARCH, vlm), *large.items()):
         for name, n in o["launches"].items():
             if name != "prefix_flash_attention":
                 by_path[name][f"{arch} main serve"] = n
+    for arch, o in large.items():
+        by_path["prefix_flash_attention"][f"{arch} sequential check"] = \
+            o["seq"]["prefix_flash_attention"]
+        print(f"[large] {arch}: {o['blocks']} pool blocks; doc hit rate "
+              f"{o['doc_hit_rate']:.4f}; tier hit tokens {o['tier']}; "
+              f"{o['stats'][0]:.1f} tokens/s, TTFT p50 {o['stats'][1]:.1f} "
+              f"ms; longest sequence {o['longest']}; kernels vs plain "
+              f"{o['plain_linf']:.4e} ("
+              f"{'within' if o['plain_linf'] <= o['eps'] else 'PAST'} "
+              f"paper_eps {o['eps']:g}; eps {o['large_eps']:.4f}); phase "
+              f"wall {o['wall']:.1f}s", flush=True)
     by_path["prefix_flash_attention"][f"{MOE_ARCH} sequential check"] = \
         moe["seq"]
     by_path["prefix_flash_attention"][f"{VLM_ARCH} patch prefill"] = \
@@ -3170,6 +3389,8 @@ def main() -> None:
     count = dict(launches, prefix_flash_attention=cag["preload"]
                  + cag["serve"])
     kernels = []
+    hd256 = [f"gemma3_{kind}_{tag}" for kind in ("decode", "prefill", "prefix")
+             for tag in ("window", "global")]
     for (name, src, replaces), key, extra, hd128 in zip(
             KERNELS, ("decode", "prefill2048", "prefix2048"),
             ({"at_long_rows": times["decode_long"]},
@@ -3179,9 +3400,12 @@ def main() -> None:
               "at_hymba": {k: times[f"hymba_prefix_{k}"]
                            for k in ("window", "global")},
               "at_musicgen": times["musicgen_prefix"]}),
-            (("mistral_decode", "llama2_decode", "mistral_decode_window"),
-             ("mistral_prefill", "llama2_prefill", "mistral_prefill_window"),
-             ("mistral_prefix", "llama2_prefix"))):
+            (("mistral_decode", "llama2_decode", "mistral_decode_window",
+              "gemma2_decode", "yi_decode"),
+             ("mistral_prefill", "llama2_prefill", "mistral_prefill_window",
+              "gemma2_prefill", "yi_prefill"),
+             ("mistral_prefix", "llama2_prefix", "gemma2_prefix",
+              "yi_prefix"))):
         row = times[key]
         kernels.append(dict(
             {"name": name, "route": "cuda", "source": src,
@@ -3190,7 +3414,9 @@ def main() -> None:
              "max_abs_err": row["max_abs_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-             "shape": row["shape"], "at_hd128": {k: times[k] for k in hd128}},
+             "shape": row["shape"], "at_hd128": {k: times[k] for k in hd128},
+             "at_hd256": {k: times[k] for k in hd256
+                          if k.split("_")[1] in name}},
             **extra))
     print(f"[done] {time.perf_counter() - t_start:.1f}s wall in all",
           flush=True)

@@ -1,16 +1,19 @@
 """Architecture registry of the port (counterpart of ``repro.configs``).
 
 ``get_config(arch_id)`` returns the full published config;
-``get_reduced(arch_id)`` the CPU-test variant of the same family.  Only the
-models the port serves are registered: Qwen2-0.5B; the paper's two
+``get_reduced(arch_id)`` the CPU-test variant of the same family.  Every
+architecture of the JAX package is registered: Qwen2-0.5B; the paper's two
 evaluation models, Mistral-7B (GQA, a 4096-token sliding window on every
-layer) and LLaMA2-7B (MHA); the MoE family, Mixtral-8x7B (8 experts, top
+layer) and LLaMA2-7B (MHA); the rest of the dense family, Gemma3-12B (head
+dim 256, a 1024 window on 5 of every 6 layers), Gemma2-27B (a 4096 window
+on every other layer, softcaps 50 and 30), Yi-34B (R 7) and LLaMA2-70B
+(138 GB of bf16 weights: served reduced only until tensor parallelism is
+ported, ROADMAP.md Queue A); the MoE family, Mixtral-8x7B (8 experts, top
 2, the paper's large-model target) and Phi-3.5-MoE (16 experts, top 2);
 the VLM family's InternVL2-1B, whose text backbone the runtimes serve; the
 recurrent families, xLSTM-1.3B (ssm) and Hymba-1.5B (hybrid), which the
 sequential engine serves; and the audio family's MusicGen-large, which runs
-through the model steps only.  The other architectures join with their
-model code (ROADMAP.md, Queue A).
+through the model steps only.
 """
 from __future__ import annotations
 
@@ -24,6 +27,11 @@ _ARCHS = [
     # paper's own evaluation models
     "mistral_7b",
     "llama2_7b",
+    # the rest of the dense family
+    "gemma3_12b",
+    "gemma2_27b",
+    "yi_34b",
+    "llama2_70b",
     # mixture of experts
     "mixtral_8x7b",
     "phi35_moe_42b",
@@ -40,6 +48,10 @@ _ALIASES = {
     "qwen2-0.5b": "qwen2_0p5b",
     "mistral-7b": "mistral_7b",
     "llama2-7b": "llama2_7b",
+    "gemma3-12b": "gemma3_12b",
+    "gemma2-27b": "gemma2_27b",
+    "yi-34b": "yi_34b",
+    "llama2-70b": "llama2_70b",
     "mixtral-8x7b": "mixtral_8x7b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "internvl2-1b": "internvl2_1b",

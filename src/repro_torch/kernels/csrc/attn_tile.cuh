@@ -14,10 +14,18 @@
 // bq rows of the block are packed head-minor into 16 * NW rows, 16 per warp:
 // packed row m is head g*R + m % R, query row row0 + m / R, so a warp's 16
 // rows span few positions and its causal frontier is tight.
-//  - Q is copied once into shared memory (cp.async) and held for the whole
-//    key loop in registers as mma A-fragments (ldmatrix).
-//  - K/V stream through a ring of STAGES 64-key stages with cp.async.cg
-//    16-byte copies; keys past a unit's live count are zero-filled.  Rows
+//  - Q is copied once into shared memory (cp.async).  At hd 64 and 128 it
+//    is held for the whole key loop in registers as mma A-fragments
+//    (ldmatrix); at hd 256 those would take 64 registers a thread beside
+//    O's 128, past the 255 a thread may hold, so each unit's S = Q K^T
+//    re-reads the warp's Q fragments from shared memory with ldmatrix, one
+//    16-dim slice at a time, and applies each slice to every 16-key chunk
+//    of the unit before the next is read.
+//  - K/V stream through a ring of STAGES stages of KT keys (64; 32 at hd
+//    256, where a 64-key stage takes 67,584 bytes and three of them beside
+//    the Q rows of 8 warps would pass the 227 KB a block may hold) with
+//    cp.async.cg 16-byte copies; keys past a unit's live count are
+//    zero-filled.  Rows
 //    are padded by 16 bytes so ldmatrix's eight row addresses fall in eight
 //    different bank groups.  The copy of stage i + STAGES - 1 is in flight
 //    while stage i is computed; one barrier per stage.
@@ -41,7 +49,7 @@
 //
 // A row's bits do not depend on the chunk or q-block it sits in.  Each row
 // sees one online-softmax update per *unit* — a table slot's page in the
-// paged kernel, a 64-key tile aligned to key 0 in the prefix kernel — so
+// paged kernel, a KT-key tile aligned to key 0 in the prefix kernel — so
 // the sequence of updates is fixed by absolute key positions alone.  Inside
 // an update the row's scores, max, probabilities and sums depend only on
 // its own q, the unit's keys and a fixed lane layout.  Work skipped for a
@@ -64,21 +72,26 @@ namespace attn {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int KT = 64;        // keys per pipeline stage
-constexpr int STAGES = 3;     // stages in the K/V ring
 constexpr int MAXW = 8;       // warps per CTA at most
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD> struct Tile {
   static constexpr int STRIDE = HD + 8;          // padded row (elements)
   static constexpr int CH = HD / 8;              // 16-byte chunks a row
+  static constexpr int KT = HD <= 128 ? 64 : 32; // keys per pipeline stage
+  static constexpr int STAGES = 3;               // stages in the K/V ring
   static constexpr int STAGE = 2 * KT * STRIDE;  // K rows, then V rows
+  // Q's A-fragments held in registers for the whole key loop, or re-read
+  // from shared memory at each unit (hd 256)
+  static constexpr bool QREG = HD <= 128;
 };
 
 // Dynamic shared memory: the Q rows of nw warps and the K/V ring, then
-// `extra` bytes for the caller.
+// `extra` bytes for the caller (at hd 256 and 8 warps: 168,960 bytes
+// before `extra`).
 template <int HD> inline size_t smem_bytes(int nw, size_t extra) {
-  return ((size_t)16 * nw + (size_t)STAGES * 2 * KT) * Tile<HD>::STRIDE *
+  using T = Tile<HD>;
+  return ((size_t)16 * nw + (size_t)T::STAGES * 2 * T::KT) * T::STRIDE *
              sizeof(bf16) + extra;
 }
 
@@ -178,7 +191,10 @@ struct QRows {
 
 // One warp's 16 rows: fragment rows g = lane / 4 and g + 8.
 template <int HD> struct Warp {
-  uint32_t q[HD / 16][4];   // Q A-fragments, one per 16 head dims
+  // Q A-fragments, one per 16 head dims (QREG), or this lane's ldmatrix
+  // address of them in shared memory
+  uint32_t q[Tile<HD>::QREG ? HD / 16 : 1][4];
+  const bf16* qa;
   float o[HD / 8][4];       // O accumulators, one per 8 head dims
   float m[2], l[2];         // running max (log2 domain); per-thread sums
   int qpos[2];              // absolute positions of rows g, g + 8
@@ -234,8 +250,11 @@ __device__ __forceinline__ void init_warp(Warp<HD>& w, const QRows& rows,
   // A-fragments: matrices (rows 0-7 | 8-15) x (dims 0-7 | 8-15) of each
   // 16-dim slice; lane l addresses row l % 16, dims 8 * (l / 16)
   const bf16* qr = qs + (16 * warp + (lane & 15)) * S + (lane >> 4) * 8;
+  w.qa = qr;
+  if constexpr (Tile<HD>::QREG) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(w.q[kk], qr + kk * 16);
+    for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(w.q[kk], qr + kk * 16);
+  }
 }
 
 // One online-softmax update of the warp's rows over a unit of NKC * 16 keys
@@ -257,15 +276,34 @@ __device__ __forceinline__ void update(Warp<HD>& w, const bf16* ks,
   // addresses key 8 * (l / 16) + l % 8, dims 8 * ((l / 8) % 2)
   const bf16* kr =
       ks + (((lane >> 4) << 3) + (lane & 7)) * S + ((lane >> 3) & 1) * 8;
+  if constexpr (Tile<HD>::QREG) {
 #pragma unroll
-  for (int kc = 0; kc < NKC; ++kc) {
-    if (kc < nkc) {
+    for (int kc = 0; kc < NKC; ++kc) {
+      if (kc < nkc) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t bk[4];
-        ldsm_x4(bk, kr + kc * 16 * S + kk * 16);
-        mma16816(s[2 * kc], w.q[kk], bk[0], bk[1]);
-        mma16816(s[2 * kc + 1], w.q[kk], bk[2], bk[3]);
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          uint32_t bk[4];
+          ldsm_x4(bk, kr + kc * 16 * S + kk * 16);
+          mma16816(s[2 * kc], w.q[kk], bk[0], bk[1]);
+          mma16816(s[2 * kc + 1], w.q[kk], bk[2], bk[3]);
+        }
+      }
+    }
+  } else {
+    // one 16-dim slice of Q from shared memory at a time, applied to
+    // every chunk; each score still sums its slices in increasing order
+#pragma unroll 4
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qf[4];
+      ldsm_x4(qf, w.qa + kk * 16);
+#pragma unroll
+      for (int kc = 0; kc < NKC; ++kc) {
+        if (kc < nkc) {
+          uint32_t bk[4];
+          ldsm_x4(bk, kr + kc * 16 * S + kk * 16);
+          mma16816(s[2 * kc], qf, bk[0], bk[1]);
+          mma16816(s[2 * kc + 1], qf, bk[2], bk[3]);
+        }
       }
     }
   }
@@ -399,7 +437,7 @@ __device__ __forceinline__ void store_zeros(bf16* out, Strides st, int b,
 // The key loop.  The caller has started and committed the cp.async group of
 // Q (stage_q); `ld` supplies the keys:
 //   tiles()            number of pipeline stages to stream
-//   fetch(t, k, v, tid, nthr)  cp.async stage t's K and V rows (64 each)
+//   fetch(t, k, v, tid, nthr)  cp.async stage t's K and V rows (KT each)
 //   units(t)           units (online-softmax updates) in stage t
 //   unit(t, u, kpos0, c)       unit u's first absolute position and live
 //                      count; its rows start at row u * NKC * 16
@@ -409,6 +447,7 @@ __device__ __forceinline__ void run(const Loader& ld, const QRows& rows,
                                     Strides ost, int b, int g, int Sq,
                                     int window, float cap, float scale) {
   constexpr int S = Tile<HD>::STRIDE, UNIT = NKC * 16;
+  constexpr int KT = Tile<HD>::KT, STAGES = Tile<HD>::STAGES;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int T = ld.tiles();

@@ -24,8 +24,9 @@
 // One launch, grid (KV, B, n_split), 256 threads.  Split s of row b covers
 // the fixed table entries [s * E, (s + 1) * E), E = max(1, SPLIT_KEYS /
 // page).  SPLIT_KEYS is 128, and 64 for rows above 256 bytes (f32 at hd
-// 128), where 128 keys of K and V would take more shared memory than two
-// CTAs a SM can hold (no ring is needed).  The split size never depends on
+// 128, bf16 and f32 at hd 256), where 128 keys of K and V would take more
+// shared memory than two CTAs a SM can hold (no ring is needed).  At hd
+// 256 a split's K/V rows take 67,584 bytes in bf16 and 133,120 in f32.  The split size never depends on
 // B, on n_slots or on a row's length, so a row's bits depend only on its
 // own run table: not on the batch it sits in, its neighbours' pages, or
 // how many empty entries trail its table.
@@ -82,15 +83,20 @@ template <typename T, int HD> struct Split {
       (2 * (size_t)KEYS + NW) * 4;
 };
 
-// D consecutive elements of a row as f32, in one load
+// D consecutive elements of a row as f32, in one load (two for f32 at
+// D = 8: hd 256)
 template <int D>
 __device__ __forceinline__ void load_f(const float* p, float (&f)[D]) {
   if constexpr (D == 2) {
     const float2 v = *reinterpret_cast<const float2*>(p);
     f[0] = v.x, f[1] = v.y;
   } else {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(p)[i];
+      f[4 * i] = v.x, f[4 * i + 1] = v.y, f[4 * i + 2] = v.z,
+      f[4 * i + 3] = v.w;
+    }
   }
 }
 template <int D>
@@ -99,9 +105,12 @@ __device__ __forceinline__ void load_f(const __nv_bfloat16* p,
   uint32_t w[D / 2];
   if constexpr (D == 2) {
     w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else {
+  } else if constexpr (D == 4) {
     const uint2 v = *reinterpret_cast<const uint2*>(p);
     w[0] = v.x, w[1] = v.y;
+  } else {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
   }
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) {
@@ -116,8 +125,12 @@ __device__ __forceinline__ void load_cg(const float* p, float (&f)[D]) {
     const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
     f[0] = v.x, f[1] = v.y;
   } else {
-    const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
-    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(p) + i);
+      f[4 * i] = v.x, f[4 * i + 1] = v.y, f[4 * i + 2] = v.z,
+      f[4 * i + 3] = v.w;
+    }
   }
 }
 template <int D>
@@ -125,7 +138,10 @@ __device__ __forceinline__ void store_f(float* p, const float (&f)[D]) {
   if constexpr (D == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(f[0], f[1]);
   } else {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] =
+          make_float4(f[4 * i], f[4 * i + 1], f[4 * i + 2], f[4 * i + 3]);
   }
 }
 
@@ -518,9 +534,11 @@ extern "C" cudaError_t paged_decode_launch(
   if (is_bf16) {
     if (hd == 64) return launch<__nv_bfloat16, 64>(PA_ARGS);
     if (hd == 128) return launch<__nv_bfloat16, 128>(PA_ARGS);
+    if (hd == 256) return launch<__nv_bfloat16, 256>(PA_ARGS);
   } else {
     if (hd == 64) return launch<float, 64>(PA_ARGS);
     if (hd == 128) return launch<float, 128>(PA_ARGS);
+    if (hd == 256) return launch<float, 256>(PA_ARGS);
   }
 #undef PA_ARGS
   return cudaErrorInvalidValue;

@@ -18,7 +18,7 @@
 // query-key pair against 2 * hd K/V elements per key), bytes for short
 // chunks over long caches.
 //
-// bf16 (the served model; hd 64 and 128): the tensor-core tile of
+// bf16 (the served model; hd 64, 128 and 256): the tensor-core tile of
 // attn_tile.cuh.  One CTA per (b, kv_head, q-block) packs the R query heads
 // of the KV head with bq rows of the block, 16 rows per warp and 2-8 warps
 // (fewer when the grid is thin), so each page is read once for all R heads.
@@ -26,15 +26,16 @@
 // entries wholly past the block's causal frontier and, with a window,
 // entries wholly before every row's window (fully masked, so dropping them
 // is exact; the TPU kernel streams and masks all of them).  It then streams
-// the listed pages through the cp.async ring, 64 / KP pages a stage, each
-// page zero-padded to KP = 16 keys (32 for pages of 17-32).  Every page
+// the listed pages through the cp.async ring, KT / KP pages a stage (KT =
+// 64 keys, 32 at hd 256), each page zero-padded to KP = 16 keys (32 for
+// pages of 17-32).  Every page
 // gets its own online-softmax update, as in the TPU kernel and the plain
 // version: the sequence of updates a row sees is fixed by the table alone,
 // so a row's bits do not depend on the chunk or q-block it sits in (see
 // attn_tile.cuh).  P enters the P @ V product as hi + lo bf16 parts (two
 // products).
 //
-// f32 (hd 64 and 128; the CPU-side checks' dtype, never served on the
+// f32 (hd 64, 128 and 256; the CPU-side checks' dtype, never served on the
 // card): a CUDA-core body, one page at a time through shared memory with
 // f32 FMAs, scores one (packed row, key) pair per thread and one thread per
 // row for the online softmax.
@@ -52,7 +53,7 @@ constexpr int MAXR = 16;    // query heads per KV head
 // The CTA's table slots, in table order, as {page id, live count, start}.
 template <int HD, int NKC> struct PagedKeys {
   static constexpr int UNIT = 16 * NKC;          // keys a page occupies
-  static constexpr int UPT = attn::KT / UNIT;    // pages a stage
+  static constexpr int UPT = attn::Tile<HD>::KT / UNIT;   // pages a stage
   const int4* list;
   int n;
   const attn::bf16* k;          // page 0, slot 0 of (layer, kv_head)
@@ -105,7 +106,8 @@ __global__ void __launch_bounds__(attn::MAXW * 32) paged_prefill_mma(
   const int nrows = 16 * (nthr / 32);
   attn::bf16* qsm = reinterpret_cast<attn::bf16*>(smem);
   attn::bf16* ring = qsm + nrows * S;
-  int4* list = reinterpret_cast<int4*>(ring + attn::STAGES * attn::Tile<HD>::STAGE);
+  int4* list = reinterpret_cast<int4*>(
+      ring + attn::Tile<HD>::STAGES * attn::Tile<HD>::STAGE);
   __shared__ int warp_n[attn::MAXW];
 
   attn::stage_q<HD>(qsm, q, qst, b, g, Sq, rows, nrows, tid, nthr);
@@ -393,9 +395,13 @@ extern "C" cudaError_t paged_prefill_launch(
     if (hd == 128)
       return page <= 16 ? launch_mma<128, 1>(PA_ARGS)
                         : launch_mma<128, 2>(PA_ARGS);
+    if (hd == 256)
+      return page <= 16 ? launch_mma<256, 1>(PA_ARGS)
+                        : launch_mma<256, 2>(PA_ARGS);
   } else {
     if (hd == 64) return launch_f32<64>(PA_ARGS);
     if (hd == 128) return launch_f32<128>(PA_ARGS);
+    if (hd == 256) return launch_f32<256>(PA_ARGS);
   }
 #undef PA_ARGS
   return cudaErrorInvalidValue;

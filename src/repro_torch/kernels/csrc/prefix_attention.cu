@@ -18,12 +18,13 @@
 // query-key pair against 2 * hd K/V elements per key), bytes for a short
 // chunk after a long prefix.
 //
-// bf16 (the served model; hd 64 and 128): the tensor-core tile of
+// bf16 (the served model; hd 64, 128 and 256): the tensor-core tile of
 // attn_tile.cuh.  One CTA per (b, kv_head, q-block) packs the R query heads
 // of the KV head with bq rows of the block, 16 rows per warp and 2-8 warps
 // (fewer when the grid is thin), so each K/V tile is read once for all R
-// heads (the TPU grid streams it R times).  The loader streams 64-key tiles
-// strided from k0 = a multiple of 64 from key 0, whatever the block, up to
+// heads (the TPU grid streams it R times).  The loader streams KT-key tiles
+// (KT = 64, 32 at hd 256) strided from k0 = a multiple of KT from key 0,
+// whatever the block, up to
 // the block's causal frontier (min(Skv, last row's position + 1)) and from
 // the first tile inside the first row's window; keys past the frontier are
 // zero-filled and masked.  Each tile is one online-softmax update, so a
@@ -33,7 +34,7 @@
 // with the same bits as the masked path.  P enters the P @ V product as
 // hi + lo bf16 parts (two products; see attn_tile.cuh).
 //
-// f32 (hd 64 and 128; the CPU-side checks' dtype, never served on the
+// f32 (hd 64, 128 and 256; the CPU-side checks' dtype, never served on the
 // card): a CUDA-core body, 64-key tiles through shared memory with f32
 // FMAs, scores one (packed row, key) pair per thread and one thread per row
 // for the online softmax; same tiles, skips and fast path.
@@ -49,26 +50,27 @@ constexpr int BK = 64;      // keys per tile
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-// 64-key tiles [kstart + 64 t, ...) of one (b, kv_head), cut at kend.
+// KT-key tiles [kstart + KT t, ...) of one (b, kv_head), cut at kend.
 template <int HD> struct DenseKeys {
+  static constexpr int KT = attn::Tile<HD>::KT;
   const attn::bf16* k;
   const attn::bf16* v;
   long long ks, vs;             // sequence strides
   int kstart, kend;
 
   __device__ int tiles() const {
-    return kend > kstart ? (kend - kstart + attn::KT - 1) / attn::KT : 0;
+    return kend > kstart ? (kend - kstart + KT - 1) / KT : 0;
   }
   __device__ int units(int) const { return 1; }
   __device__ void unit(int t, int, int& kpos0, int& c) const {
-    kpos0 = kstart + t * attn::KT;
-    c = min(attn::KT, kend - kpos0);
+    kpos0 = kstart + t * KT;
+    c = min(KT, kend - kpos0);
   }
   __device__ void fetch(int t, attn::bf16* kd, attn::bf16* vd, int tid,
                         int nthr) const {
     constexpr int S = attn::Tile<HD>::STRIDE, CH = attn::Tile<HD>::CH;
-    const int k0 = kstart + t * attn::KT, c = min(attn::KT, kend - k0);
-    for (int ci = tid; ci < attn::KT * CH; ci += nthr) {
+    const int k0 = kstart + t * KT, c = min(KT, kend - k0);
+    for (int ci = tid; ci < KT * CH; ci += nthr) {
       const int r = ci / CH, ch = ci % CH;
       const bool in = r < c;
       attn::cp_async16(kd + r * S + ch * 8,
@@ -101,14 +103,15 @@ __global__ void __launch_bounds__(attn::MAXW * 32) prefix_attention_mma(
   const int qmax = prefix_len + min(row0 + bq, Sq) - 1;
   // first tile holding a key inside the first row's window; keys past qmax
   // are masked for every row of the block
+  constexpr int KT = attn::Tile<HD>::KT;
   int kstart = 0;
   if (window > 0 && qmin - window + 1 > 0)
-    kstart = (qmin - window + 1) / attn::KT * attn::KT;
+    kstart = (qmin - window + 1) / KT * KT;
   const DenseKeys<HD> ld{k + b * ks.b + (long long)g * ks.h,
                          v + b * vs.b + (long long)g * vs.h, ks.s, vs.s,
                          kstart, min(Skv, qmax + 1)};
-  attn::run<HD, attn::KT / 16>(ld, rows, qsm, ring, out, os, b, g, Sq,
-                               window, cap, scale);
+  attn::run<HD, KT / 16>(ld, rows, qsm, ring, out, os, b, g, Sq, window,
+                         cap, scale);
 }
 
 template <int HD>
@@ -349,9 +352,11 @@ extern "C" cudaError_t prefix_attention_launch(
   if (is_bf16) {
     if (hd == 64) return launch_mma<64>(PA_ARGS);
     if (hd == 128) return launch_mma<128>(PA_ARGS);
+    if (hd == 256) return launch_mma<256>(PA_ARGS);
   } else {
     if (hd == 64) return launch_f32<64>(PA_ARGS);
     if (hd == 128) return launch_f32<128>(PA_ARGS);
+    if (hd == 256) return launch_f32<256>(PA_ARGS);
   }
 #undef PA_ARGS
   return cudaErrorInvalidValue;

@@ -27,8 +27,10 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_R = 16          # query heads per KV head the CUDA kernels take
 MAX_PAGE = 32       # page (block) size the CUDA kernels take
+HEAD_DIMS = (64, 128, 256)   # head dims the CUDA kernels take
 # keys a split of the CUDA decode kernel covers (csrc/paged_decode.cu
-# SPLIT_KEYS), and for rows above 256 bytes (f32 at hd 128: SPLIT_KEYS_WIDE)
+# SPLIT_KEYS), and for rows above 256 bytes (f32 at hd 128, both dtypes at
+# hd 256: SPLIT_KEYS_WIDE)
 SPLIT_KEYS = 128
 SPLIT_KEYS_WIDE = 64
 
@@ -128,8 +130,9 @@ def check_pool_args(name, q, k_pages, v_pages, ints, *, q_rank: int,
         check_rows(name, q=q)
     H, hd = q.shape[1], q.shape[-1]
     page, KV = k_pages.shape[2], k_pages.shape[3]
-    if hd not in (64, 128) or k_pages.shape[4] != hd:
-        raise ValueError(f"{name}: head dim must be 64 or 128, got {hd}")
+    if hd not in HEAD_DIMS or k_pages.shape[4] != hd:
+        raise ValueError(f"{name}: head dim must be 64, 128 or 256, got "
+                         f"{hd}")
     if H % KV or H // KV > MAX_R:
         raise ValueError(f"{name}: need H % KV == 0 and H / KV <= {MAX_R}, "
                          f"got H={H} KV={KV}")

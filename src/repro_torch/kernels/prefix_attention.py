@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import MAX_R, check_rows
+from repro_torch.kernels.paged_attention import HEAD_DIMS, MAX_R, check_rows
 
 NEG_INF = -1e30
 BLOCK = 128         # block_q = block_k of the TPU kernel
@@ -117,9 +117,9 @@ def _check_cuda_args(q, k, v) -> None:
         raise ValueError(f"prefix_flash_attention takes f32 or bf16 q/k/v of "
                          f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     hd = q.shape[-1]
-    if hd not in (64, 128):
-        raise ValueError(f"prefix_flash_attention takes head_dim 64 or 128; "
-                         f"got {hd}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"prefix_flash_attention takes head_dim 64, 128 or "
+                         f"256; got {hd}")
     if q.shape[1] // k.shape[1] > MAX_R:
         raise ValueError(f"at most {MAX_R} query heads per KV head")
     check_rows("prefix_flash_attention", q=q, k=k, v=v)
@@ -133,13 +133,13 @@ def prefix_flash_attention(q, k, v, *, prefix_len: int, window: int = 0,
     prefix_flash_attention``.  Bound on the H100 by operations for long
     sequences, bytes for a short chunk after a long prefix.  bf16 runs on
     the tensor cores (mma.sync m16n8k16, f32 accumulation, P as hi + lo
-    bf16 parts for the P @ V product) with 64-key K/V tiles streamed
-    through a cp.async ring; f32 on CUDA cores.  One CTA packs the R query
-    heads of a KV head so each tile is read once for all of them, and skips
-    tiles wholly past the causal frontier or before the window.  Tiles
-    start at multiples of 64 from key 0 and each is one online-softmax
-    update, so a row's bits do not depend on the chunk it sits in (see
-    csrc/attn_tile.cuh).  It also takes ``logit_cap``, which the TPU kernel
+    bf16 parts for the P @ V product) with 64-key K/V tiles (32-key at hd
+    256) streamed through a cp.async ring; f32 on CUDA cores.  One CTA
+    packs the R query heads of a KV head so each tile is read once for all
+    of them, and skips tiles wholly past the causal frontier or before the
+    window.  Tiles start at multiples of their size from key 0 and each is
+    one online-softmax update, so a row's bits do not depend on the chunk
+    it sits in (see csrc/attn_tile.cuh).  It also takes ``logit_cap``, which the TPU kernel
     lacks.  A CPU tensor takes the plain version; a CUDA tensor launches
     the kernel on the current stream or raises.
     """

@@ -43,7 +43,9 @@ from the cache and shed requests never run.
 The CLI uses the reduced config unless ``--full-size`` asks for the
 published one; ``make_setup(args, cfg=...)`` takes any.  ``--arch`` takes
 ``qwen2-0.5b`` (the default), ``mistral-7b`` and ``llama2-7b``, the paper's
-evaluation models, ``mixtral-8x7b`` and ``phi3.5-moe-42b-a6.6b`` (MoE),
+evaluation models, the rest of the dense family (``gemma3-12b``, head dim
+256; ``gemma2-27b``, softcaps; ``yi-34b``, R 7; ``llama2-70b``),
+``mixtral-8x7b`` and ``phi3.5-moe-42b-a6.6b`` (MoE),
 ``internvl2-1b`` (VLM: its text backbone is served), and the recurrent
 families ``xlstm-1.3b`` (ssm) and ``hymba-1.5b`` (hybrid), which always go
 to the sequential engine, caching each document's state snapshot
@@ -52,13 +54,15 @@ the continuous engine only, and say so).  ``musicgen-large`` (audio) is
 registered but served by neither engine: its model steps take codebook
 tokens (B, K, S), and the engines raise ``ValueError`` on its (B, S)
 requests, as the reference's do.  At full size the
-seeded random bf16 weights take 14.5 GB (Mistral-7B) and 13.5 GB
-(LLaMA2-7B) on the card; Mixtral-8x7B's (93.4 GB) and Phi-3.5-MoE's
-(83.7 GB) do not fit one 80 GB card, so ``--full-size`` serves neither
-there.  ``--gpu-cache-bytes`` sizes the paged pool, clipped at 4096
-blocks: keep it at or below 4096 blocks of KV (7.875 GiB for Mistral-7B,
-31.5 GiB for LLaMA2-7B at block 16), or the knowledge tree budgets GPU
-space the pool lacks.
+seeded random bf16 weights take 14.5 GB (Mistral-7B), 13.5 GB
+(LLaMA2-7B), 23.5 GB (Gemma3-12B), 54.5 GB (Gemma2-27B) and 68.8 GB
+(Yi-34B) on the card; LLaMA2-70B's (138.0 GB), Mixtral-8x7B's (93.4 GB)
+and Phi-3.5-MoE's (83.7 GB) do not fit one 80 GB card, and ``--full-size``
+refuses them before drawing any weight: they need tensor parallelism,
+which is not ported (ROADMAP.md Queue A).  ``--gpu-cache-bytes`` sizes
+the paged pool, clipped at 4096 blocks: keep it at or below 4096 blocks
+of KV (7.875 GiB for Mistral-7B, 31.5 GiB for LLaMA2-7B at block 16), or
+the knowledge tree budgets GPU space the pool lacks.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full-size \
         --arch mistral-7b --gpu-cache-bytes 8053063680 --check-tokens tol:0.3
@@ -254,14 +258,27 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+# device memory of the one card the port serves a model on (an H100)
+ONE_CARD_BYTES = 80e9
+
+
 def make_setup(args, cfg=None):
     """Build (cfg, params, corpus, idx, workload, tenants).  ``cfg``
     defaults to the reduced config of ``--arch`` (the published one under
-    ``--full-size``); params are seeded random weights on ``--device``.
-    ``tenants`` is the TenantSpec list when --tenants > 0 (multi-tenant
-    traffic model), else None (single-tenant make_workload)."""
+    ``--full-size``, which raises ``ValueError`` for a model whose weights
+    alone pass one 80 GB card); params are seeded random weights on
+    ``--device``.  ``tenants`` is the TenantSpec list when --tenants > 0
+    (multi-tenant traffic model), else None (single-tenant
+    make_workload)."""
     if cfg is None:
         cfg = (get_config if args.full_size else get_reduced)(args.arch)
+        need = cfg.n_params() * cfg.tdtype.itemsize
+        if args.full_size and need > ONE_CARD_BYTES:
+            raise ValueError(
+                f"--full-size --arch {args.arch}: {need / 1e9:.1f} GB of "
+                f"{cfg.dtype} weights do not fit one 80 GB card; serving it "
+                f"needs tensor parallelism (--tp), which the port does not "
+                f"have yet (ROADMAP.md Queue A item 6)")
     params = M.init_params(cfg, args.seed, resolve_device(args.device))
     return (cfg, params) + make_data(args, cfg)
 

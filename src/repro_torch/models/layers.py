@@ -29,13 +29,24 @@ products need it was measured by chip_smoke.py's row-invariance probe
               (K 14336); not q, o, the experts' gate and up, the router
               (K 4096, N 8) or the logits.  The rule slabs the router
               too: a 512 x 4096 x 8 product.
+  Gemma3-12B  the k and v projections (K 3840, N 2048), from 64 rows on;
+              not q (N 4096), o (K 4096, N 3840), gate, up (N 15360) or
+              the tied logits (N 262144).  Its down (K 15360) is deeper
+              than SLAB_MIN_K, as every product of Gemma2-27B (K 4608 and
+              up) and Yi-34B (K 7168 and up) but o (K 4096, N 4608 and
+              7168) and Gemma2's tied logits, and none of those showed a
+              difference with the rule applied.
 
 Phi-3.5-MoE's gate and up (K 4096, N 6400) and down (K 6400) are not
 measured on the card; the rule slabs only the down.
 
-``slabbed`` holds that rule: deeper than SLAB_MIN_K, or SLAB_MIN_K deep
-with at most a quarter as many outputs.  The norm's mean is row-invariant
-as it is.  The probe runs every op with and without the helper, so a
+``slabbed`` holds that rule: deeper than SLAB_MIN_K, or at least
+SLAB_NARROW_K deep with at most SLAB_NARROW_N outputs (deep and narrow
+products, for which cuBLAS splits the contraction across CTAs by a count
+it picks from the rows).  Of the products measured before Gemma3-12B the
+narrow clause adds only xLSTM-1.3B's mLSTM down projection (K 4096, N
+2048), which no probe has measured.  The norm's mean is row-invariant as
+it is.  The probe runs every op with and without the helper, so a
 product this rule misses shows there.
 
 The recurrent scans (``causal_conv1d``, ``mlstm_scan``,
@@ -64,8 +75,11 @@ NEG_INF = -1e30
 # rows per call of the products run through row_slabs; 0 makes one call
 # over all rows
 ROW_SLAB = 512
-# contraction depth of the products proj runs through row_slabs (slabbed)
+# contraction depth of the products proj runs through row_slabs (slabbed),
+# and the depth and width of the narrow ones it also runs through them
 SLAB_MIN_K = 4096
+SLAB_NARROW_K = 3840
+SLAB_NARROW_N = 2048
 
 
 def row_slabs(fn, x: torch.Tensor) -> torch.Tensor:
@@ -127,10 +141,10 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 
 def slabbed(w: torch.Tensor) -> bool:
     """Whether ``proj`` runs the product with w (K, N) in fixed row slabs:
-    K > SLAB_MIN_K, or K == SLAB_MIN_K and N <= K / 4 (see the module
-    docstring)."""
+    K > SLAB_MIN_K, or K >= SLAB_NARROW_K and N <= SLAB_NARROW_N (see the
+    module docstring)."""
     K, N = w.shape[-2], w.shape[-1]
-    return K > SLAB_MIN_K or (K == SLAB_MIN_K and 4 * N <= K)
+    return K > SLAB_MIN_K or (K >= SLAB_NARROW_K and N <= SLAB_NARROW_N)
 
 
 def proj(x: torch.Tensor, w: torch.Tensor,

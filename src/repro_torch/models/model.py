@@ -50,6 +50,9 @@ from repro_torch.models.config import ModelConfig
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 RECURRENT = ("ssm", "hybrid")
+# a dense model's layer stacks are drawn one layer at a time when the
+# largest of them would take more than this in f32 (init_params)
+WHOLE_DRAW_BYTES = 8 * 2**30
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -71,15 +74,23 @@ def init_params(cfg: ModelConfig, seed: int,
     normal(0, 0.02), output projections scaled by 1/sqrt(2L), zero norms
     and biases — drawn from one ``torch.Generator``).
 
-    Each tensor is drawn whole in f32 and cast, except the expert weights
-    and the recurrent families' layer weights, which are drawn one slice
-    of their leading (layer, expert) or (period, block) axes at a time
-    into a tensor allocated in its final dtype, so that the transient f32
-    is one slice (Mixtral-8x7B's whole stacked expert tensor would be 45
-    GB in f32).  The dense families draw from the stream in the order they
-    always have; the other families' tensors are drawn where they appear
-    in the tree.  On the ``meta`` device no value is drawn: the tree's
-    shapes and dtypes only."""
+    Each tensor is drawn whole in f32 and cast, except the expert weights,
+    the recurrent families' layer weights and the large dense stacks,
+    which are drawn one slice of their leading (layer, expert) or (period,
+    block) axes at a time into a tensor allocated in its final dtype, so
+    that the transient f32 is one slice (Mixtral-8x7B's whole stacked
+    expert tensor would be 45 GB in f32).  The rule for the layer stacks
+    (wq, wk, wv, wo, wg, wu, wd) of a model without experts: when the
+    largest of them would take more than ``WHOLE_DRAW_BYTES`` (8 GiB)
+    drawn whole in f32 (Gemma3-12B's wg takes 11.3 GB, Gemma2-27B's 31.3
+    GB, Yi-34B's 35.2 GB, LLaMA2-70B's 75.2 GB, Mistral-7B's 7.5 GB), all
+    seven are drawn one layer at a time, each layer's slice from the
+    stream in layer order; below it every stack is drawn whole, so the
+    streams of every model drawn before the rule are unchanged.  The
+    dense families draw from the stream in the order they always have;
+    the other families' tensors are drawn where they appear in the tree.
+    On the ``meta`` device no value is drawn: the tree's shapes and
+    dtypes only."""
     _check_family(cfg)
     D, F, V, nl = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -117,12 +128,17 @@ def init_params(cfg: ModelConfig, seed: int,
     if cfg.family == "ssm":
         params["blocks"] = _init_xlstm_blocks(cfg, mk_slices, zeros)
         return params
+    stack = mk
+    if not cfg.moe_experts and 4 * nl * D * max(F, H * hd) \
+            > WHOLE_DRAW_BYTES:
+        def stack(shape, s=scale):
+            return mk_slices(shape, s, lead=1)
     blk = {
         "ln1": zeros((nl, D)),
-        "wq": mk((nl, D, H * hd)),
-        "wk": mk((nl, D, KV * hd)),
-        "wv": mk((nl, D, KV * hd)),
-        "wo": mk((nl, H * hd, D), out_scale),
+        "wq": stack((nl, D, H * hd)),
+        "wk": stack((nl, D, KV * hd)),
+        "wv": stack((nl, D, KV * hd)),
+        "wo": stack((nl, H * hd, D), out_scale),
         "ln2": zeros((nl, D)),
     }
     if cfg.moe_experts:
@@ -132,9 +148,9 @@ def init_params(cfg: ModelConfig, seed: int,
         blk["wu"] = mk_slices((nl, E, D, F))
         blk["wd"] = mk_slices((nl, E, F, D), out_scale)
     else:
-        blk["wg"] = mk((nl, D, F))
-        blk["wu"] = mk((nl, D, F))
-        blk["wd"] = mk((nl, F, D), out_scale)
+        blk["wg"] = stack((nl, D, F))
+        blk["wu"] = stack((nl, D, F))
+        blk["wd"] = stack((nl, F, D), out_scale)
     if cfg.qkv_bias:
         blk["bq"] = zeros((nl, H * hd))
         blk["bk"] = zeros((nl, KV * hd))

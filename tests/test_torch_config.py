@@ -9,12 +9,15 @@ torch.set_num_threads(2)
 from repro import configs as jax_configs
 from repro_torch import configs as torch_configs
 
-ARCHS = ["qwen2-0.5b", "mistral-7b", "llama2-7b", "mixtral-8x7b",
+ARCHS = ["qwen2-0.5b", "mistral-7b", "llama2-7b", "gemma3-12b",
+         "gemma2-27b", "yi-34b", "llama2-70b", "mixtral-8x7b",
          "phi3.5-moe-42b-a6.6b", "internvl2-1b", "xlstm-1.3b", "hymba-1.5b",
          "musicgen-large"]
 # K and V bytes a token, bf16, all layers (the config modules' docstrings:
-# 0.125 MiB for Mistral-7B, 0.5 MiB for LLaMA2-7B)
-KV_BYTES = {"mistral-7b": 131_072, "llama2-7b": 524_288}
+# 0.125 MiB for Mistral-7B, 0.5 MiB for LLaMA2-7B, 0.3125 MiB for
+# LLaMA2-70B)
+KV_BYTES = {"mistral-7b": 131_072, "llama2-7b": 524_288,
+            "llama2-70b": 327_680}
 
 
 @pytest.mark.parametrize("getter", ["get_config", "get_reduced"])
@@ -36,9 +39,9 @@ def test_config_fields_match(arch, getter):
 
 def test_registry_lists_the_served_models():
     assert torch_configs.list_configs() == [
-        "qwen2_0p5b", "mistral_7b", "llama2_7b", "mixtral_8x7b",
-        "phi35_moe_42b", "internvl2_1b", "xlstm_1p3b", "hymba_1p5b",
-        "musicgen_large"]
+        "qwen2_0p5b", "mistral_7b", "llama2_7b", "gemma3_12b", "gemma2_27b",
+        "yi_34b", "llama2_70b", "mixtral_8x7b", "phi35_moe_42b",
+        "internvl2_1b", "xlstm_1p3b", "hymba_1p5b", "musicgen_large"]
     assert torch_configs.get_config("mistral-7b").layer_windows() == \
         (4096,) * 32
     assert torch_configs.get_reduced("mistral-7b").layer_windows() == \
@@ -50,11 +53,20 @@ def test_registry_lists_the_served_models():
     assert mixtral.layer_windows() == (4096,) * 32
     assert torch_configs.get_config("phi3.5-moe-42b-a6.6b").moe_experts == 16
     assert torch_configs.get_config("internvl2-1b").family == "vlm"
+    gemma3 = torch_configs.get_config("gemma3-12b")
+    assert (gemma3.hd, gemma3.q_rep, gemma3.vocab_size) == (256, 2, 262144)
+    assert gemma3.layer_windows() == ((1024,) * 5 + (0,)) * 8
+    gemma2 = torch_configs.get_config("gemma2-27b")
+    assert (gemma2.attn_logit_softcap, gemma2.final_logit_softcap) == \
+        (50.0, 30.0)
+    assert gemma2.layer_windows() == (4096, 0) * 23
+    assert torch_configs.get_config("yi-34b").q_rep == 7
+    assert torch_configs.get_config("llama2-70b").q_rep == 8
 
 
 def test_unported_architecture_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        torch_configs.get_config("gemma2-27b")
+        torch_configs.get_config("deepseek-v3")
 
 
 # the published widths of the recurrent and audio models (their config

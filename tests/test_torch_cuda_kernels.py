@@ -20,7 +20,10 @@ computed pages between shared runs, and a chunk whose q_start lies past
 shared runs and before others.  Fixed cases hold all three kernels at the
 paper models' head shapes (hd 128, 32 query heads over Mistral-7B's 8 KV
 heads and LLaMA2-7B's 32), in both dtypes, and under Mistral's 4096-token
-window over rows of more than 4096 keys, with the same bit checks.
+window over rows of more than 4096 keys, with the same bit checks; and at
+Gemma3-12B's (hd 256, 16 query heads over 8 KV heads), under its
+1024-token window and without it, on pages of 8, 16 and 32 keys.  Any
+other head dim must raise in all three wrappers.
 """
 import numpy as np
 import pytest
@@ -422,16 +425,21 @@ def _table(rng, rows, page):
     return (*ints, [r[3] for r in runs], n_pages)
 
 
-def paper_decode_case(KV, R, window, dtype, dev):
-    """8 rows of two docs and a question (~1,100 keys; ~4,700 under the
-    window, past it), the last row all empty."""
-    rng = np.random.default_rng(KV + window)
-    docs = (2400, 2300) if window else (600, 500)
+def _seed(KV, window, hd, page):
+    return KV + window + (0 if hd == 128 else hd + page)
+
+
+def paper_decode_case(KV, R, window, dtype, dev, hd=128, page=16):
+    """8 rows of two docs and a question (~1,100 keys; ~4,700 under a 4096
+    window, past it; a 1024 window cuts the ~1,100), the last row all
+    empty."""
+    rng = np.random.default_rng(_seed(KV, window, hd, page))
+    docs = (2400, 2300) if window > 1100 else (600, 500)
     rows = [[docs[0] - 7 * b, docs[1] + 3 * b, 9 + b] for b in range(7)]
-    tables, counts, starts, lens, n_pages = _table(rng, rows + [[]], 16)
+    tables, counts, starts, lens, n_pages = _table(rng, rows + [[]], page)
     qpos = np.array([max(n - 1, 0) for n in lens], np.int32)
-    shape = (2, n_pages + 1, 16, KV, 128)
-    return dict(q=_randn(rng, (8, R * KV, 128), dtype, dev),
+    shape = (2, n_pages + 1, page, KV, hd)
+    return dict(q=_randn(rng, (8, R * KV, hd), dtype, dev),
                 k=_randn(rng, shape, dtype, dev),
                 v=_randn(rng, shape, dtype, dev),
                 ints=[torch.from_numpy(a).to(dev)
@@ -439,19 +447,20 @@ def paper_decode_case(KV, R, window, dtype, dev):
                 window=window, cap=0.0, empty=[False] * 7 + [True])
 
 
-def paper_prefill_case(KV, R, window, dtype, dev):
-    """A 160-row chunk after cached docs (4,500 keys under the window),
-    a shorter row, a fresh row and a padding row."""
-    rng = np.random.default_rng(KV + window + 1)
-    pre = (2400, 2100) if window else (700, 300)
+def paper_prefill_case(KV, R, window, dtype, dev, hd=128, page=16):
+    """A 160-row chunk after cached docs (4,500 keys under a 4096 window;
+    1,160 under a 1024 one), a shorter row, a fresh row and a padding
+    row."""
+    rng = np.random.default_rng(_seed(KV, window, hd, page) + 1)
+    pre = (2400, 2100) if window > 1100 else (700, 300)
     rows = [(list(pre), 160), ([900], 100), ([], 130), ([], 0)]
     tables, counts, starts, lens, n_pages = _table(
-        rng, [p + [ql] if ql else [] for p, ql in rows], 16)
+        rng, [p + [ql] if ql else [] for p, ql in rows], page)
     q_len = np.array([ql for _, ql in rows], np.int32)
     q_start = np.array([n - ql for n, (_, ql) in zip(lens, rows)], np.int32)
     q_start[q_len == 0] = 0
-    shape = (2, n_pages + 1, 16, KV, 128)
-    q = _randn(rng, (4, 160, R * KV, 128), dtype, dev).transpose(1, 2)
+    shape = (2, n_pages + 1, page, KV, hd)
+    q = _randn(rng, (4, 160, R * KV, hd), dtype, dev).transpose(1, 2)
     return dict(q=q, k=_randn(rng, shape, dtype, dev),
                 v=_randn(rng, shape, dtype, dev),
                 ints=[torch.from_numpy(a).to(dev)
@@ -468,7 +477,10 @@ def _check_bf16_rows(got, exact, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("model,KV,R,window", PAPER, ids=PAPER_IDS)
 def test_decode_kernel_at_paper_shapes(dev, model, KV, R, window, dtype):
-    c = paper_decode_case(KV, R, window, dtype, dev)
+    _check_paper_decode(paper_decode_case(KV, R, window, dtype, dev), dtype)
+
+
+def _check_paper_decode(c, dtype):
     got = _decode(PA.paged_decode_attention, c)
     want = _decode(PA.paged_decode_torch, c)
     torch.cuda.synchronize()
@@ -489,7 +501,11 @@ def test_decode_kernel_at_paper_shapes(dev, model, KV, R, window, dtype):
 @pytest.mark.parametrize("model,KV,R,window", PAPER, ids=PAPER_IDS)
 def test_paged_prefill_kernel_at_paper_shapes(dev, model, KV, R, window,
                                               dtype):
-    c = paper_prefill_case(KV, R, window, dtype, dev)
+    _check_paper_prefill(paper_prefill_case(KV, R, window, dtype, dev),
+                         dtype, dev)
+
+
+def _check_paper_prefill(c, dtype, dev):
     got = _paged(PP.paged_prefill_attention, c)
     want = _paged(PP.paged_prefill_torch, c)
     torch.cuda.synchronize()
@@ -512,11 +528,16 @@ def test_paged_prefill_kernel_at_paper_shapes(dev, model, KV, R, window,
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("model,KV,R,window", PAPER, ids=PAPER_IDS)
 def test_prefix_kernel_at_paper_shapes(dev, model, KV, R, window, dtype):
-    rng = np.random.default_rng(KV + window + 2)
-    P, Sq = (4200, 200) if window else (300, 200)
-    q = _randn(rng, (1, Sq, R * KV, 128), dtype, dev).transpose(1, 2)
-    k = _randn(rng, (1, P + Sq, KV, 128), dtype, dev).transpose(1, 2)
-    v = _randn(rng, (1, P + Sq, KV, 128), dtype, dev).transpose(1, 2)
+    _check_paper_prefix(KV, R, window, dtype, dev)
+
+
+def _check_paper_prefix(KV, R, window, dtype, dev, hd=128):
+    rng = np.random.default_rng(_seed(KV, window, hd, 0) + 2)
+    P, Sq = (4200, 200) if window > 1100 else (1000, 200) if window \
+        else (300, 200)
+    q = _randn(rng, (1, Sq, R * KV, hd), dtype, dev).transpose(1, 2)
+    k = _randn(rng, (1, P + Sq, KV, hd), dtype, dev).transpose(1, 2)
+    v = _randn(rng, (1, P + Sq, KV, hd), dtype, dev).transpose(1, 2)
     c = dict(q=q, k=k, v=v, prefix_len=P, window=window, logit_cap=0.0)
     got = _prefix(PX.prefix_flash_attention, c)
     want = _prefix(PX.prefix_attention_torch, c)
@@ -531,3 +552,50 @@ def test_prefix_kernel_at_paper_shapes(dev, model, KV, R, window, dtype):
         b = _prefix(PX.prefix_flash_attention, c, q=q[:, :, cut:],
                     prefix_len=P + cut)
         assert torch.equal(got[:, :, cut:], b), cut
+
+
+# Gemma3-12B's heads: hd 256, 16 query heads over 8 KV heads (R 2), its
+# 1024 window (which the ~1,100-key rows pass) and its global layers;
+# pages of 8, 16 and 32 keys
+HD256 = [(0, 8), (1024, 8), (0, 16), (1024, 16), (0, 32), (1024, 32)]
+HD256_IDS = [f"win{w}-page{p}" for w, p in HD256]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window,page", HD256, ids=HD256_IDS)
+def test_decode_kernel_at_hd256(dev, window, page, dtype):
+    _check_paper_decode(paper_decode_case(8, 2, window, dtype, dev, hd=256,
+                                          page=page), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window,page", HD256, ids=HD256_IDS)
+def test_paged_prefill_kernel_at_hd256(dev, window, page, dtype):
+    _check_paper_prefill(paper_prefill_case(8, 2, window, dtype, dev,
+                                            hd=256, page=page), dtype, dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [0, 1024])
+def test_prefix_kernel_at_hd256(dev, window, dtype):
+    _check_paper_prefix(8, 2, window, dtype, dev, hd=256)
+
+
+@pytest.mark.parametrize("hd", [32, 96, 192, 512])
+def test_kernels_refuse_other_head_dims(dev, hd):
+    c = decode_case(1, torch.bfloat16, dev)
+    shape = c["k"].shape[:-1] + (hd,)
+    q = torch.zeros(c["q"].shape[:-1] + (hd,), dtype=torch.bfloat16,
+                    device=dev)
+    k = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        _decode(PA.paged_decode_attention, c, q=q, k=k, v=k)
+    tables, counts, starts, _ = c["ints"]
+    B = q.shape[0]
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        PP.paged_prefill_attention(q[:, :, None], k, k, tables, counts,
+                                   starts, zero, zero + 1, 1, 0)
+    x = torch.zeros((1, 4, 8, hd), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        PX.prefix_flash_attention(x, x, x, prefix_len=0)

@@ -47,6 +47,10 @@ VERBATIM = [
     "configs/xlstm_1p3b.py",
     "configs/hymba_1p5b.py",
     "configs/musicgen_large.py",
+    "configs/gemma3_12b.py",
+    "configs/gemma2_27b.py",
+    "configs/yi_34b.py",
+    "configs/llama2_70b.py",
 ]
 
 JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M)
@@ -102,6 +106,10 @@ SLICE_MODULES = [
     "repro_torch.configs.xlstm_1p3b",
     "repro_torch.configs.hymba_1p5b",
     "repro_torch.configs.musicgen_large",
+    "repro_torch.configs.gemma3_12b",
+    "repro_torch.configs.gemma2_27b",
+    "repro_torch.configs.yi_34b",
+    "repro_torch.configs.llama2_70b",
     "repro_torch.configs",
 ]
 
