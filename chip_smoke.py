@@ -104,7 +104,29 @@ Phases, each fatal on failure:
                split bit for bit, 2 requests through the plain versions,
                the profile (Gemma3-12B only), and serve.main --full-size
                --check-tokens tol:<eps> on 4 requests; eps is paper_eps
-               scaled by sqrt(layers / 32) (large_eps).
+               scaled by sqrt(layers / 32) (large_eps);
+ 24. train   — run after phase 14, on Qwen2-0.5B's weights at full width
+               and depth: training.train_lib.make_train_step for 20 AdamW
+               steps of 8 x 1024 tokens of the synthetic stream (bf16
+               weights, f32 moments), the loss falling and every loss,
+               grad norm and param finite; tokens/s, ms a step and peak
+               memory; the prefix kernel's launches in one step (the
+               forward and the backward's recompute of each layer); one
+               step's device time by kernel class (torch.profiler); one
+               step through the kernels against one through the plain
+               versions (loss and grad norm in bf16 at full width, every
+               grad leaf in f32 at 2 layers); the prefix kernel timed at
+               the training shape beside the plain backward;
+ 25. fault   — paper §6: the main trace's first 16 requests on a fresh
+               runtime, hot nodes replicated to the host tier, a simulated
+               device loss (core.fault_tolerance), every survivor's host
+               KV hashed equal to its KV before the loss, then the same
+               requests again: tokens and first-token logits bit for bit;
+ 26. hops    — paper §9: core.iterative.run_iterative plans 3 hops of 2
+               docs over a runtime's controller, each hop's alpha the
+               previous path's tokens; the three paths served one request
+               a hop through a runtime that reuses each path's KV, tokens
+               equal to a cold runtime's on each path.
 
 Phases 3-4 also hold and time each kernel at the paper models' head shapes
 (hd 128; KV 8 and R 4, KV 32 and R 1; Mistral's window over rows past 4096
@@ -288,6 +310,35 @@ SPIN_CYCLES = 2_000_000
 # rows per call in the row-invariance probe; 8192 is the largest prefill
 # iteration of the main path (4 rows x a 2048-token bucket)
 PROBE_ROWS = (1, 8, 64, 128, 512, 2048, 8192)
+# phase 24 (train): Qwen2-0.5B at full width and depth, seeded bf16 weights
+# (the main serve's) and f32 moments, TRAIN_STEPS AdamW steps of
+# TRAIN_BATCH x TRAIN_SEQ tokens of the synthetic stream, the lr schedule
+# launch/train.py gives a run of that length
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_LR = 1e-3
+# one step through the kernels against one through the plain versions, on
+# the same batch and weights.  bf16 at full width: the loss (~11.9 at init,
+# a mean over 8,192 tokens) within TRAIN_LOSS_TOL and the global grad norm
+# within TRAIN_GNORM_RTOL of each other; f32 at TRAIN_F32_LAYERS layers:
+# every grad leaf within TRAIN_F32_TOL * max|g_plain| + 1e-6 (set before
+# the first card run of these phases)
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GNORM_RTOL = 5e-2
+TRAIN_F32_LAYERS = 2
+TRAIN_F32_TOL = 1e-3
+# the profiler's spans over one train step
+BWD_SPAN = "flash attention backward"
+LOSS_SPAN = "chunked loss"
+# phase 25 (fault): the main trace's first FAULT_REQUESTS requests on a
+# fresh main-config runtime (host tier: the parser's 512 MiB), then hot
+# nodes replicated to the host within FAULT_REPLICA_BYTES before the
+# simulated device loss
+FAULT_REQUESTS = 16
+FAULT_REPLICA_BYTES = 64 * 2**20
+# phase 26 (hops): HOPS hops of HOP_DOCS docs each (paper §9)
+HOPS = 3
+HOP_DOCS = 2
 # where each kernel came from: (wrapper, source, TPU kernel it replaces)
 KERNELS = (
     ("paged_decode_attention", "src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -3266,6 +3317,402 @@ def phase_large_dense(torch, np, arch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: training, GPU-failure recovery, multi-hop retrieval
+# ---------------------------------------------------------------------------
+
+def tree_finite(torch, tree):
+    from repro_torch.training.optimizer import tree_leaves
+    return all(bool(torch.isfinite(t.float()).all())
+               for t in tree_leaves(tree))
+
+
+def train_batches(torch, cfg, n):
+    """``n`` batches of the synthetic stream on the card."""
+    from repro_torch.training.data import DataConfig, make_batches
+    data = make_batches(DataConfig(batch_size=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ,
+                                   vocab_size=cfg.vocab_size), cfg)
+    return [{k: torch.as_tensor(v, device="cuda")
+             for k, v in next(data).items()} for _ in range(n)]
+
+
+def train_parity(torch, cfg, params, batch):
+    """One step's loss and grads through the kernels and through the plain
+    versions: bf16 at full width (loss, grad norm), then f32 at
+    TRAIN_F32_LAYERS layers (every leaf).  Returns the distances."""
+    from repro_torch.training.optimizer import global_norm, tree_leaves
+    from repro_torch.training.train_lib import loss_and_grads
+    out = {}
+    lk, gk = loss_and_grads(cfg, params, batch)
+    nk = float(global_norm(gk))
+    del gk
+    lp, gp = loss_and_grads(cfg, params, batch, attn_impl="torch")
+    npl = float(global_norm(gp))
+    del gp
+    out["loss"] = (float(lk), float(lp), abs(float(lk) - float(lp)))
+    out["gnorm"] = (nk, npl, abs(nk - npl) / npl)
+    print(f"[train] kernels vs plain, bf16, {cfg.n_layers} layers: loss "
+          f"{float(lk):.6f} vs {float(lp):.6f} (|d| {out['loss'][2]:.3e}, "
+          f"tol {TRAIN_LOSS_TOL:g}); grad norm {nk:.6f} vs {npl:.6f} "
+          f"(relative {out['gnorm'][2]:.3e}, tol {TRAIN_GNORM_RTOL:g})",
+          flush=True)
+    if not out["loss"][2] <= TRAIN_LOSS_TOL:
+        die(f"[train] kernel loss {float(lk)} vs plain {float(lp)}")
+    if not out["gnorm"][2] <= TRAIN_GNORM_RTOL:
+        die(f"[train] kernel grad norm {nk} vs plain {npl}")
+    c32 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
+                              dtype="float32")
+    p32 = {k: ({n: w[:TRAIN_F32_LAYERS].float() for n, w in v.items()}
+               if k == "blocks" else v.float()) for k, v in params.items()}
+    _, gk = loss_and_grads(c32, p32, batch)
+    _, gp = loss_and_grads(c32, p32, batch, attn_impl="torch")
+    worst = 0.0
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        d = float((a - b).abs().max())
+        tol = TRAIN_F32_TOL * float(b.abs().max()) + 1e-6
+        worst = max(worst, d / tol)
+        if not d <= tol:
+            die(f"[train] f32 grad leaf {tuple(a.shape)}: kernels vs plain "
+                f"{d:.3e} > {tol:.3e}")
+    out["f32_worst"] = worst
+    print(f"[train] kernels vs plain, f32, {TRAIN_F32_LAYERS} layers: every "
+          f"grad leaf within tolerance, worst at {worst:.3e} of it",
+          flush=True)
+    return out
+
+
+def time_train_prefix(torch, cfg):
+    """The prefix kernel at the training shape, q (TRAIN_BATCH, heads,
+    TRAIN_SEQ, hd) from position 0, against its plain version and one SDPA
+    call; and the plain backward (layers.flash_attention_bwd) there."""
+    from repro_torch.kernels import prefix_attention as PX
+    from repro_torch.models import layers as L
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    case = prefix_case(torch, B=TRAIN_BATCH, H=cfg.n_heads,
+                       KV=cfg.n_kv_heads, hd=cfg.hd, P=0, Sq=TRAIN_SEQ,
+                       dtype=torch.bfloat16, seed=24)
+    got = call_prefix(PX.prefix_flash_attention, case).float()
+    want = call_prefix(PX.prefix_attention_torch, case).float()
+    err = float((got - want).abs().max())
+    if not err <= TOL_BF16:
+        die(f"[train] prefix kernel vs plain at the training shape: {err}")
+    ms = time_ms(torch, lambda: call_prefix(PX.prefix_flash_attention, case),
+                 flush=flush)
+    plain_ms = time_ms(torch, lambda: call_prefix(PX.prefix_attention_torch,
+                                                  case), reps=5, flush=flush)
+    lib_ms = time_ms(torch, prefix_library_fn(torch, case), flush=flush)
+    bnd, by = prefix_bound_ms(case)
+    q, k, v = (case[n].transpose(1, 2) for n in ("q", "k", "v"))
+    o = got.to(q.dtype).transpose(1, 2)
+    do = torch.randn_like(o)
+    bwd_ms = time_ms(torch, lambda: L.flash_attention_bwd(q, k, v, o, do),
+                     reps=5, flush=flush)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+               bound_by=by, max_abs_err=err, plain_backward_ms=bwd_ms,
+               shape=f"q {tuple(case['q'].shape)} bf16, prefix 0")
+    print(f"[times] prefix_flash_attention@train: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bnd:.4f} ms "
+          f"({by}); max |kernel - plain| {err:.3e}; plain backward "
+          f"{bwd_ms:.4f} ms", flush=True)
+    return row
+
+
+def profile_train_step(torch, cfg, params, state, step_fn, batch):
+    """Device time of one train step by kernel class under torch.profiler:
+    cuBLAS GEMMs, the prefix kernel, the flash backward's span (BWD_SPAN,
+    plain PyTorch products) and the chunked loss's span (LOSS_SPAN: its
+    forward and the backward's recompute of it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as L
+    from repro_torch.training import train_lib as TL
+    bwd, nll = L.flash_attention_bwd, TL._chunk_nll
+
+    def bwd_span(*a, **kw):
+        with record_function(BWD_SPAN):
+            return bwd(*a, **kw)
+
+    def nll_span(*a, **kw):
+        with record_function(LOSS_SPAN):
+            return nll(*a, **kw)
+
+    L.flash_attention_bwd, TL._chunk_nll = bwd_span, nll_span
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn(params, state, batch)
+            torch.cuda.synchronize()
+    finally:
+        L.flash_attention_bwd, TL._chunk_nll = bwd, nll
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if getattr(e, "device_type", None) == DeviceType.CUDA and us > 0 \
+                and e.key not in (BWD_SPAN, LOSS_SPAN):
+            rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        print("[train] device time: not measured (the profiler recorded no "
+              "kernels)", flush=True)
+        return None
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    gemm = sum(r[0] for r in rows if GEMM_KERNEL.search(r[2]))
+    pfx = [r for r in rows if "prefix_attention" in r[2]]
+    spans = {name: span_kernels(prof, name) for name in (BWD_SPAN, LOSS_SPAN)}
+    out = {"busy_ms": busy, "gemm_ms": gemm,
+           "prefix_ms": sum(r[0] for r in pfx),
+           "prefix_launches": sum(r[1] for r in pfx)}
+    print(f"[train] profiled step: device busy {busy:.1f} ms; cuBLAS GEMMs "
+          f"{gemm:.1f} ms = {100 * gemm / busy:.1f}%; prefix kernel "
+          f"{out['prefix_ms']:.2f} ms = {100 * out['prefix_ms'] / busy:.1f}% "
+          f"({out['prefix_launches']} launches)", flush=True)
+    for name, ker in spans.items():
+        ms = sum(ker.values())
+        g = sum(v for n, v in ker.items() if GEMM_KERNEL.search(n))
+        out[name] = (ms, g)
+        print(f"[train]   {name} span: {ms:.1f} ms = {100 * ms / busy:.1f}% "
+              f"of device time (its GEMMs {g:.1f} ms)", flush=True)
+    for ms, n, name in rows[:10]:
+        print(f"[train]   {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<5d} "
+              f"{name[:80]}", flush=True)
+    return out
+
+
+def phase_train(torch, np, cfg, params):
+    """Phase 24: train_lib.make_train_step on the full-width model, from the
+    main serve's weights (only read: each step returns new tensors)."""
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.training.train_lib import make_train_step
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(10, TRAIN_STEPS // 20),
+                      total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(cfg, opt)
+    batches = train_batches(torch, cfg, TRAIN_STEPS)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p, state = params, init_state(params)
+    losses, gnorms, step_ms, launches = [], [], [], None
+    for i, batch in enumerate(batches):
+        if i == 0:
+            reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, m = step_fn(p, state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            launches, plain = read_counts()
+            if launches["prefix_flash_attention"] <= 0 or plain:
+                die(f"[train] one step: launches {launches}, plain-version "
+                    f"calls {plain}")
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (statistics.median(step_ms[1:]) / 1e3)
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype} weights, f32 "
+          f"moments; {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens", flush=True)
+    print(f"[train] loss by step {[round(x, 4) for x in losses]}", flush=True)
+    print(f"[train] grad norm by step {[round(x, 4) for x in gnorms]}",
+          flush=True)
+    print(f"[train] ms per step: first {step_ms[0]:.1f}, median of the "
+          f"rest {statistics.median(step_ms[1:]):.1f} (min "
+          f"{min(step_ms[1:]):.1f}, max {max(step_ms[1:]):.1f}) = "
+          f"{tok_s:.0f} tokens/s; peak device memory {peak} B "
+          f"({peak / 2**30:.2f} GiB; {held} B held before)", flush=True)
+    print(f"[train] one step's launches {launches}", flush=True)
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        die("[train] a loss or grad norm is not finite")
+    if not tree_finite(torch, p):
+        die("[train] the trained params are not finite")
+    if not losses[-1] < losses[0]:
+        die(f"[train] the loss did not fall: {losses[0]} -> {losses[-1]}")
+    prof = profile_train_step(torch, cfg, p, state, step_fn, batches[0])
+    del p, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = train_parity(torch, cfg, params, batches[0])
+    times = time_train_prefix(torch, cfg)
+    wall = time.perf_counter() - t_phase
+    print(f"[train] phase wall {wall:.1f}s", flush=True)
+    return dict(launches=launches["prefix_flash_attention"], losses=losses,
+                step_ms=step_ms, tok_s=tok_s, peak=peak, profile=prof,
+                parity=parity, times=times, wall=wall)
+
+
+def kv_digest(torch, k, v):
+    """sha256 over the bytes of a (k, v) pair."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (k, v):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def node_digests(torch, rt):
+    """(node, KV digest from its fastest tier) of each cached node."""
+    out = []
+    for n in rt.tree.nodes():
+        if n.in_gpu:
+            out.append((n, kv_digest(torch,
+                                     *rt.store.gather(n.payload_gpu))))
+        elif n.in_host:
+            out.append((n, kv_digest(torch, n.payload_host["k"],
+                                     n.payload_host["v"])))
+    return out
+
+
+def phase_fault(torch, np, cfg, params, corpus, idx, wl, args):
+    """Phase 25: paper §6 on the card.  The main trace's first
+    FAULT_REQUESTS requests through a fresh main-config runtime; hot nodes
+    replicated to the host tier, a simulated device loss, recovery; each
+    survivor's host copy against its KV captured before the loss; then the
+    same requests again, bit for bit."""
+    from repro_torch.core.fault_tolerance import (recover_from_gpu_failure,
+                                                  replicate_hot_nodes)
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.runtime import ContinuousRuntime
+    t_phase = time.perf_counter()
+    gc.collect()
+    sub = sorted(wl, key=lambda r: r.req_id)[:FAULT_REQUESTS]
+    rt = ContinuousRuntime(cfg, params, corpus, idx,
+                           config=EngineConfig.from_args(args),
+                           device="cuda")
+    reset_counts()
+    first = rt.serve(sub, max_new_tokens=args.max_new_tokens)
+    launches, plain = read_counts()
+    if plain or min(launches["paged_decode_attention"],
+                    launches["paged_prefill_attention"]) <= 0:
+        die(f"[fault] serve: launches {launches}, plain calls {plain}")
+    check_leak(rt)
+    before = node_digests(torch, rt)
+    gpu_nodes = [n for n in rt.tree.nodes() if n.in_gpu]
+    gpu_blocks = sum(len(n.payload_gpu.blocks) for n in gpu_nodes)
+    replicated = replicate_hot_nodes(rt.tree, FAULT_REPLICA_BYTES)
+    rt.tree.check_invariants()
+    recovered, lost = recover_from_gpu_failure(rt.tree)
+    rt.tree.check_invariants()
+    survivors = [(n, d) for n, d in before if n.cached]
+    for n, digest in survivors:
+        if not n.in_host or n.in_gpu:
+            die(f"[fault] survivor doc {n.doc_id} is not on the host alone")
+        if kv_digest(torch, n.payload_host["k"],
+                     n.payload_host["v"]) != digest:
+            die(f"[fault] survivor doc {n.doc_id}: host KV differs from its "
+                f"KV before the loss")
+    on_device = {id(n) for n in gpu_nodes}
+    live = rt.store.pool.n_blocks - rt.store.pool.free_blocks
+    stranded = live - 1
+    print(f"[fault] {len(first)} requests served; {len(gpu_nodes)} nodes "
+          f"({gpu_blocks} blocks) on the device; {replicated} B replicated "
+          f"to the host; (recovered, lost) = ({recovered}, {lost}); "
+          f"{len(survivors)} survivors' host KV equal to their KV before "
+          f"the loss; {stranded} pool blocks stranded (recovery frees no "
+          f"device payload, as in the reference)", flush=True)
+    if recovered != sum(id(n) in on_device for n, _ in survivors):
+        die(f"[fault] recovered {recovered}, but {len(survivors)} nodes "
+            f"survived")
+    second = rt.serve(sub, max_new_tokens=args.max_new_tokens)
+    for a, b in zip(first, second):
+        if a.req_id != b.req_id or a.tokens != b.tokens:
+            die(f"[fault] request {a.req_id}: tokens {b.tokens} after the "
+                f"recovery, {a.tokens} before")
+        if not np.array_equal(a.first_logits, b.first_logits):
+            die(f"[fault] request {a.req_id}: first-token logits differ "
+                f"after the recovery")
+    hits = rt.metrics.summary()["tier_hit_tokens"]
+    wall = time.perf_counter() - t_phase
+    print(f"[fault] re-serve after the recovery: {len(second)} requests, "
+          f"tokens and first-token logits bit-identical; tier hit tokens "
+          f"{hits}; phase wall {wall:.1f}s", flush=True)
+    return dict(recovered=recovered, lost=lost, replicated=replicated,
+                stranded=stranded, launches=launches, wall=wall)
+
+
+class HopIndex:
+    """An index whose staged search for a query returns the doc path
+    assigned to it (``paths[id(query_vec)]``) at every stage."""
+
+    def __init__(self, base, paths):
+        self.base = base
+        self.paths = paths
+
+    def staged_search(self, q, k, fraction=1.0):
+        for st in self.base.staged_search(q, k, fraction):
+            yield dataclasses.replace(st, topk=tuple(self.paths[id(q)]))
+
+
+def phase_hops(torch, np, cfg, params, corpus, idx, wl, args):
+    """Phase 26: paper §9.  core/iterative.run_iterative plans HOPS hops
+    over a main-config runtime's controller (HOP_DOCS docs a hop, each
+    hop's path extending the last); then the same three paths served one
+    request a hop through a runtime, whose tree holds each path's KV for
+    the next hop, against a cold runtime for each path."""
+    from repro_torch.core.iterative import run_iterative
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.runtime import ContinuousRuntime
+    t_phase = time.perf_counter()
+    gc.collect()
+    reqs = sorted(wl, key=lambda r: r.req_id)[:HOPS]
+    k_path = HOPS * HOP_DOCS
+    econf = dataclasses.replace(EngineConfig.from_args(args), top_k=k_path)
+
+    def runtime(index):
+        return ContinuousRuntime(cfg, params, corpus, index, config=econf,
+                                 device="cuda")
+
+    def retrieve(h):
+        return idx.search(reqs[h].query_vec, HOP_DOCS)
+
+    def doc_tokens(d):
+        return int(corpus.doc_lengths[d])
+
+    planner = runtime(idx)
+    hops = run_iterative(planner.controller, retrieve, doc_tokens, HOPS,
+                         len(reqs[0].question_tokens))
+    paths = [tuple(h.plan.doc_ids) for h in hops]
+    for i, h in enumerate(hops[1:], 1):
+        want = sum(doc_tokens(d) for d in paths[i - 1])
+        if h.alpha != want:
+            die(f"[hops] hop {i}: alpha {h.alpha}, the previous path holds "
+                f"{want} tokens")
+    del planner
+    index = HopIndex(idx, {id(r.query_vec): p for r, p in zip(reqs, paths)})
+    rt = runtime(index)
+    reset_counts()
+    warm = [rt.serve([r], max_new_tokens=args.max_new_tokens)[0]
+            for r in reqs]
+    launches, plain = read_counts()
+    if plain or launches["paged_prefill_attention"] <= 0:
+        die(f"[hops] serve: launches {launches}, plain calls {plain}")
+    check_leak(rt)
+    cold = [runtime(index).serve([r], max_new_tokens=args.max_new_tokens)[0]
+            for r in reqs]
+    same_logits = 0
+    for i, (a, b) in enumerate(zip(warm, cold)):
+        if tuple(a.docs) != paths[i]:
+            die(f"[hops] hop {i} served docs {a.docs}, planned {paths[i]}")
+        if i and a.alpha < sum(doc_tokens(d) for d in paths[i - 1]):
+            die(f"[hops] hop {i}: the runtime reused {a.alpha} tokens, "
+                f"short of the previous path")
+        if a.tokens != b.tokens:
+            die(f"[hops] hop {i}: tokens {a.tokens}, cold {b.tokens}")
+        same_logits += bool(np.array_equal(a.first_logits, b.first_logits))
+    wall = time.perf_counter() - t_phase
+    print(f"[hops] {HOPS} hops, paths {[len(p) for p in paths]} docs; "
+          f"planned alphas {[h.alpha for h in hops]}; served alphas "
+          f"{[r.alpha for r in warm]}, betas {[r.beta for r in warm]}; "
+          f"tokens equal to a cold runtime's on every path, first-token "
+          f"logits bit-identical on {same_logits} of {HOPS}; phase wall "
+          f"{wall:.1f}s", flush=True)
+    return dict(alphas=[r.alpha for r in warm], launches=launches,
+                same_logits=same_logits, wall=wall)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3294,6 +3741,9 @@ def main() -> None:
     door = phase_frontdoor(torch, cfg, corpus)
     torch.cuda.empty_cache()
     phase_profile(torch, cfg, params, corpus, idx, wl, args)
+    fault = phase_fault(torch, np, cfg, params, corpus, idx, wl, args)
+    hops = phase_hops(torch, np, cfg, params, corpus, idx, wl, args)
+    train = phase_train(torch, np, cfg, params)
     del params, results
     paper = {arch: phase_paper(torch, np, arch) for arch in PAPER_MODELS}
     moe = phase_moe(torch, np)
@@ -3330,7 +3780,11 @@ def main() -> None:
                    "front door": door["prefill"]},
                "prefix_flash_attention": {
                    "cag preload": cag["preload"], "cag serve": cag["serve"],
-                   "dense serve": dense, "sequential check": seq}}
+                   "dense serve": dense, "sequential check": seq,
+                   "train step": train["launches"]}}
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        by_path[name]["fault serve"] = fault["launches"][name]
+        by_path[name]["hops serve"] = hops["launches"][name]
     for arch, o in paper.items():
         for name, n in o["launches"].items():
             if name != "prefix_flash_attention":
@@ -3382,6 +3836,14 @@ def main() -> None:
           f"{audio['err']:.4e} (eps {audio['eps']:g}); cached vs whole "
           f"{audio['split']:.4e}; phase wall {audio['phase_wall']:.1f}s",
           flush=True)
+    print(f"[train] qwen2-0.5b: {train['tok_s']:.0f} tokens/s, peak "
+          f"{train['peak']} B, loss {train['losses'][0]:.4f} -> "
+          f"{train['losses'][-1]:.4f}, prefix launches a step "
+          f"{train['launches']}; phase wall {train['wall']:.1f}s", flush=True)
+    print(f"[fault] (recovered, lost) = ({fault['recovered']}, "
+          f"{fault['lost']}), {fault['stranded']} blocks stranded; phase "
+          f"wall {fault['wall']:.1f}s; [hops] served alphas "
+          f"{hops['alphas']}; phase wall {hops['wall']:.1f}s", flush=True)
     print(f"[vlm] {VLM_ARCH}: doc hit rate {vlm['doc_hit_rate']:.4f}; "
           f"{vlm['stats'][0]:.1f} tokens/s, TTFT p50 {vlm['stats'][1]:.1f} "
           f"ms; eps {vlm['eps']:g}; phase wall {vlm['wall']:.1f}s",
@@ -3399,7 +3861,8 @@ def main() -> None:
               "at_prefix1700_sq300": times["prefix1700+300"],
               "at_hymba": {k: times[f"hymba_prefix_{k}"]
                            for k in ("window", "global")},
-              "at_musicgen": times["musicgen_prefix"]}),
+              "at_musicgen": times["musicgen_prefix"],
+              "at_train": train["times"]}),
             (("mistral_decode", "llama2_decode", "mistral_decode_window",
               "gemma2_decode", "yi_decode"),
              ("mistral_prefill", "llama2_prefill", "mistral_prefill_window",

@@ -6,7 +6,7 @@
   impl="cuda"  -> force the kernel (raises for a CPU tensor)
   impl="torch" -> force the plain version (on either device)
 
-Tensor parallelism is not ported yet (ROADMAP.md Queue A item 9), so there
+Tensor parallelism is not ported yet (ROADMAP.md Queue A item 6), so there
 is no sharded path.
 """
 from __future__ import annotations

@@ -3,9 +3,11 @@
 
 Rounding points follow the JAX package: norms and RoPE compute in f32 and
 cast back; ``dense`` rounds the matmul to the activation dtype, then adds
-the bias in that dtype.  ``flash_attention`` (forward only) runs the
-prefix-attention kernel; ``decode_attention`` is plain PyTorch, as the JAX
-package's is plain jnp.
+the bias in that dtype.  ``flash_attention`` runs the prefix-attention
+kernel forward; under autograd its backward is ``flash_attention_bwd``,
+plain PyTorch as the reference's custom VJP is plain jnp (the training
+path).  ``decode_attention`` is plain PyTorch, as the JAX package's is
+plain jnp.
 
 Row invariance.  On the card, cuBLAS chooses its GEMM kernel by the
 number of rows in the call, and for some products that choice changes the
@@ -161,18 +163,153 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return proj(h, wd)
 
 
+FLASH_CHUNK = 512    # q and kv chunk of the backward (the reference's)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0, window: int = 0,
                     logit_cap: float = 0.0,
                     impl: str | None = None) -> torch.Tensor:
-    """Causal attention of new tokens over [cached prefix ‖ new] KV, forward
-    only.  q: (B, Sq, H, hd); k/v: (B, q_offset + Sq, KV, hd); query row i
-    sits at absolute position q_offset + i.  Returns (B, Sq, H, hd)."""
+    """Causal attention of new tokens over [cached prefix ‖ new] KV.  q:
+    (B, Sq, H, hd); k/v: (B, q_offset + Sq, KV, hd); query row i sits at
+    absolute position q_offset + i.  Returns (B, Sq, H, hd).
+
+    The forward is the prefix-attention dispatch (the CUDA kernel on the
+    card).  When autograd records (grad mode on and an input requiring
+    grad) it runs inside ``_FlashAttention``, whose backward is
+    ``flash_attention_bwd``; otherwise the dispatch is called as is."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, int(q_offset), int(window),
+                                     float(logit_cap), impl)
+    return _prefix_attention(q, k, v, q_offset, window, logit_cap, impl)
+
+
+def _prefix_attention(q, k, v, q_offset, window, logit_cap, impl):
     o = ops.prefix_attention(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), prefix_len=int(q_offset),
                              window=int(window), logit_cap=logit_cap,
                              impl=impl)
     return o.transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The prefix-attention dispatch forward, ``flash_attention_bwd``
+    backward (the reference's ``_flash`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, window, logit_cap, impl):
+        o = _prefix_attention(q, k, v, q_offset, window, logit_cap, impl)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = (q_offset, window, logit_cap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        q_offset, window, logit_cap = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, q_offset=q_offset,
+                                         window=window, logit_cap=logit_cap)
+        return dq, dk, dv, None, None, None, None
+
+
+def _chunk_mask(q_pos, k_pos, window: int):
+    """(Cq, Ckv) bool: causal, and with a window only keys at positions >
+    q_pos - window (the reference's ``_chunk_mask``; keys are unpadded)."""
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        m &= k_pos[None, :] > q_pos[:, None] - window
+    return m
+
+
+def _chunk_scores(qi, ki, scale, logit_cap):
+    """(B, KV, R, Cq, Ckv) f32 scores of grouped qi (B, Cq, KV, R, hd) over
+    ki (B, Ckv, KV, hd), softcapped; and the softcap's derivative (None
+    without a cap)."""
+    u = torch.einsum("bqgrd,bkgd->bgrqk", qi, ki) * scale
+    if not logit_cap:
+        return u, None
+    s = softcap(u, logit_cap)
+    return s, 1.0 - torch.square(s / logit_cap)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, q_offset: int = 0,
+                        window: int = 0, logit_cap: float = 0.0):
+    """The gradients (dq, dk, dv) of ``flash_attention`` at output ``o``
+    for the output gradient ``do``: the reference's ``_flash_vjp_bwd`` in
+    plain PyTorch, chunk by chunk (FLASH_CHUNK x FLASH_CHUNK score tiles), in
+    f32 with TF32 off.  The reference reads the row logsumexp its forward
+    saved; the prefix kernel writes none, so a first pass recomputes it
+    from q and k chunk by chunk (online max and sum, ``m + log(max(l,
+    1e-30))``).  Tiles that the causal mask and the window hide wholly are
+    skipped: they add exact zeros in the reference.  q, o, do: (B, Sq, H,
+    hd); k, v: (B, q_offset + Sq, KV, hd); the gradients come back in the
+    inputs' dtypes."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    R = H // KV
+    scale = hd ** -0.5
+    chunk = FLASH_CHUNK
+    with full_f32():
+        qg = q.float().reshape(B, Sq, KV, R, hd)
+        dog = do.float().reshape(B, Sq, KV, R, hd)
+        kf, vf = k.float(), v.float()
+        Dg = (dog * o.float().reshape(B, Sq, KV, R, hd)).sum(-1)
+        dq = torch.zeros_like(qg)
+        dk = torch.zeros_like(kf)
+        dv = torch.zeros_like(vf)
+        q_chunks = range(0, Sq, chunk)
+        k_chunks = range(0, Skv, chunk)
+
+        def pos(lo, n, off=0):
+            return off + torch.arange(lo, min(lo + chunk, n), device=q.device)
+
+        def visible(q0, k0):
+            qp0, qp1 = q_offset + q0, q_offset + min(q0 + chunk, Sq) - 1
+            kp1 = min(k0 + chunk, Skv) - 1
+            return k0 <= qp1 and (window <= 0 or kp1 > qp0 - window)
+
+        lse = []
+        for q0 in q_chunks:
+            qi = qg[:, q0:q0 + chunk]
+            qp = pos(q0, Sq, q_offset)
+            m = torch.full((B, KV, R, qi.shape[1]), NEG_INF, device=q.device)
+            lsum = torch.zeros_like(m)
+            for k0 in k_chunks:
+                if not visible(q0, k0):
+                    continue
+                s, _ = _chunk_scores(qi, kf[:, k0:k0 + chunk], scale,
+                                     logit_cap)
+                s = torch.where(_chunk_mask(qp, pos(k0, Skv), window), s,
+                                NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1))
+                lsum = lsum * torch.exp(m - m_new) \
+                    + torch.exp(s - m_new[..., None]).sum(-1)
+                m = m_new
+            lse.append(m + torch.log(torch.clamp(lsum, min=1e-30)))
+        for k0 in k_chunks:
+            ki, vi = kf[:, k0:k0 + chunk], vf[:, k0:k0 + chunk]
+            kp = pos(k0, Skv)
+            for qc, q0 in enumerate(q_chunks):
+                if not visible(q0, k0):
+                    continue
+                sl = slice(q0, q0 + chunk)
+                qi, doi = qg[:, sl], dog[:, sl]
+                s, dcap = _chunk_scores(qi, ki, scale, logit_cap)
+                mask = _chunk_mask(pos(q0, Sq, q_offset), kp, window)
+                p = torch.where(mask, torch.exp(s - lse[qc][..., None]), 0.0)
+                dv[:, k0:k0 + chunk] += torch.einsum("bgrqk,bqgrd->bkgd", p,
+                                                     doi)
+                dp = torch.einsum("bqgrd,bkgd->bgrqk", doi, vi)
+                ds = p * (dp - Dg[:, sl].permute(0, 2, 3, 1)[..., None])
+                if dcap is not None:
+                    ds = ds * dcap
+                dq[:, sl] += torch.einsum("bgrqk,bkgd->bqgrd", ds, ki) \
+                    * scale
+                dk[:, k0:k0 + chunk] += torch.einsum("bgrqk,bqgrd->bkgd",
+                                                     ds, qi) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -463,10 +600,19 @@ def mamba_scan(x, delta, A, Bm, Cm, D, state=None):
     decay = torch.exp(ds.transpose(0, 1)[..., None, None] * A.float())
     inp = (ds[..., None] * xs).transpose(0, 1)[..., None] \
         * Bs.transpose(0, 1)[:, :, None, None, :]
-    hs = torch.empty_like(decay)
-    for t in range(S):
-        h = torch.mul(decay[t], h, out=hs[t])
-        h += inp[t]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, delta, A, Bm, Cm, D, h)):
+        # autograd records no ``out=`` product: the same steps, stacked
+        steps = []
+        for t in range(S):
+            h = decay[t] * h + inp[t]
+            steps.append(h)
+        hs = torch.stack(steps)
+    else:
+        hs = torch.empty_like(decay)
+        for t in range(S):
+            h = torch.mul(decay[t], h, out=hs[t])
+            h += inp[t]
     y = torch.einsum("sbhdn,bsn->bshd", hs, Cs) + D.float() * xs
     # a copy: the last step's view would keep every step's state alive
     return y.to(x.dtype), h.clone()

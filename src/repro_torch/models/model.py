@@ -12,6 +12,11 @@ its flat checkpoint).  Every step runs eagerly, layer by layer:
   paged_prefill_step / paged_decode_step
                      straight against the paged pool, whose new K/V they
                      write IN PLACE before attention
+  forward_hidden / forward
+                     the training forward over whole sequences, each
+                     layer under ``torch.utils.checkpoint`` with
+                     ``remat``; its attention is differentiable
+                     (``layers.flash_attention``)
 
 Every family of the JAX package is ported: dense (GQA or MHA, an optional
 QKV bias, optional sliding windows), MoE (the dense block with a routed
@@ -42,6 +47,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -245,12 +251,38 @@ def params_from_numpy(flat: Mapping[str, np.ndarray], cfg: ModelConfig,
     return out
 
 
-def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
+def params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """The flat dict ``repro/training/checkpoint.py::save`` writes for this
+    tree: ``/``-joined keys, every leaf a numpy array, bf16 (which numpy
+    cannot hold) as f32.  ``params_from_numpy`` is its inverse."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            val = node[key]
+            if isinstance(val, Mapping):
+                walk(val, prefix + key + "/")
+                continue
+            t = val.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            out[prefix + key] = t.numpy()
+
+    walk(params, "")
+    return out
+
+
+def embed_inputs(cfg: ModelConfig, params, tokens,
                  patch_embeds: torch.Tensor | None = None):
     """(B, S) token ids -> (B, S, D) embeddings; with codebooks, (B, K, S)
     ids -> the sum of the K codebooks' embeddings, in codebook order; for
     the VLM family with ``patch_embeds`` (B, Simg, D), their projection
-    through ``vision_proj`` is prepended: (B, Simg + S, D)."""
+    through ``vision_proj`` is prepended: (B, Simg + S, D).  ``tokens`` may
+    also be the reference's inputs dict, {"tokens", optionally
+    "patch_embeds"}."""
+    if isinstance(tokens, Mapping):
+        patch_embeds = tokens.get("patch_embeds", patch_embeds)
+        tokens = tokens["tokens"]
     if cfg.n_codebooks:
         if tokens.dim() != 3:
             raise ValueError(f"codebook models take tokens (B, K, S); got "
@@ -405,6 +437,62 @@ def _ssm_branch_seq(cfg: ModelConfig, p, x, state=None):
 def _hybrid_ssm_init(cfg: ModelConfig, batch: int, device="cpu"):
     return torch.zeros((cfg.n_layers, batch, cfg.n_heads, cfg.hd,
                         cfg.ssm_state), device=device)
+
+
+def _attn_block_seq(cfg: ModelConfig, p, x, window: int, positions,
+                    attn_impl):
+    """One attention-family block over a whole sequence from position 0
+    (the training forward): attention through ``L.flash_attention``, then
+    Hymba's SSM branch from a zero state, then the FFN."""
+    B, S, _ = x.shape
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = L.flash_attention(q, k, v, window=window,
+                          logit_cap=cfg.attn_logit_softcap, impl=attn_impl)
+    x = x + L.proj(o.reshape(B, S, -1), p["wo"])
+    if cfg.family == "hybrid":
+        x = x + _ssm_branch_seq(cfg, p, x)[0]
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + _ffn(cfg, p, h2)
+
+
+def forward_hidden(cfg: ModelConfig, params, inputs, *, remat: bool = False,
+                   attn_impl: str | None = None) -> torch.Tensor:
+    """Training-path forward over whole sequences from position 0: the
+    final hidden states (B, S, D) before the final norm (counterpart of
+    ``repro.models.model.forward_hidden``).  ``inputs``: {"tokens" (B, S)
+    or (B, K, S), optionally "patch_embeds" (B, Simg, D) for the VLM
+    family, prepended as in ``embed_inputs``}.  With ``remat`` each layer
+    of an attention family runs under ``torch.utils.checkpoint`` (its
+    activations recomputed in the backward); the xLSTM blocks run as in
+    ``prefill`` from a fresh state, as the reference's do."""
+    _check_family(cfg)
+    x = embed_inputs(cfg, params, inputs)
+    B, S = x.shape[:2]
+    if cfg.family == "ssm":
+        x, _ = _run_xlstm(cfg, params, x,
+                          _xlstm_init_state(cfg, B, x.device))
+        return x
+    windows = cfg.layer_windows()
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    for li in range(cfg.n_layers):
+        p = _layer(params, li)
+        if remat:
+            x = checkpoint(_attn_block_seq, cfg, p, x, windows[li],
+                           positions, attn_impl, use_reentrant=False)
+        else:
+            x = _attn_block_seq(cfg, p, x, windows[li], positions, attn_impl)
+    return x
+
+
+def forward(cfg: ModelConfig, params, inputs, *, remat: bool = False,
+            attn_impl: str | None = None) -> torch.Tensor:
+    """Full-sequence logits (B, S, V), or (B, S, K, V) with codebooks, f32."""
+    return lm_logits(cfg, params, forward_hidden(cfg, params, inputs,
+                                                 remat=remat,
+                                                 attn_impl=attn_impl))
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,

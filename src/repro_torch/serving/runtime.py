@@ -309,7 +309,7 @@ class ContinuousRuntime:
         if config.mesh.tp > 1:
             raise NotImplementedError(
                 "tensor parallelism is not ported yet (ROADMAP.md Queue A "
-                "item 9)")
+                "item 6)")
         self.device = resolve_device(device)
         self.attn_impl = config.attn_impl
         self.cfg = cfg

@@ -13,6 +13,9 @@ two passes through an index that reverses each request's doc order on the
 second, so exact, relocated and miss placements all occur.  Greedy tokens
 must be equal and first-token logits within 1e-4, relocated requests
 included; the ``exact`` flags and the three chunk counters must be equal.
+The module holds both runtimes on one constant clock (``constant_clock``
+from ``test_torch_clock.py``), so their schedules follow the workload, not
+the machine's speed.
 """
 import dataclasses
 
@@ -39,6 +42,7 @@ from repro_torch.retrieval.vectordb import IVFIndex
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import RAGServer
 from repro_torch.serving.runtime import ContinuousRuntime
+from test_torch_clock import constant_clock  # noqa: F401
 
 EPS = 1e-4
 NEW = 3
@@ -64,8 +68,7 @@ class FlippableIndex:
                    if self.reverse else st)
 
 
-@pytest.fixture(scope="module")
-def setup():
+def make_setup():
     jcfg = dataclasses.replace(jax_reduced("qwen2-0.5b"), dtype="float32")
     cfg = dataclasses.replace(get_reduced("qwen2-0.5b"), dtype="float32")
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
@@ -87,6 +90,11 @@ def setup():
     return dict(jcfg=jcfg, cfg=cfg, jp=jp, params=params, jcorpus=jcorpus,
                 corpus=corpus, jidx=jidx, idx=idx,
                 jwl=jax_workload(jcorpus, **kw), wl=make_workload(corpus, **kw))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return make_setup()
 
 
 def _runtime(s, idx=None, **kw):
@@ -203,11 +211,9 @@ def test_chunk_mode_requires_paged(setup):
         EngineConfig(top_k=2, reuse="suffix")
 
 
-@pytest.mark.parametrize("chunk", [0, 5])
-def test_chunk_reuse_matches_jax_runtime(setup, chunk):
+def compare_with_jax(s, chunk):
     """Two passes, the second with every request's doc order reversed,
-    through both frameworks' runtimes (unchunked, and in 5-token pieces)."""
-    s = setup
+    through both frameworks' runtimes; asserts they agree."""
     jidx = FlippableIndex(s["jidx"])
     idx = FlippableIndex(s["idx"])
     conf = dict(top_k=2, attn="paged", reuse="chunk", block_size=8,
@@ -233,3 +239,10 @@ def test_chunk_reuse_matches_jax_runtime(setup, chunk):
     for name in COUNTERS:
         assert getattr(rt.metrics, name) == getattr(jrt.metrics, name), name
     assert rt.metrics.reloc_chunk_hits > 0
+
+
+@pytest.mark.parametrize("chunk", [0, 5])
+def test_chunk_reuse_matches_jax_runtime(setup, chunk):
+    """Two passes, the second with every request's doc order reversed,
+    through both frameworks' runtimes (unchunked, and in 5-token pieces)."""
+    compare_with_jax(setup, chunk)

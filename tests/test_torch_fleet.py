@@ -44,6 +44,8 @@ from repro_torch.serving.config import EngineConfig, FleetConfig
 from repro_torch.serving.frontdoor import frontdoor_partition
 from repro_torch.serving.router import ReplicaRouter, partition_requests
 from repro_torch.serving.runtime import ContinuousRuntime
+# both runtimes on one constant clock for the module (test_torch_clock.py)
+from test_torch_clock import constant_clock  # noqa: F401
 
 EPS = 1e-4
 N_DOCS, NEW = 16, 3

@@ -51,6 +51,11 @@ VERBATIM = [
     "configs/gemma2_27b.py",
     "configs/yi_34b.py",
     "configs/llama2_70b.py",
+    "serving/backend.py",
+    "core/fault_tolerance.py",
+    "core/iterative.py",
+    "serving/simulator.py",
+    "training/data.py",
 ]
 
 JAX_IMPORT = re.compile(r"^\s*(import|from)\s+jax(\.|\s|$)", re.M)
@@ -111,6 +116,15 @@ SLICE_MODULES = [
     "repro_torch.configs.yi_34b",
     "repro_torch.configs.llama2_70b",
     "repro_torch.configs",
+    "repro_torch.serving.backend",
+    "repro_torch.core.fault_tolerance",
+    "repro_torch.core.iterative",
+    "repro_torch.serving.simulator",
+    "repro_torch.training.data",
+    "repro_torch.training.optimizer",
+    "repro_torch.training.train_lib",
+    "repro_torch.training.checkpoint",
+    "repro_torch.launch.train",
 ]
 
 

@@ -50,6 +50,8 @@ from repro_torch.retrieval.corpus import make_corpus, make_workload
 from repro_torch.retrieval.vectordb import IVFIndex
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.runtime import ContinuousRuntime
+# both runtimes on one constant clock for the module (test_torch_clock.py)
+from test_torch_clock import constant_clock  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 EPS = 1e-4

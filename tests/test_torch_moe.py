@@ -41,6 +41,8 @@ from repro_torch.retrieval.vectordb import IVFIndex
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import RAGServer
 from repro_torch.serving.runtime import ContinuousRuntime
+# both runtimes on one constant clock for the module (test_torch_clock.py)
+from test_torch_clock import constant_clock  # noqa: F401
 
 EPS = 1e-4
 STEP_EPS = 1e-5
