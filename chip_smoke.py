@@ -128,6 +128,17 @@ Phases, each fatal on failure:
                a hop through a runtime that reuses each path's KV, tokens
                equal to a cold runtime's on each path.
 
+ tp      — run after phase 26 on Qwen2-0.5B's weights (tp 2) and inside
+               phase 15 on Mistral-7B's (tp 2 and 4), every shard on the
+               one card: the column-product probe (each shard's columns
+               against a one-device mesh's of its column-slab group, and
+               the plain slice for contrast), the per-shard decode and
+               prefill dispatch against the whole heads at the model's
+               head shape, then the serve of TP_MODELS' note
+               (TP_REQUESTS), tp N bit for bit against tp 1 of group N,
+               launches tp times its, ms a decode step and peak memory of
+               each run, the default tp 1 (group 1) among them.
+
 Phases 3-4 also hold and time each kernel at the paper models' head shapes
 (hd 128; KV 8 and R 4, KV 32 and R 1; Mistral's window over rows past 4096
 keys), at Gemma3-12B's (hd 256, KV 8 and R 2, its 1024 window and global),
@@ -339,6 +350,29 @@ FAULT_REPLICA_BYTES = 64 * 2**20
 # phase 26 (hops): HOPS hops of HOP_DOCS docs each (paper §9)
 HOPS = 3
 HOP_DOCS = 2
+# phase tp: tensor-parallel serving with every shard on the one card
+# (launch/mesh.py::make_serving_mesh(tp, devices=["cuda:0"] * tp)), which
+# shows the per-shard path, not several cards.  Qwen2-0.5B at full width
+# and depth at tp 2 (7 query heads and 1 KV head a shard, vocab shards of
+# 75,968) on its main serve's weights; Mistral-7B at full width and phase
+# 15's depth (PAPER_LAYERS: 4 of 32 layers, its weights already on the
+# card) at tp 2 and 4.  A mesh's bits are fixed by its column-slab group
+# G (launch/mesh.py; G = tp by default): tp N is held against tp 1 over a
+# one-device mesh of group N, and the default tp 1 (group 1, no slabs) is
+# served too.  Each run serves the main trace's first TP_REQUESTS
+# requests with prefix reuse, demotes every cached node to the host tier
+# through the pool's backend, and serves them again from there: tokens,
+# tier hits, first-token logits, host copies and launch counts against
+# tp 1's of the group.  The serves run on one constant clock (the
+# runtime's clock otherwise advances by measured wall time, and tp N's
+# slower iterations would batch differently); a decode step is timed after
+# them on the real clock (TP_DECODE_REPS rounds of the runtimes' warm-up
+# steps at max_batch rows, the runs taking turns).  TP_PROBE_ROWS: the rows of the
+# column-product probe.
+TP_MODELS = {"qwen2-0.5b": (2,), "mistral-7b": (2, 4)}
+TP_REQUESTS = 16
+TP_DECODE_REPS = 20
+TP_PROBE_ROWS = (1, 8, 64, 512, 2048)
 # where each kernel came from: (wrapper, source, TPU kernel it replaces)
 KERNELS = (
     ("paged_decode_attention", "src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -942,6 +976,17 @@ def serve_stats(results, rt, wall):
 # phases
 # ---------------------------------------------------------------------------
 
+def card_line(torch):
+    """The card's name and power limit as nvidia-smi reports them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        return f"{torch.cuda.get_device_name(0)}, power limit not read ({e})"
+
+
 def phase_device(torch):
     if not torch.cuda.is_available():
         die("torch.cuda.is_available() is false: this script needs a card")
@@ -949,13 +994,7 @@ def phase_device(torch):
         die(f"no src/repro_torch beside {Path(__file__).name}: run it from "
             f"a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError) as e:
-        smi = f"{torch.cuda.get_device_name(0)}, power limit not read ({e})"
+    smi = card_line(torch)
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1246,6 +1285,7 @@ def phase_parity(torch, np):
         call(PA.paged_decode_torch, dec_long), TOL_BF16,
         exact=call(PA.paged_decode_torch, as_f32(dec_long)))
     decode_bits(torch, dec)
+    parity_single_layer(torch)
     for sq, case in pre.items():
         pad = torch.arange(sq, device="cuda")[None] >= case["q_len"][:, None]
         pad = pad[:, None, :].expand(-1, case["q"].shape[1], -1)
@@ -1328,6 +1368,28 @@ def phase_parity(torch, np):
             print(f"[parity] {name} body for {dtype}: "
                   f"{_build.body(name, dtype == 'bfloat16')}", flush=True)
     return dec, dec_long, pre, pfx, paper, errs
+
+
+def parity_single_layer(torch):
+    """The single-layer decode API (kernels/ops.py::paged_attention:
+    contiguous runs from a block table and lengths, through the decode
+    kernel) against the dense oracle ref.reference_paged_attention, at
+    Qwen2-0.5B's heads, rows of 1-384 keys."""
+    from repro_torch.kernels import ops, ref
+    B, H, KV, hd, page, n_pages, n_slots = 8, 14, 2, 64, 16, 240, 24
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        kp, vp = (torch.randn((n_pages, page, KV, hd), generator=gen,
+                              device="cuda").to(dtype) for _ in "kv")
+        q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dtype)
+        bt = torch.randint(0, n_pages, (B, n_slots), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        lengths = torch.randint(1, page * n_slots + 1, (B,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        check(torch, f"paged_attention {str(dtype)[6:]} B={B} H={H} KV={KV} "
+              f"hd={hd} slots={n_slots}",
+              ops.paged_attention(q, kp, vp, bt, lengths),
+              ref.reference_paged_attention(q, kp, vp, bt, lengths), tol)
 
 
 def decode_bits(torch, dec):
@@ -1934,7 +1996,7 @@ def phase_dense(torch, np, cfg, params, corpus, idx, wl, args, results):
     step_ms = 1e3 * (time.perf_counter() - t0) / 3
     S = rt._n_slots * rt.store.block_size
     gathered = (2 * cfg.n_layers * econf.max_batch * S * cfg.n_kv_heads
-                * cfg.hd * rt.store.k.element_size())
+                * cfg.hd * rt.store.k_planes[0].element_size())
     print(f"[dense] {len(res)} requests: {tps:.1f} tokens/s, TTFT p50 "
           f"{ttft:.1f} ms; decode step {step_ms:.2f} ms (gathers {gathered} "
           f"B of K/V, S {S}); launches {launches}; plain-version calls "
@@ -2189,12 +2251,12 @@ def phase_replicas(torch, np):
         two, rts = serve.serve_continuous(cfg, params, corpus, idx, wl, args)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    if len(rts) != 2 or any(rt.params is not params for rt in rts):
+    if len(rts) != 2 or any(rt.params[0] is not params for rt in rts):
         die("the two replicas do not share one set of weights")
     for rt in rts:
         check_leak(rt)
-    pool = sum(rt.store.k.numel() * rt.store.k.element_size() * 2
-               for rt in rts)
+    pool = sum(2 * p.numel() * p.element_size()
+               for rt in rts for p in rt.store.k_planes)
     print(f"[fleet] peak device memory with two pools {peak} B "
           f"({peak / 2**30:.2f} GiB; {base} B held before the serve: this "
           f"phase's weights and the main serve's; the two pools {pool} B)",
@@ -2378,6 +2440,267 @@ def phase_profile(torch, cfg, params, corpus, idx, wl, args, tag="profile"):
                   flush=True)
 
 
+@contextlib.contextmanager
+def constant_clock():
+    """The serving runtime reads a constant perf_counter while open: its
+    schedule then follows the workload alone (as tests/test_torch_clock.py
+    does on the CPU)."""
+    import types
+    import repro_torch.serving.runtime as R
+    real = R.time
+    clock = {k: getattr(real, k) for k in dir(real) if not k.startswith("__")}
+    clock["perf_counter"] = lambda: 0.0
+    R.time = types.SimpleNamespace(**clock)
+    try:
+        yield
+    finally:
+        R.time = real
+
+
+def one_card_mesh(tp, slabs=0):
+    """tp shards, all on cuda:0, of column-slab group ``slabs`` (0: tp)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    return make_serving_mesh(tp, devices=["cuda:0"] * tp, slabs=slabs)
+
+
+def tp_probe(torch, cfg, params, tps, tag):
+    """The column products of layer 0 (wq, wk, wv with their biases, wg,
+    wu) and the logits, at TP_PROBE_ROWS rows, for each tp of ``tps`` at
+    its column-slab group G = tp: each shard's columns (its leaves as
+    launch/sharding.py::placer lays them out, through layers.col_proj: the
+    port's path) must equal those of a one-device mesh of group G bit for
+    bit.  The default tp 1's columns (one unslabbed call through proj's
+    row rule, group 1) are reported for contrast: where they differ from
+    tp N's, the group is what keeps tp N's bits.  Dies on a mismatch
+    through the slabs."""
+    from repro_torch.launch.sharding import placer
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn((max(TP_PROBE_ROWS), cfg.d_model), generator=gen,
+                    device="cuda").to(cfg.tdtype)
+    blk = params["blocks"]
+    prods = [(n, ("blocks", f"w{n}"), blk[f"w{n}"][:1],
+              blk[f"b{n}"][:1] if f"b{n}" in blk else None)
+             for n in ("q", "k", "v", "g", "u")]
+    logit = "embed" if cfg.tie_embeddings else "lm_head"
+    prods.append(("logits", (logit,), params[logit], None))
+    bad, plain_diff = [], {}
+    for tp in tps:
+        one, split = placer(cfg, one_card_mesh(1, tp)), placer(
+            cfg, one_card_mesh(tp))
+        for name, path, w, b in prods:
+            bpath = ("blocks", f"b{name}")
+            w1 = one(path, w)[0]
+            ws = split(path, w)
+            b1 = None if b is None else one(bpath, b)[0][0]
+            bs = [None] * tp if b is None else [t[0] for t in split(bpath, b)]
+            for rows in TP_PROBE_ROWS:
+                xs = x[:rows]
+                if name == "logits":
+                    whole = M._logit_cols(cfg, {logit: w1}, xs, tp)
+                    plain = M._logit_cols(cfg, {logit: w}, xs, 1)
+                    got = [M._logit_cols(cfg, {logit: wi}, xs, 1)
+                           for wi in ws]
+                else:
+                    whole = L.col_proj(xs, w1[0], b1, tp)
+                    plain = L.proj(xs, w[0], None if b is None else b[0])
+                    got = [L.col_proj(xs, wi[0], bi) for wi, bi in zip(ws, bs)]
+                N = whole.shape[-1]
+                for i, g in enumerate(got):
+                    cols = slice(i * N // tp, (i + 1) * N // tp)
+                    if not torch.equal(g, whole[..., cols]):
+                        bad.append((tp, name, rows, i))
+                    if not torch.equal(g, plain[..., cols]):
+                        plain_diff.setdefault((tp, name), []).append(rows)
+                del whole, plain, got
+            del w1, ws
+    torch.cuda.synchronize()
+    for tp in tps:
+        for name, *_ in prods:
+            rows = sorted(set(plain_diff.get((tp, name), [])))
+            print(f"[{tag}] column probe tp {tp} {name}: the default tp "
+                  f"1's columns differ at rows {rows or 'none'}; against "
+                  f"tp 1 of group {tp}: "
+                  f"bit-identical {not any(b[:2] == (tp, name) for b in bad)}",
+                  flush=True)
+    if bad:
+        die(f"[{tag}] shards' columns differ from a one-device mesh's of "
+            f"their group: {bad[:8]}")
+    return {f"tp{tp} {name}": sorted(set(rows))
+            for (tp, name), rows in plain_diff.items()}
+
+
+def tp_kernel_bits(torch, np, cfg, tps, tag):
+    """The per-shard dispatch of kernels/ops.py at the model's heads (every
+    shard on the card) against one launch over the whole heads: decode
+    rows of ~3,400 keys (several splits) and a 256-row prefill chunk after
+    a 1,500-key prefix, bit for bit."""
+    from repro_torch.kernels import ops
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    d = decode_case(torch, np, B=8, H=H, KV=KV, hd=hd, page=16, n_slots=220,
+                    dtype=cfg.tdtype, seed=31,
+                    rows=[[1700, 1700], [900, 33], [16], [3000, 400]] * 2)
+    p = prefill_case(torch, np, B=2, H=H, KV=KV, hd=hd, page=16,
+                     n_slots=120, Sq=256, dtype=cfg.tdtype, seed=32,
+                     rows=[([1000, 500], 256), ([700], 100)])
+    for tp in tps:
+        mesh = one_card_mesh(tp)
+        for name, case, fn in (("decode", d, ops.paged_decode_attention),
+                               ("prefill", p, ops.paged_prefill_attention)):
+            c = dict(case)
+            whole = call(fn, c)
+            for name_ in ("k_pages", "v_pages"):
+                c[name_] = [t.contiguous() for t in case[name_].chunk(tp, 3)]
+            layer, window = c.pop("layer"), c.pop("window")
+            cap = c.pop("logit_cap")
+            split = fn(*c.values(), layer, window, logit_cap=cap, mesh=mesh)
+            same = torch.equal(split, whole)
+            print(f"[{tag}] per-shard {name} tp {tp} ({H // tp} query / "
+                  f"{KV // tp} KV heads a shard) against the whole heads: "
+                  f"bit-identical {same}", flush=True)
+            if not same:
+                die(f"[{tag}] per-shard {name} at tp {tp} differs")
+
+
+TIER_KEYS = ("hit_tokens_gpu", "hit_tokens_host", "hit_tokens_disk", "hits",
+             "misses", "swap_out_bytes", "load_bytes")
+
+
+def tp_serve(torch, cfg, params, corpus, idx, sub, args, tp, slabs):
+    """One serve of ``sub`` at ``tp`` shards on the card, column-slab group
+    ``slabs`` (on a constant clock), demotion of every cached node to the
+    host tier, and the serve again; returns its results, tier figures,
+    host copies, launches, plain calls, peak memory and ms a decode
+    step."""
+    from repro_torch.core.knowledge_tree import EvictionError
+    from repro_torch.serving.config import EngineConfig, MeshConfig
+    from repro_torch.serving.runtime import ContinuousRuntime
+    econf = dataclasses.replace(EngineConfig.from_args(args),
+                                mesh=MeshConfig(tp=tp))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with constant_clock():
+        rt = ContinuousRuntime(cfg, params, corpus, idx, config=econf,
+                               device="cuda", mesh=one_card_mesh(tp, slabs))
+        res = rt.serve(sub, max_new_tokens=args.max_new_tokens)
+        try:
+            rt.tree.evict_gpu_until(lambda: False)
+        except EvictionError:
+            pass
+        host = {n.path(): (n.payload_host["k"], n.payload_host["v"])
+                for n in rt.tree.nodes() if n.payload_host is not None}
+        again = [dataclasses.replace(r, req_id=r.req_id + 10**6)
+                 for r in sub]
+        res += rt.serve(again, max_new_tokens=args.max_new_tokens)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    check_leak(rt)
+    return dict(results=sorted(res, key=lambda r: r.req_id),
+                tier={k: rt.tree.stats[k] for k in TIER_KEYS}, host=host,
+                launches=launches, plain=plain,
+                peak=torch.cuda.max_memory_allocated() - held,
+                backend=type(rt.tree.backend).__name__, rt=rt)
+
+
+def time_decode_steps(runs):
+    """ms a decode step of each run's runtime (its warm-up step at
+    max_batch rows: the weight products and launches of a step), host
+    clock around a step that ends in a device synchronise; the runtimes
+    take turns, TP_DECODE_REPS rounds, so host load falls on all alike."""
+    for run in runs.values():
+        for _ in range(3):
+            run["rt"]._decode([])
+    ts = {key: [] for key in runs}
+    order = list(runs)
+    for i in range(TP_DECODE_REPS):
+        for key in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            runs[key]["rt"]._decode([])
+            ts[key].append(time.perf_counter() - t0)
+    return {key: 1e3 * statistics.median(t) for key, t in ts.items()}
+
+
+def phase_tp(torch, np, cfg, params, corpus, idx, wl, args, tps, full):
+    """Tensor-parallel serving of ``cfg`` at each of ``tps``, every shard on
+    the one card: tp N (its column-slab group G = N) against tp 1 of group
+    N, bit for bit, and tp 1 of group 1 (the default serve) for its time
+    and bits (TP_MODELS' note).  Returns the launches, decode ms and peak
+    memory by run, where the plain column slice differs, and the wall."""
+    t0 = time.perf_counter()
+    tag = f"tp {cfg.name}"
+    print(f"[{tag}] shards on one card (cuda:0 x tp): {cfg.n_layers} of "
+          f"{full.n_layers} layers at full width, tp {tps}, each against "
+          f"tp 1 of its column-slab group; {card_line(torch)}", flush=True)
+    plain_diff = tp_probe(torch, cfg, params, tps, tag)
+    tp_kernel_bits(torch, np, cfg, tps, tag)
+    sub = wl[:TP_REQUESTS]
+    plan = [("tp 1", 1, 1)]
+    for tp in tps:
+        plan += [(f"tp 1 G{tp}", 1, tp), (f"tp {tp}", tp, tp)]
+    runs = {key: tp_serve(torch, cfg, params, corpus, idx, sub, args, tp, g)
+            for key, tp, g in plan}
+    for key, ms in time_decode_steps(runs).items():
+        runs[key]["ms"] = ms
+        del runs[key]["rt"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = runs["tp 1"]
+    if one["tier"]["load_bytes"] <= 0 or one["tier"]["hit_tokens_host"] <= 0:
+        die(f"[{tag}] the second serve promoted nothing from the host tier: "
+            f"{one['tier']}")
+    for key, run in runs.items():
+        print(f"[{tag}] {key} ({run['backend']}): {run['ms']:.3f} ms a "
+              f"decode step ({args.max_batch} rows, median of "
+              f"{TP_DECODE_REPS} rounds); peak device memory "
+              f"{run['peak']} B above what the earlier runs held; "
+              f"launches {run['launches']}; plain calls {run['plain']}; "
+              f"tiers {run['tier']}", flush=True)
+        if run["plain"]:
+            die(f"[{tag}] {key}: the plain versions ran {run['plain']} "
+                f"times")
+    for tp in tps:
+        run, ref = runs[f"tp {tp}"], runs[f"tp 1 G{tp}"]
+        for name in ("paged_decode_attention", "paged_prefill_attention"):
+            if run["launches"][name] != tp * ref["launches"][name]:
+                die(f"[{tag}] tp {tp}: {name} launched "
+                    f"{run['launches'][name]} times, not {tp} x "
+                    f"{ref['launches'][name]}")
+        if run["tier"] != ref["tier"]:
+            die(f"[{tag}] tp {tp} tier figures {run['tier']} != tp 1's "
+                f"{ref['tier']}")
+        diff = [a.req_id for a, b in zip(run["results"], ref["results"])
+                if a.req_id != b.req_id or list(a.tokens) != list(b.tokens)
+                or not np.array_equal(a.first_logits, b.first_logits)]
+        if diff or len(run["results"]) != 2 * len(sub):
+            die(f"[{tag}] tp {tp}: tokens or first-token logits differ from "
+                f"tp 1's of group {tp} for requests {diff[:8]}")
+        if run["host"].keys() != ref["host"].keys() or not all(
+                torch.equal(x, y) for path in ref["host"]
+                for x, y in zip(run["host"][path], ref["host"][path])):
+            die(f"[{tag}] tp {tp}: host copies differ from tp 1's")
+        same = sum(list(a.tokens) == list(b.tokens)
+                   and np.array_equal(a.first_logits, b.first_logits)
+                   for a, b in zip(ref["results"], one["results"]))
+        print(f"[{tag}] tp {tp}: {len(run['results'])} results' tokens and "
+              f"first-token logits, the tier figures and "
+              f"{len(run['host'])} host copies bit-identical to tp 1's of "
+              f"group {tp}; paged launches {tp} x its; tp 1 of group {tp} "
+              f"against the default tp 1: {same}/{len(ref['results'])} "
+              f"results bit-identical, tiers equal "
+              f"{ref['tier'] == one['tier']}", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"[{tag}] phase wall {wall:.1f}s", flush=True)
+    return dict(launches={k: r["launches"] for k, r in runs.items()},
+                ms={k: r["ms"] for k, r in runs.items()},
+                peak={k: r["peak"] for k, r in runs.items()},
+                default_differs=plain_diff, wall=wall)
+
+
 def paper_argv(arch, n_requests, *extra):
     """serve.main's argv for a paper model at published width: the main
     configuration with the paper models' cache budgets."""
@@ -2478,6 +2801,9 @@ def phase_paper(torch, np, arch):
                 n=4, eps=eps, tag=f"{arch} check")
     if arch == "mistral-7b":
         out["window"] = phase_window(torch, np, cfg, params, eps, full)
+    if arch in TP_MODELS:
+        out["tp"] = phase_tp(torch, np, cfg, params, corpus, idx, wl, args,
+                             TP_MODELS[arch], full)
     phase_profile(torch, cfg, params, corpus, idx, wl, args,
                   tag=f"{arch} profile")
     out["seq"] = {"prefix_flash_attention": phase_seq_in_process(
@@ -3744,6 +4070,8 @@ def main() -> None:
     fault = phase_fault(torch, np, cfg, params, corpus, idx, wl, args)
     hops = phase_hops(torch, np, cfg, params, corpus, idx, wl, args)
     train = phase_train(torch, np, cfg, params)
+    tp_qwen = phase_tp(torch, np, cfg, params, corpus, idx, wl, args,
+                       TP_MODELS[cfg.name], cfg)
     del params, results
     paper = {arch: phase_paper(torch, np, arch) for arch in PAPER_MODELS}
     moe = phase_moe(torch, np)
@@ -3785,6 +4113,10 @@ def main() -> None:
     for name in ("paged_decode_attention", "paged_prefill_attention"):
         by_path[name]["fault serve"] = fault["launches"][name]
         by_path[name]["hops serve"] = hops["launches"][name]
+        for arch, o in (("qwen2-0.5b", tp_qwen),
+                        ("mistral-7b", paper["mistral-7b"]["tp"])):
+            for key, n in o["launches"].items():
+                by_path[name][f"{arch} {key}"] = n[name]
     for arch, o in paper.items():
         for name, n in o["launches"].items():
             if name != "prefix_flash_attention":
@@ -3840,6 +4172,16 @@ def main() -> None:
           f"{train['peak']} B, loss {train['losses'][0]:.4f} -> "
           f"{train['losses'][-1]:.4f}, prefix launches a step "
           f"{train['launches']}; phase wall {train['wall']:.1f}s", flush=True)
+    for arch, o in (("qwen2-0.5b", tp_qwen),
+                    ("mistral-7b", paper["mistral-7b"]["tp"])):
+        print(f"[tp] {arch}, shards on one card: ms a decode step by run "
+              f"{ {k: round(ms, 3) for k, ms in o['ms'].items()} }; peak "
+              f"device memory above what was held, by run {o['peak']}; "
+              f"tp N bit-identical to tp 1 of group N; "
+              f"the default tp 1's columns differ at "
+              f"{o['default_differs']}"
+              f"; phase wall {o['wall']:.1f}s; {card_line(torch)}",
+              flush=True)
     print(f"[fault] (recovered, lost) = ({fault['recovered']}, "
           f"{fault['lost']}), {fault['stranded']} blocks stranded; phase "
           f"wall {fault['wall']:.1f}s; [hops] served alphas "

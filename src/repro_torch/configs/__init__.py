@@ -7,8 +7,9 @@ evaluation models, Mistral-7B (GQA, a 4096-token sliding window on every
 layer) and LLaMA2-7B (MHA); the rest of the dense family, Gemma3-12B (head
 dim 256, a 1024 window on 5 of every 6 layers), Gemma2-27B (a 4096 window
 on every other layer, softcaps 50 and 30), Yi-34B (R 7) and LLaMA2-70B
-(138 GB of bf16 weights: served reduced only until tensor parallelism is
-ported, ROADMAP.md Queue A); the MoE family, Mixtral-8x7B (8 experts, top
+(138 GB of bf16 weights: at full size it needs ``--tp 4``, whose first
+card holds 70.7 GB and at most 72.6 GB while the weights are drawn); the
+MoE family, Mixtral-8x7B (8 experts, top
 2, the paper's large-model target) and Phi-3.5-MoE (16 experts, top 2);
 the VLM family's InternVL2-1B, whose text backbone the runtimes serve; the
 recurrent families, xLSTM-1.3B (ssm) and Hymba-1.5B (hybrid), which the

@@ -6,10 +6,19 @@
   impl="cuda"  -> force the kernel (raises for a CPU tensor)
   impl="torch" -> force the plain version (on either device)
 
-Tensor parallelism is not ported yet (ROADMAP.md Queue A item 6), so there
-is no sharded path.
+``mesh``: the serving mesh (``launch/mesh.py``; one shard at tp 1).  With
+a mesh the paged ops take the pool's list of planes, one per shard, and
+dispatch the same kernel (or plain version) PER SHARD: shard i
+gets q's heads [i H/tp, (i+1) H/tp) on its device and its plane of KV/tp
+heads, with the run tables copied once to each distinct device (they do
+not depend on heads); the outputs are concatenated along heads on q's
+device (one shard's output as it is).  No collectives: attention is
+independent across heads.  Shards that share a device launch on its
+current stream, in shard order.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import paged_attention as _pg
 from repro_torch.kernels import paged_prefill as _pp
@@ -39,11 +48,48 @@ def prefix_attention(q, k, v, *, prefix_len: int, window: int = 0,
                                       window=window, logit_cap=logit_cap)
 
 
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                    impl: str | None = None):
+    """Single-layer decode attention over paged KV (contiguous runs from a
+    block table and lengths; see paged_attention.py).  q: (B, H, hd); k/v
+    pages: (n_pages, page, KV, hd)."""
+    fn = (_pg.paged_decode_torch if _resolve(impl, q) == "torch"
+          else _pg.paged_decode_attention)
+    runs = _pg.single_layer_runs(block_tables, lengths, k_pages.shape[1])
+    return fn(q, k_pages[None], v_pages[None], *runs, 0, 0)
+
+
+def _per_shard(fn, q, k_planes, v_planes, ints, mesh, axis, **kw):
+    """``fn(q_i, k_planes[i], v_planes[i], *ints, **kw)`` for each shard
+    i, q_i the shard's heads (dim 1) on its device; outputs concatenated
+    along heads on q's device."""
+    tp = mesh.shape[axis]
+    if len(k_planes) != tp or len(v_planes) != tp:
+        raise ValueError(f"a mesh of {tp} shards needs {tp} pool planes")
+    hs = q.shape[1] // tp
+    placed = {d: tuple(t.to(d) for t in ints)
+              for d in dict.fromkeys(mesh.devices)}
+    outs = []
+    for i, dev in enumerate(mesh.devices):
+        qi = q[:, i * hs:(i + 1) * hs].to(dev)
+        outs.append(fn(qi, k_planes[i], v_planes[i], *placed[dev], **kw))
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([o.to(q.device) for o in outs], dim=1)
+
+
 def paged_decode_attention(q, k_pages, v_pages, tables, counts, starts, qpos,
                            layer: int, window: int, *,
-                           logit_cap: float = 0.0, impl: str | None = None):
+                           logit_cap: float = 0.0, impl: str | None = None,
+                           mesh=None, axis: str = "model"):
     """Decode attention straight from the pool's layer-major page arrays
-    (see paged_attention.py for the run-table contract)."""
+    (see paged_attention.py for the run-table contract); with a ``mesh``,
+    per shard over the pool's planes (``_paged_decode_sharded``)."""
+    if mesh is not None:
+        return _paged_decode_sharded(q, k_pages, v_pages, tables, counts,
+                                     starts, qpos, layer, window,
+                                     logit_cap=logit_cap, impl=impl,
+                                     mesh=mesh, axis=axis)
     if _resolve(impl, q) == "torch":
         return _pg.paged_decode_torch(q, k_pages, v_pages, tables, counts,
                                       starts, qpos, layer, window,
@@ -53,11 +99,34 @@ def paged_decode_attention(q, k_pages, v_pages, tables, counts, starts, qpos,
                                       logit_cap=logit_cap)
 
 
+def _paged_decode_sharded(q, k_planes, v_planes, tables, counts, starts,
+                          qpos, layer, window, *, logit_cap, impl, mesh,
+                          axis):
+    """Per-shard dispatch of decode: each shard's H/tp query heads (made
+    contiguous, as the kernel reads them) over its KV/tp-head plane, the
+    split count and merge order unchanged (they depend on the run tables
+    and the row width only)."""
+    def one(qi, kp, vp, tb, cn, st, qp):
+        return paged_decode_attention(qi.contiguous(), kp, vp, tb, cn, st,
+                                      qp, layer, window,
+                                      logit_cap=logit_cap, impl=impl)
+    return _per_shard(one, q, k_planes, v_planes,
+                      (tables, counts, starts, qpos), mesh, axis)
+
+
 def paged_prefill_attention(q, k_pages, v_pages, tables, counts, starts,
                             q_start, q_len, layer: int, window: int, *,
-                            logit_cap: float = 0.0, impl: str | None = None):
+                            logit_cap: float = 0.0, impl: str | None = None,
+                            mesh=None, axis: str = "model"):
     """Ragged prefill attention straight from the pool's layer-major page
-    arrays (see paged_prefill.py for the query-row contract)."""
+    arrays (see paged_prefill.py for the query-row contract); with a
+    ``mesh``, per shard over the pool's planes (``_paged_prefill_sharded``).
+    """
+    if mesh is not None:
+        return _paged_prefill_sharded(q, k_pages, v_pages, tables, counts,
+                                      starts, q_start, q_len, layer, window,
+                                      logit_cap=logit_cap, impl=impl,
+                                      mesh=mesh, axis=axis)
     if _resolve(impl, q) == "torch":
         return _pp.paged_prefill_torch(q, k_pages, v_pages, tables, counts,
                                        starts, q_start, q_len, layer, window,
@@ -65,3 +134,17 @@ def paged_prefill_attention(q, k_pages, v_pages, tables, counts, starts,
     return _pp.paged_prefill_attention(q, k_pages, v_pages, tables, counts,
                                        starts, q_start, q_len, layer, window,
                                        logit_cap=logit_cap)
+
+
+def _paged_prefill_sharded(q, k_planes, v_planes, tables, counts, starts,
+                           q_start, q_len, layer, window, *, logit_cap, impl,
+                           mesh, axis):
+    """Per-shard dispatch of prefill: the decode scheme with the Sq query
+    axis riding along unsharded; each shard's q heads are read in place
+    through their strides where they already sit on its device."""
+    def one(qi, kp, vp, tb, cn, st, qs, ql):
+        return paged_prefill_attention(qi, kp, vp, tb, cn, st, qs, ql,
+                                       layer, window, logit_cap=logit_cap,
+                                       impl=impl)
+    return _per_shard(one, q, k_planes, v_planes,
+                      (tables, counts, starts, q_start, q_len), mesh, axis)

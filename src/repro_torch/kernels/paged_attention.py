@@ -16,7 +16,8 @@ exact zeros.
 partials the last of them to finish merges in a fixed order);
 ``paged_decode_torch`` is its plain PyTorch version — a per-page gather +
 online softmax with the JAX twin's masking — which the wrapper runs for
-tensors on the CPU.
+tensors on the CPU.  ``paged_attention`` is the single-layer convenience
+form over that wrapper (contiguous runs from a block table and lengths).
 """
 from __future__ import annotations
 
@@ -66,7 +67,9 @@ def paged_decode_torch(q, k_pages, v_pages, tables, counts, starts, qpos,
         pid = tables[:, j].long()
         k = kl[pid].float()                              # (B, page, KV, hd)
         v = vl[pid].float()
-        s = torch.einsum("bgrd,bpgd->bgrp", qf, k)
+        # contiguous operands of one batched product: each (row, KV head)
+        # block's bits do not depend on how many heads share the call
+        s = torch.matmul(qf, k.permute(0, 2, 3, 1).contiguous())
         if logit_cap:
             s = logit_cap * torch.tanh(s / logit_cap)
         live = slot[None] < counts[:, j, None]           # (B, page)
@@ -79,7 +82,8 @@ def paged_decode_torch(q, k_pages, v_pages, tables, counts, starts, qpos,
         p = torch.where(lb, torch.exp(s - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bgrp,bpgd->bgrd", p, v)
+        acc = acc * alpha[..., None] + torch.matmul(
+            p, v.permute(0, 2, 1, 3).contiguous())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, H, hd).to(q.dtype)
@@ -216,3 +220,32 @@ def paged_decode_attention(q, k_pages, v_pages, tables, counts, starts, qpos,
 
 
 paged_decode_attention.launches = 0
+
+
+def single_layer_runs(block_tables, lengths, page: int):
+    """The run tables (tables, counts, starts, qpos) of single-layer
+    contiguous semantics: entry ``j`` of row ``b`` holds positions
+    ``[j * page, ...)`` up to ``lengths[b]``, the query at the last."""
+    n_slots = block_tables.shape[1]
+    off = torch.arange(n_slots, dtype=torch.int32,
+                       device=block_tables.device)[None] * page
+    lengths = lengths.to(torch.int32)
+    counts = torch.clamp(lengths[:, None] - off, 0, page).to(torch.int32)
+    starts = off.expand(block_tables.shape).contiguous()
+    qpos = torch.clamp(lengths - 1, min=0)
+    return (block_tables.to(torch.int32).contiguous(), counts.contiguous(),
+            starts, qpos.contiguous())
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths):
+    """Single-layer decode attention over a block table (counterpart of
+    ``repro.kernels.paged_attention.paged_attention``): contiguous
+    semantics (``single_layer_runs``) through ``paged_decode_attention``
+    at layer 0, no window.
+
+    q: (B, H, hd); k/v_pages: (n_pages, page, KV, hd); block_tables:
+    (B, n_slots) int32 page ids; lengths: (B,) valid tokens.  Takes the
+    kernel for CUDA tensors and the plain version for CPU ones."""
+    runs = single_layer_runs(block_tables, lengths, k_pages.shape[1])
+    return paged_decode_attention(q, k_pages[None], v_pages[None], *runs,
+                                  0, 0)

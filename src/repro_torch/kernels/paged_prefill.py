@@ -44,7 +44,9 @@ def paged_prefill_torch(q, k_pages, v_pages, tables, counts, starts, q_start,
     page, KV = k_pages.shape[2], k_pages.shape[3]
     R = H // KV
     dev = q.device
-    qf = (q.float() * hd ** -0.5).reshape(B, KV, R, Sq, hd)
+    # contiguous operands of batched products over (row, KV head) blocks:
+    # a block's bits do not depend on how many heads share the call
+    qf = (q.float() * hd ** -0.5).reshape(B, KV, R * Sq, hd).contiguous()
     slot = torch.arange(page, device=dev, dtype=torch.int32)
     qrow = torch.arange(Sq, device=dev, dtype=torch.int32)
     qpos = q_start[:, None] + qrow[None]                   # (B, Sq)
@@ -57,7 +59,8 @@ def paged_prefill_torch(q, k_pages, v_pages, tables, counts, starts, q_start,
         pid = tables[:, j].long()
         k = kl[pid].float()                                # (B, page, KV, hd)
         v = vl[pid].float()
-        s = torch.einsum("bgrqd,bpgd->bgrqp", qf, k)
+        s = torch.matmul(qf, k.permute(0, 2, 3, 1).contiguous()) \
+            .reshape(B, KV, R, Sq, page)
         if logit_cap:
             s = logit_cap * torch.tanh(s / logit_cap)
         kpos = starts[:, j, None] + slot[None]             # (B, page)
@@ -72,7 +75,9 @@ def paged_prefill_torch(q, k_pages, v_pages, tables, counts, starts, q_start,
         p = torch.where(mb, torch.exp(s - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bgrqp,bpgd->bgrqd", p, v)
+        pv = torch.matmul(p.reshape(B, KV, R * Sq, page),
+                          v.permute(0, 2, 1, 3).contiguous())
+        acc = acc * alpha[..., None] + pv.reshape(B, KV, R, Sq, hd)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, H, Sq, hd).to(q.dtype)

@@ -1,6 +1,6 @@
 """Dense torch oracles for the attention kernels (counterparts of
-``repro.kernels.ref.reference_prefix_attention``, ``reference_paged_prefill``
-and ``reference_paged_decode``).
+``repro.kernels.ref.reference_prefix_attention``, ``reference_paged_prefill``,
+``reference_paged_decode`` and ``reference_paged_attention``).
 
 They run a plain masked softmax over the whole context — for the paged
 kernels after gathering every table entry's page into a dense
@@ -107,4 +107,24 @@ def reference_paged_decode(q, k_pages, v_pages, tables, counts, starts, qpos,
     s = torch.where(live[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(live[:, None], p, 0.0)   # all-masked row -> 0, not NaN
+    return torch.einsum("bhk,bkhd->bhd", p, vf).to(q.dtype)
+
+
+def reference_paged_attention(q, k_pages, v_pages, block_tables, lengths):
+    """Dense oracle for the single-layer ``paged_attention``.  q: (B, H,
+    hd); k/v_pages: (n_pages, page, KV, hd); block_tables: (B, n_slots)
+    int32; lengths: (B,) valid tokens.  As in the reference, a row of
+    length 0 averages its values instead of giving zeros."""
+    B, H, hd = q.shape
+    page, KV = k_pages.shape[1], k_pages.shape[2]
+    nb = block_tables.shape[1]
+    idx = block_tables.long()
+    k = k_pages[idx].reshape(B, nb * page, KV, hd)
+    v = v_pages[idx].reshape(B, nb * page, KV, hd)
+    kf = k.repeat_interleave(H // KV, dim=2).float()
+    vf = v.repeat_interleave(H // KV, dim=2).float()
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), kf) * hd ** -0.5
+    mask = torch.arange(nb * page, device=q.device)[None] < lengths[:, None]
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
     return torch.einsum("bhk,bkhd->bhd", p, vf).to(q.dtype)

@@ -2,11 +2,15 @@
 key-value tensors in non-contiguous memory blocks") — counterpart of
 ``repro.kvcache.paged``.
 
-The pool owns one (L, n_blocks, block_size, KV, hd) tensor per K and V on
-its device; documents hold block-id lists.  Ref-counting lets overlapping
-knowledge-tree paths share blocks.  Every write goes into the pool tensors
-in place (``index_put_``): ``store.k`` / ``store.v`` are never reassigned,
-so model steps can hold them across calls.
+The pool owns one (L, n_blocks, block_size, KV / tp, hd) plane pair per
+shard of its mesh (one shard on its device without a mesh), on the
+shard's device; documents hold block-id lists.  The block allocator, the
+block ids and the slot coordinates stay single (they do not depend on
+heads), so every scheduler and tree decision is the same at any tp.
+Ref-counting lets overlapping knowledge-tree paths share blocks.  Every
+write goes into the planes in place (``index_put_``): ``store.k_planes`` /
+``store.v_planes`` are never reassigned, so model steps can hold them
+across calls.
 
 ``DiskSegmentStore`` is the third tier below the host copies: one file per
 knowledge-tree node, written once on host->disk demotion.  numpy has no
@@ -88,26 +92,65 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
 class PagedKVStore:
     """Paged storage for per-document KV segments.
 
-    Layout: k/v tensors of shape (L, n_blocks, block_size, KV, hd) on
-    ``device``.  A stored segment is (block_ids, n_tokens).
+    Layout: ``k_planes``/``v_planes`` hold one (L, n_blocks, block_size,
+    KV / tp, hd) plane per shard of ``mesh`` on its device
+    (``launch/sharding.py::pool_kv_spec``); without a mesh, one whole
+    plane on ``device``.  A stored
+    segment is (block_ids, n_tokens).  ``put``/``append`` write each
+    shard's head slice, ``gather`` returns whole heads on the first
+    device.
     """
 
     def __init__(self, n_layers: int, n_blocks: int, block_size: int,
                  n_kv: int, head_dim: int, dtype=torch.float32,
-                 device="cpu"):
+                 device="cpu", mesh=None):
         self.pool = BlockPool(n_blocks, block_size)
         self.block_size = block_size
-        self.device = torch.device(device)
-        shape = (n_layers, n_blocks, block_size, n_kv, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.devices = ([torch.device(device)] if mesh is None
+                        else list(mesh.devices))
+        tp = len(self.devices)
+        if n_kv % tp:
+            raise ValueError(f"{n_kv} KV heads do not split over tp {tp}")
+        self.device = self.devices[0]
+        self.n_kv = n_kv
+        shape = (n_layers, n_blocks, block_size, n_kv // tp, head_dim)
+        self.k_planes = [torch.zeros(shape, dtype=dtype, device=d)
+                         for d in self.devices]
+        self.v_planes = [torch.zeros(shape, dtype=dtype, device=d)
+                         for d in self.devices]
+
+    @property
+    def tp(self) -> int:
+        return len(self.k_planes)
 
     def bytes_per_token(self) -> int:
-        L, _, _, KV, hd = self.k.shape
-        return int(2 * L * KV * hd * self.k.element_size())
+        """KV bytes a token takes over all shards (the whole model's)."""
+        L, _, _, _, hd = self.k_planes[0].shape
+        return int(2 * L * self.n_kv * hd * self.k_planes[0].element_size())
 
-    def _index(self, ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+    def _index(self, ids, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids, np.int64),
+                               device=self.device if device is None
+                               else device)
+
+    def _shard_segment(self, k_seg, v_seg):
+        """Split an incoming (L, 1, T, KV, hd) segment by KV heads the way
+        the pool is sharded: one (L, 1, T, KV / tp, hd) piece per shard,
+        copied to the shard's device (each device receives exactly its
+        head slice, never a whole replica).  Returns (k pieces, v
+        pieces)."""
+        n = self.n_kv // self.tp
+        return tuple(
+            [seg[..., i * n:(i + 1) * n, :].to(d, non_blocking=True)
+             for i, d in enumerate(self.devices)]
+            for seg in (k_seg, v_seg))
+
+    def _heads(self, parts) -> torch.Tensor:
+        """The shards' head slices (..., KV / tp, hd) as whole heads on the
+        first device."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([t.to(self.device) for t in parts], dim=-2)
 
     def put(self, k_seg, v_seg, reserve_tokens: int = 0) -> "PagedSegment":
         """k_seg/v_seg: (L, 1, T, KV, hd) contiguous -> paged blocks.
@@ -119,12 +162,13 @@ class PagedKVStore:
         nb = self.pool.blocks_for_tokens(T + reserve_tokens)
         blocks = self.pool.alloc(nb)
         pad = nb * self.block_size - T
-        idx = self._index(blocks)
-        for src, dst in ((k_seg, self.k), (v_seg, self.v)):
-            s = src[:, 0].to(self.device, dst.dtype, non_blocking=True)
-            s = torch.nn.functional.pad(s, (0, 0, 0, 0, 0, pad))
-            s = s.reshape(s.shape[0], nb, self.block_size, *s.shape[2:])
-            dst.index_copy_(1, idx, s)
+        ks, vs = self._shard_segment(k_seg, v_seg)
+        for pieces, planes in ((ks, self.k_planes), (vs, self.v_planes)):
+            for src, dst in zip(pieces, planes):
+                s = src[:, 0].to(dst.device, dst.dtype, non_blocking=True)
+                s = torch.nn.functional.pad(s, (0, 0, 0, 0, 0, pad))
+                s = s.reshape(s.shape[0], nb, self.block_size, *s.shape[2:])
+                dst.index_copy_(1, self._index(blocks, dst.device), s)
         return PagedSegment(self, blocks, T)
 
     def append(self, seg: "PagedSegment", k_new, v_new) -> "PagedSegment":
@@ -144,11 +188,14 @@ class PagedKVStore:
         if need > 0:
             seg.blocks.extend(self.pool.alloc(self.pool.blocks_for_tokens(need)))
         pos = np.arange(seg.n_tokens, seg.n_tokens + T)
-        blk = self._index(np.asarray(seg.blocks, np.int64)[pos // self.block_size])
-        slot = self._index(pos % self.block_size)
-        for src, dst in ((k_new, self.k), (v_new, self.v)):
-            s = src[:, 0].to(self.device, dst.dtype, non_blocking=True)
-            dst[:, blk, slot] = s
+        blk = np.asarray(seg.blocks, np.int64)[pos // self.block_size]
+        slot = pos % self.block_size
+        ks, vs = self._shard_segment(k_new, v_new)
+        for pieces, planes in ((ks, self.k_planes), (vs, self.v_planes)):
+            for src, dst in zip(pieces, planes):
+                s = src[:, 0].to(dst.device, dst.dtype, non_blocking=True)
+                dst[:, self._index(blk, dst.device),
+                    self._index(slot, dst.device)] = s
         seg.n_tokens += T
         return seg
 
@@ -173,15 +220,49 @@ class PagedKVStore:
         seg.n_tokens += n
         return blk.astype(np.int32), slot.astype(np.int32)
 
+    def gather_shards(self, seg: "PagedSegment"):
+        """Paged -> contiguous (L, 1, T, KV / tp, hd) pieces, one per
+        shard on its device: (k pieces, v pieces)."""
+        out = []
+        for planes in (self.k_planes, self.v_planes):
+            pieces = []
+            for plane in planes:
+                t = plane[:, self._index(seg.blocks, plane.device)]
+                L, nb, bs, KV, hd = t.shape
+                pieces.append(t.reshape(L, nb * bs, KV, hd)
+                              [:, :seg.n_tokens][:, None])
+            out.append(pieces)
+        return out[0], out[1]
+
     def gather(self, seg: "PagedSegment"):
-        """Paged -> contiguous (L, 1, T, KV, hd) tensors on the device."""
-        idx = self._index(seg.blocks)
-        k = self.k[:, idx]        # (L, nb, bs, KV, hd)
-        v = self.v[:, idx]
-        L, nb, bs, KV, hd = k.shape
-        k = k.reshape(L, nb * bs, KV, hd)[:, : seg.n_tokens]
-        v = v.reshape(L, nb * bs, KV, hd)[:, : seg.n_tokens]
-        return k[:, None], v[:, None]
+        """Paged -> contiguous (L, 1, T, KV, hd) tensors, whole heads, on
+        the (first) device."""
+        ks, vs = self.gather_shards(seg)
+        return self._heads(ks), self._heads(vs)
+
+    def read_slots(self, blk, slot):
+        """K and V (L, *blk.shape, KV, hd) at the (block, slot)
+        coordinates ``blk``/``slot`` (tensors on the first device), whole
+        heads on the first device."""
+        return tuple(
+            self._heads([p[:, blk.to(p.device), slot.to(p.device)]
+                         for p in planes])
+            for planes in (self.k_planes, self.v_planes))
+
+    def write_slots(self, blk, slot, k, v) -> None:
+        """Write K and V (L, *blk.shape, KV, hd), whole heads, at the
+        (block, slot) coordinates; each shard takes its head slice."""
+        n = self.n_kv // self.tp
+        for planes, src in ((self.k_planes, k), (self.v_planes, v)):
+            for i, p in enumerate(planes):
+                part = src[..., i * n:(i + 1) * n, :]
+                p[:, blk.to(p.device), slot.to(p.device)] = part.to(p.device)
+
+    def sync(self) -> None:
+        """Wait for the queued work of every CUDA device of the pool."""
+        for d in dict.fromkeys(self.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def free(self, seg: "PagedSegment") -> None:
         self.pool.decref(seg.blocks)

@@ -1,0 +1,95 @@
+"""Serving mesh of the port (counterpart of the serving half of
+``repro.launch.mesh``).
+
+The reference's tensor parallelism is single-controller: one process, a
+``(data=1, model=tp)`` mesh of devices.  The port keeps that model with an
+explicit, ordered list of ``torch.device``s: shard ``i`` of every sharded
+param and of the paged pool lives on ``devices[i]``, and one process
+launches every shard's work.  No process group, no ranks.
+
+``slabs`` is the mesh's column-slab group G: every column product (wq, wk,
+wv, wg, wu, the logits) is computed in G column slabs, a shard computing
+its G / tp of them one call each.  A product's column does not keep its
+bits when the call's width changes (cuBLAS, and the CPU's GEMMs, pick
+their kernel and split of the contraction by (M, N, K);
+``scripts/probe_column_slices.py``), so the bits of a serve are fixed by G
+and not by tp: every mesh of one G gives the same tokens and logits, tp 1
+included.  G defaults to tp, so a shard runs each column product as one
+call and tp 1 runs the unslabbed products (no slab costs a one-card serve
+anything); ``make_serving_mesh(1, slabs=N)`` is the one-device mesh whose
+bits a tp-N serve reproduces.
+
+``device="cpu"`` gives ``tp`` CPU shards, the counterpart of
+``--xla_force_host_platform_device_count``.  An explicit ``devices`` list
+may name one card more than once (``["cuda:0"] * tp``): every shard then
+runs on that card, which is how one card shows the per-shard path.
+``make_production_mesh``/``make_debug_mesh`` and ``data_axes`` belong to
+the compile analysis, which the port does not have yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingMesh:
+    """One serving replica's mesh: ``shape == {"data": 1, "model": tp}``
+    over ``devices``, shard ``i`` on ``devices[i]``, and its column-slab
+    group ``slabs`` (0: tp)."""
+
+    devices: Tuple[torch.device, ...]
+    slabs: int = 0
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    def __post_init__(self):
+        tp = len(self.devices)
+        if self.slabs == 0:
+            object.__setattr__(self, "slabs", tp)
+        if self.slabs % tp:
+            raise ValueError(f"a column-slab group of {self.slabs} does not "
+                             f"split over tp {tp}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": 1, "model": len(self.devices)}
+
+    @property
+    def controller(self) -> torch.device:
+        """The device that holds the replicated residual stream and runs
+        the replicated products (shard 0's)."""
+        return self.devices[0]
+
+
+def make_serving_mesh(tp: int, device=None, devices: Sequence = None,
+                      slabs: int = 0) -> ServingMesh:
+    """One serving replica's mesh: ``(data=1, model=tp)``.
+
+    ``devices`` names the shards' devices explicitly (``tp`` of them; a
+    card may repeat).  Else ``device="cpu"`` gives ``tp`` CPU shards, and
+    ``None`` or ``"cuda"`` the cards ``cuda:0 .. cuda:tp-1``, raising when
+    fewer are visible (``"cuda:i"`` at tp 1: that card).  ``slabs``: the
+    column-slab group, a multiple of tp (0: tp)."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if devices is not None:
+        devs = tuple(torch.device(d) for d in devices)
+        if len(devs) != tp:
+            raise ValueError(f"tp {tp} needs {tp} devices, got {len(devs)}")
+        return ServingMesh(devs, slabs)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return ServingMesh((dev,) * tp, slabs)
+    if tp == 1 and dev.index is not None:
+        return ServingMesh((dev,), slabs)
+    avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if avail < tp:
+        raise ValueError(
+            f"--tp {tp} needs {tp} devices but only {avail} are visible; "
+            f"on the CPU pass --device cpu"
+        )
+    return ServingMesh(tuple(torch.device("cuda", i) for i in range(tp)),
+                       slabs)

@@ -58,8 +58,15 @@ seeded random bf16 weights take 14.5 GB (Mistral-7B), 13.5 GB
 (LLaMA2-7B), 23.5 GB (Gemma3-12B), 54.5 GB (Gemma2-27B) and 68.8 GB
 (Yi-34B) on the card; LLaMA2-70B's (138.0 GB), Mixtral-8x7B's (93.4 GB)
 and Phi-3.5-MoE's (83.7 GB) do not fit one 80 GB card, and ``--full-size``
-refuses them before drawing any weight: they need tensor parallelism,
-which is not ported (ROADMAP.md Queue A).  ``--gpu-cache-bytes`` sizes
+refuses them before drawing any weight.  Under ``--tp N`` (without
+``--check-tokens`` or ``--sequential``, whose one-device oracle needs the
+whole tree) each leaf is split over the cards as it is drawn, and the
+check is the first card's peak during that draw
+(``launch/sharding.py::card_bytes``: its split weights / N, the whole
+wo/wd and norms, and the leaf in flight): LLaMA2-70B at ``--tp 4``
+peaks at 72.6 GB (70.7 GB held after the draw) and passes, and then
+needs four visible cards; no run of it on four cards exists.
+``--gpu-cache-bytes`` sizes
 the paged pool, clipped at 4096 blocks: keep it at or below 4096 blocks
 of KV (7.875 GiB for Mistral-7B, 31.5 GiB for LLaMA2-7B at block 16), or
 the knowledge tree budgets GPU space the pool lacks.
@@ -67,8 +74,21 @@ the knowledge tree budgets GPU space the pool lacks.
     PYTHONPATH=src python -m repro_torch.launch.serve --full-size \
         --arch mistral-7b --gpu-cache-bytes 8053063680 --check-tokens tol:0.3
 
-``--device`` defaults to ``cuda``.  Not ported yet (ROADMAP.md Queue A): ``--tp`` > 1,
-which raises ``NotImplementedError``.
+``--tp N`` serves each replica over a ``(1, N)`` mesh, as the
+reference's does: the one-line ``SystemExit`` when N does not divide both
+head counts comes before any device work, then the mesh (the cards
+``cuda:0 .. N-1``; N CPU shards with ``--device cpu``) and the chosen
+partition specs are printed.  Params shard over the mesh, the pool's
+planes shard whole KV heads, and the tokens, tier hits and first-token
+logits are tp 1's bit for bit, so ``--check-tokens`` holds;
+``--replicas R --tp N`` is the 2D fleet, each replica with its own mesh
+over the same first N devices.  The MoE family under ``--tp`` raises
+``NotImplementedError`` (ROADMAP.md Queue A).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --tp 2 --check-tokens
+
+``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 
@@ -79,6 +99,10 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.launch.sharding import (assert_tp_compatible, card_bytes,
+                                         placer, spec_summary, split_shards,
+                                         trivial)
 from repro_torch.models import model as M
 from repro_torch.retrieval.corpus import make_corpus, make_workload
 from repro_torch.retrieval.traffic import make_default_workload
@@ -244,8 +268,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--search-scale", type=float, default=1.0,
                     help="scale staged-search stage durations")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree per replica; only 1 is "
-                         "ported (more raises NotImplementedError)")
+                    help="tensor-parallel degree per replica: a (1, tp) "
+                         "mesh of devices (the first tp cards, or tp CPU "
+                         "shards with --device cpu)")
     ap.add_argument("--sequential", action="store_true",
                     help="serve through the one-at-a-time RAGServer")
     ap.add_argument("--check-tokens", nargs="?", const="exact", default=None,
@@ -262,24 +287,41 @@ def build_parser() -> argparse.ArgumentParser:
 ONE_CARD_BYTES = 80e9
 
 
-def make_setup(args, cfg=None):
+def make_setup(args, cfg=None, mesh=None):
     """Build (cfg, params, corpus, idx, workload, tenants).  ``cfg``
     defaults to the reduced config of ``--arch`` (the published one under
     ``--full-size``, which raises ``ValueError`` for a model whose weights
-    alone pass one 80 GB card); params are seeded random weights on
-    ``--device``.  ``tenants`` is the TenantSpec list when --tenants > 0
-    (multi-tenant traffic model), else None (single-tenant
-    make_workload)."""
+    on its first card pass 80 GB); params are seeded random weights on
+    ``--device``, or, given a tensor-parallel ``mesh``, the per-shard trees
+    over it, each leaf split as it is drawn (``init_params(place=)``), so
+    no card ever holds the whole tree.  ``tenants`` is the TenantSpec
+    list when --tenants > 0 (multi-tenant traffic model), else None
+    (single-tenant make_workload)."""
     if cfg is None:
         cfg = (get_config if args.full_size else get_reduced)(args.arch)
-        need = cfg.n_params() * cfg.tdtype.itemsize
-        if args.full_size and need > ONE_CARD_BYTES:
-            raise ValueError(
-                f"--full-size --arch {args.arch}: {need / 1e9:.1f} GB of "
-                f"{cfg.dtype} weights do not fit one 80 GB card; serving it "
-                f"needs tensor parallelism (--tp), which the port does not "
-                f"have yet (ROADMAP.md Queue A item 6)")
-    params = M.init_params(cfg, args.seed, resolve_device(args.device))
+        tp = max(1, getattr(args, "tp", 1))
+        if args.full_size and tp == 1:
+            need = cfg.n_params() * cfg.tdtype.itemsize
+            if need > ONE_CARD_BYTES:
+                raise ValueError(
+                    f"--full-size --arch {args.arch}: {need / 1e9:.1f} GB "
+                    f"of {cfg.dtype} weights do not fit one 80 GB card; "
+                    f"serving it needs tensor parallelism (--tp N over N "
+                    f"cards)")
+        elif args.full_size:
+            need = card_bytes(cfg, tp)
+            if need > ONE_CARD_BYTES:
+                raise ValueError(
+                    f"--full-size --arch {args.arch} --tp {tp}: "
+                    f"{need / 1e9:.1f} GB of {cfg.dtype} weights on the "
+                    f"first card (the split ones / {tp} plus the whole "
+                    f"wo/wd and norms) do not fit one 80 GB card")
+    if not trivial(mesh):
+        params = split_shards(
+            M.init_params(cfg, args.seed, mesh.controller,
+                          place=placer(cfg, mesh)), mesh.shape["model"])
+    else:
+        params = M.init_params(cfg, args.seed, resolve_device(args.device))
     return (cfg, params) + make_data(args, cfg)
 
 
@@ -370,12 +412,17 @@ def print_preload(engine, n_replicas: int = 1) -> None:
               f"in {ps['seconds']:.2f}s of disk writes{per}")
 
 
-def serve_sequential(cfg, params, corpus, idx, wl, args, econf=None):
+def serve_sequential(cfg, params, corpus, idx, wl, args, econf=None,
+                     slabs: int = 1):
     """Serve ``wl`` through the sequential RAGServer, the single-device
-    token oracle; returns (results sorted by req_id, engine)."""
+    token oracle, over a one-device mesh of ``slabs`` column slabs (a
+    tensor-parallel serve's group, whose bits it then computes); returns
+    (results sorted by req_id, engine)."""
     econf = econf if econf is not None else EngineConfig.from_args(args)
+    mesh = (make_serving_mesh(1, device=args.device, slabs=slabs)
+            if slabs > 1 else None)
     srv = RAGServer(cfg, params, corpus, idx, config=econf,
-                    device=args.device)
+                    device=args.device, mesh=mesh)
     print_preload(srv)
     t0 = time.time()
     results = srv.serve(wl, max_new_tokens=args.max_new_tokens)
@@ -399,7 +446,8 @@ def serve_sequential(cfg, params, corpus, idx, wl, args, econf=None):
 
 def make_runtimes(cfg, params, corpus, idx, args, n, econf=None):
     """N continuous runtimes on ``--device``: each owns its pool, tree and
-    scheduler; all read the one ``params`` dict (no copy per replica)."""
+    scheduler; all read the one ``params`` dict, or the one list of
+    per-shard trees (no copy per replica)."""
     econf = econf if econf is not None else EngineConfig.from_args(args)
     return [ContinuousRuntime(cfg, params, corpus, idx, config=econf,
                               device=args.device)
@@ -544,9 +592,33 @@ def main(argv=None) -> None:
     econf = EngineConfig.from_args(args)
     fleet_conf = FleetConfig.from_args(args)
     fdc = FrontDoorConfig.from_args(args)
-    cfg, params, corpus, idx, wl, tenants = make_setup(args)
+    tp = econf.mesh.tp
+    smesh = None
+    family = get_reduced(args.arch).family
+    if tp > 1:
+        # head divisibility BEFORE any device work or device-count check,
+        # so a bad --arch/--tp pair fails the same on any machine
+        try:
+            assert_tp_compatible(get_reduced(args.arch), tp)
+        except ValueError as e:
+            raise SystemExit(f"--tp {tp}: {e}")
+        try:
+            smesh = make_serving_mesh(tp, device=args.device)
+        except ValueError as e:     # too few cards: a clean one-liner
+            raise SystemExit(str(e))
+    # the continuous engine's shards are drawn split over the mesh, unless
+    # a one-device oracle (the sequential engine) needs the whole tree
+    split = (smesh is not None and family in ("dense", "vlm")
+             and not args.sequential
+             and not args.check_tokens)
+    cfg, params, corpus, idx, wl, tenants = make_setup(
+        args, mesh=smesh if split else None)
     print(f"model={cfg.name} family={cfg.family} layers={cfg.n_layers} "
           f"d_model={cfg.d_model} device={args.device}")
+    if smesh is not None:
+        print(f"tensor parallel: tp={tp} over a (1, {tp}) mesh "
+              f"({', '.join(map(str, smesh.devices))})")
+        print(spec_summary(cfg, smesh, M.init_params(cfg, 0, "meta")))
     if args.mode == "cag" and econf.disk_cache_bytes == 0 \
             and cfg.family not in M.RECURRENT:
         # auto-size the disk tier to hold the whole corpus KV exactly
@@ -580,7 +652,8 @@ def main(argv=None) -> None:
             # served, with the front door's top_k rewrites applied); hits
             # are answered from cache and shed requests never execute
             seq, _ = serve_sequential(cfg, params, corpus, idx,
-                                      list(part.misses), args, econf=econf)
+                                      list(part.misses), args, econf=econf,
+                                      slabs=tp)
             seq_by_id = {r.req_id: r for r in seq}
             mismatches = token_mismatches(
                 [(a, seq_by_id[a.req_id]) for a in miss_results], mode, eps)
@@ -594,7 +667,7 @@ def main(argv=None) -> None:
         cont, _ = serve_continuous(cfg, params, corpus, idx, wl, args,
                                    econf=econf, fleet_conf=fleet_conf)
         seq, _ = serve_sequential(cfg, params, corpus, idx, wl, args,
-                                  econf=econf)
+                                  econf=econf, slabs=tp)
         mismatches = token_mismatches(zip(cont, seq), mode, eps)
         if mismatches:
             raise SystemExit(f"token mismatch: {mismatches}")

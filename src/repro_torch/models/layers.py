@@ -42,12 +42,28 @@ products need it was measured by chip_smoke.py's row-invariance probe
 Phi-3.5-MoE's gate and up (K 4096, N 6400) and down (K 6400) are not
 measured on the card; the rule slabs only the down.
 
+Where a tensor-parallel mesh's column products run in column slabs
+(``col_proj``), the row rule is taken on each slab's (K, N / slabs).  scripts/probe_slab_rows.py,
+over every such slab shape on the same card (rows 1 to 8192, bf16), found
+these row-variant:
+Mistral-7B's q slab (K 4096, N 1024) and k/v (N 256), LLaMA2-7B's gate and
+up slabs (K 4096, N 2752), Gemma2-27B's q and k/v (K 4608), Yi-34B's q,
+k/v and o (K 7168) and LLaMA2-70B's q and gate/up (K 8192), each row-
+invariant in slabs of rows; Mistral-7B's gate and up slabs (K 4096, N
+3584), Gemma3-12B's (K 3840, N 3840) and the tied logits' slabs of Qwen2-
+0.5B (K 896), Gemma3-12B (K 3840) and Gemma2-27B (K 4608) were not.
+
 ``slabbed`` holds that rule: deeper than SLAB_MIN_K, or at least
 SLAB_NARROW_K deep with at most SLAB_NARROW_N outputs (deep and narrow
 products, for which cuBLAS splits the contraction across CTAs by a count
-it picks from the rows).  Of the products measured before Gemma3-12B the
-narrow clause adds only xLSTM-1.3B's mLSTM down projection (K 4096, N
-2048), which no probe has measured.  The norm's mean is row-invariant as
+it picks from the rows; SLAB_NARROW_N sits between LLaMA2-7B's variant
+gate/up slabs, N 2752, and Mistral-7B's invariant ones, N 3584; no
+unslabbed product of a served model lies between 2048 and 3072 wide at
+K >= 3840, so the rule slabs the same products a mesh of one slab runs as
+it did at 2048).  Of the
+products measured before Gemma3-12B the narrow clause adds only
+xLSTM-1.3B's mLSTM down projection (K 4096, N 2048), which no probe has
+measured.  The norm's mean is row-invariant as
 it is.  The probe runs every op with and without the helper, so a
 product this rule misses shows there.
 
@@ -81,7 +97,7 @@ ROW_SLAB = 512
 # and the depth and width of the narrow ones it also runs through them
 SLAB_MIN_K = 4096
 SLAB_NARROW_K = 3840
-SLAB_NARROW_N = 2048
+SLAB_NARROW_N = 3072
 
 
 def row_slabs(fn, x: torch.Tensor) -> torch.Tensor:
@@ -155,6 +171,44 @@ def proj(x: torch.Tensor, w: torch.Tensor,
     if slabbed(w):
         return row_slabs(lambda r: dense(r, w, b), x)
     return dense(x, w, b)
+
+
+def col_proj(x: torch.Tensor, w: torch.Tensor,
+             b: Optional[torch.Tensor] = None, slabs: int = 1) -> torch.Tensor:
+    """``dense(x, w, b)`` computed in ``slabs`` column slabs: with
+    ``slabs`` > 1, w is slab-major (slabs, K, N / slabs) and b (slabs,
+    N / slabs) (``launch/sharding.py::placer``); each slab runs through
+    ``proj`` (its row rule taken on the slab's shape), and the slabs'
+    outputs are concatenated.
+
+    Column invariance.  A product's column does not keep its bits when the
+    call's width changes: cuBLAS, and the CPU's GEMMs, pick their kernel
+    and split of the contraction by (M, N, K).
+    scripts/probe_column_slices.py finds ``x @ w[:, shard]`` and
+    ``(x @ w)[:, shard]`` differing on an H100 80GB HBM3 at Mistral-7B's
+    q, k/v and gate widths in bf16 and at most widths in f32.  So a
+    tensor-parallel mesh fixes a column-slab group G
+    (``launch/mesh.py::ServingMesh.slabs``) and every mesh of that group
+    runs each slab as the same call on the same contiguous operand: a
+    shard's columns are a one-device mesh's bit for bit."""
+    if slabs <= 1:
+        return proj(x, w, b)
+    return torch.cat([proj(x, w[j], None if b is None else b[j])
+                      for j in range(slabs)], dim=-1)
+
+
+def dense_rowsum(x_shards, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``proj`` for the row-parallel sites (wo, wd) of tensor-parallel
+    serving (counterpart of ``repro.models.layers.dense_rowsum`` under
+    ``tp_deterministic``): the shards' activations (a list, along the
+    contraction dim, or one tensor) are gathered onto w's device first,
+    and the contraction runs whole there, so its sum never crosses
+    devices and its bits are tp 1's."""
+    if isinstance(x_shards, torch.Tensor):
+        return proj(x_shards.to(w.device), w, b)
+    x = torch.cat([t.to(w.device) for t in x_shards], dim=-1)
+    return proj(x, w, b)
 
 
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,

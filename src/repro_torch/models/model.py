@@ -34,6 +34,24 @@ run:
   hybrid  Hymba: the attention block, then (on the updated residual) a
           selective-SSM branch; its cache adds "ssm" (L, B, H, hd, N) f32.
 
+Tensor parallelism (the serving steps' ``mesh=``, a
+``launch/mesh.py::ServingMesh``; the reference's deterministic TP).
+Without a mesh a step runs on a one-shard mesh of its params' device.
+``params`` is then ``launch/sharding.py::shard_params``'s list of per-shard
+trees (or, on a trivial mesh, the tree), and the paged steps' pool one
+plane per shard.  Each shard computes its columns of wq/wk/wv (and their
+bias columns), wg/wu and the logits on its device, each product in its
+``mesh.slabs / tp`` column slabs (``layers.col_proj``), and the paged
+attention of its H/tp query heads over its KV/tp pool heads
+(``ops.paged_*_attention(..., mesh=)``); the embedding lookup takes each
+token's row from the one shard holding it.  Everything else (the residual
+stream, norms, RoPE, the elementwise ops, and the replicated wo/wd through
+``layers.dense_rowsum``) runs on the mesh's first device on the gathered,
+whole tensors, so every op there sees the shapes a one-device mesh gives
+it.  So every mesh of one column-slab group gives the same bits.  The
+dense steps keep their cache and attention on the first device too.  The
+MoE and recurrent families run on trivial meshes only.
+
 The recurrent steps never write a state tensor they were given: they
 build new ones, and replace the cache dict's entries.  The sequential
 engine hands one step's state on as the next segment's prefix and keeps
@@ -41,8 +59,9 @@ it in the knowledge tree as a document snapshot.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -50,6 +69,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import ServingMesh
+from repro_torch.launch.sharding import trivial
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -68,14 +89,77 @@ def _check_family(cfg: ModelConfig) -> None:
             f"the port serves {', '.join(FAMILIES)}")
 
 
+@dataclasses.dataclass
+class _Shards:
+    """What a serving step computes with: one param tree per shard of
+    ``mesh`` (the first shard's device is the controller, which holds the
+    replicated leaves and runs the replicated work)."""
+    params: List[Dict[str, Any]]
+    mesh: ServingMesh
+
+    @property
+    def tp(self) -> int:
+        return len(self.params)
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return list(self.mesh.devices)
+
+    @property
+    def slabs(self) -> int:
+        """The column slabs of each shard's products."""
+        return self.mesh.slabs // self.tp
+
+    def layers(self, li: int) -> List[Dict[str, torch.Tensor]]:
+        """Every shard's leaves of layer li."""
+        return [_layer(p, li) for p in self.params]
+
+    def gather(self, parts, dim: int) -> torch.Tensor:
+        """The shards' parts concatenated along ``dim`` on the
+        controller."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([t.to(self.devices[0]) for t in parts], dim=dim)
+
+
+def _shards(cfg: ModelConfig, params, mesh=None) -> _Shards:
+    """The step's shards: ``params`` (a tree, or ``shard_params``'s list)
+    over ``mesh``, a one-shard mesh of the params' device when None."""
+    if isinstance(params, Mapping):
+        if not trivial(mesh):
+            raise ValueError("a tensor-parallel mesh takes the per-shard "
+                             "trees of launch/sharding.py::shard_params")
+        params = [params]
+    if mesh is None:
+        mesh = ServingMesh((params[0]["embed"].device,))
+    if not trivial(mesh) and (cfg.moe_experts or cfg.family in RECURRENT
+                              or cfg.n_codebooks):
+        raise NotImplementedError(
+            f"tensor parallelism serves the dense family and the VLM text "
+            f"backbone; {cfg.name} ({cfg.family}) under TP is not ported "
+            f"yet (ROADMAP.md Queue A)")
+    if len(params) != mesh.shape["model"]:
+        raise ValueError(f"mesh of tp {mesh.shape['model']} with "
+                         f"{len(params)} param shards")
+    return _Shards(list(params), mesh)
+
+
 def _check_paged(cfg: ModelConfig) -> None:
     if cfg.family in RECURRENT:
         raise ValueError("paged steps require per-token KV; ssm/hybrid "
                          "families use prefill and decode_step")
 
 
-def init_params(cfg: ModelConfig, seed: int,
-                device="cpu") -> Dict[str, Any]:
+def draws_by_layer(cfg: ModelConfig) -> bool:
+    """Whether ``init_params`` draws the dense layer stacks one layer at a
+    time (the largest would pass ``WHOLE_DRAW_BYTES`` drawn whole in
+    f32)."""
+    return not cfg.moe_experts and 4 * cfg.n_layers * cfg.d_model * max(
+        cfg.d_ff, cfg.n_heads * cfg.hd) > WHOLE_DRAW_BYTES
+
+
+def init_params(cfg: ModelConfig, seed: int, device="cpu", *,
+                place=None) -> Dict[str, Any]:
     """Seeded random params (the JAX package's init scheme and tree —
     normal(0, 0.02), output projections scaled by 1/sqrt(2L), zero norms
     and biases — drawn from one ``torch.Generator``).
@@ -96,8 +180,17 @@ def init_params(cfg: ModelConfig, seed: int,
     dense families draw from the stream in the order they always have;
     the other families' tensors are drawn where they appear in the tree.
     On the ``meta`` device no value is drawn: the tree's shapes and
-    dtypes only."""
+    dtypes only.
+
+    ``place(path, leaf)``, for the dense and VLM families: each leaf
+    (a whole layer stack) is handed to it as soon as it is drawn and its
+    return value kept instead (``launch/sharding.py::placer`` splits it
+    over a mesh), so a tree too large for its first device is never whole
+    there: that device holds what it keeps plus one leaf in flight."""
     _check_family(cfg)
+    if place is None:
+        def place(path, leaf):
+            return leaf
     D, F, V, nl = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.tdtype
@@ -125,28 +218,31 @@ def init_params(cfg: ModelConfig, seed: int,
         return torch.zeros(shape, dtype=dt, device=device)
 
     K = cfg.n_codebooks
-    params: Dict[str, Any] = {"embed": mk((K, V, D) if K else (V, D))}
+    params: Dict[str, Any] = {
+        "embed": place(("embed",), mk((K, V, D) if K else (V, D)))}
     if cfg.family == "vlm":
-        params["vision_proj"] = mk((D, D))
-    params["final_norm"] = zeros((D,))
+        params["vision_proj"] = place(("vision_proj",), mk((D, D)))
+    params["final_norm"] = place(("final_norm",), zeros((D,)))
     if not cfg.tie_embeddings:
-        params["lm_head"] = mk((D, V * max(1, K)))
+        params["lm_head"] = place(("lm_head",), mk((D, V * max(1, K))))
     if cfg.family == "ssm":
         params["blocks"] = _init_xlstm_blocks(cfg, mk_slices, zeros)
         return params
     stack = mk
-    if not cfg.moe_experts and 4 * nl * D * max(F, H * hd) \
-            > WHOLE_DRAW_BYTES:
+    if draws_by_layer(cfg):
         def stack(shape, s=scale):
             return mk_slices(shape, s, lead=1)
-    blk = {
-        "ln1": zeros((nl, D)),
-        "wq": stack((nl, D, H * hd)),
-        "wk": stack((nl, D, KV * hd)),
-        "wv": stack((nl, D, KV * hd)),
-        "wo": stack((nl, H * hd, D), out_scale),
-        "ln2": zeros((nl, D)),
-    }
+    blk: Dict[str, Any] = {}
+
+    def put(name, leaf):
+        blk[name] = place(("blocks", name), leaf)
+
+    put("ln1", zeros((nl, D)))
+    put("wq", stack((nl, D, H * hd)))
+    put("wk", stack((nl, D, KV * hd)))
+    put("wv", stack((nl, D, KV * hd)))
+    put("wo", stack((nl, H * hd, D), out_scale))
+    put("ln2", zeros((nl, D)))
     if cfg.moe_experts:
         E = cfg.moe_experts
         blk["router"] = mk((nl, D, E))
@@ -154,13 +250,13 @@ def init_params(cfg: ModelConfig, seed: int,
         blk["wu"] = mk_slices((nl, E, D, F))
         blk["wd"] = mk_slices((nl, E, F, D), out_scale)
     else:
-        blk["wg"] = stack((nl, D, F))
-        blk["wu"] = stack((nl, D, F))
-        blk["wd"] = stack((nl, F, D), out_scale)
+        put("wg", stack((nl, D, F)))
+        put("wu", stack((nl, D, F)))
+        put("wd", stack((nl, F, D), out_scale))
     if cfg.qkv_bias:
-        blk["bq"] = zeros((nl, H * hd))
-        blk["bk"] = zeros((nl, KV * hd))
-        blk["bv"] = zeros((nl, KV * hd))
+        put("bq", zeros((nl, H * hd)))
+        put("bk", zeros((nl, KV * hd)))
+        put("bv", zeros((nl, KV * hd)))
     if cfg.family == "hybrid":
         N = cfg.ssm_state
         blk["ssm_ln"] = zeros((nl, D))
@@ -301,17 +397,52 @@ def embed_inputs(cfg: ModelConfig, params, tokens,
     return x
 
 
+def _embed(cfg: ModelConfig, sh: _Shards, tokens) -> torch.Tensor:
+    """``embed_inputs`` over the shards: each token's row from the one
+    shard whose vocab slice holds it (a select, so exact)."""
+    if (not isinstance(tokens, torch.Tensor)
+            or sh.params[0]["embed"].shape[-2] == cfg.vocab_size):
+        return embed_inputs(cfg, sh.params[0], tokens)
+    x = None
+    lo = 0
+    for shard, dev in zip(sh.params, sh.devices):
+        emb = shard["embed"]
+        n = emb.shape[0]
+        local = torch.clamp(tokens - lo, 0, n - 1).to(dev)
+        rows = emb[local].to(sh.devices[0])
+        mine = ((tokens >= lo) & (tokens < lo + n))[..., None]
+        x = rows if x is None else torch.where(mine, rows, x)
+        lo += n
+    return x
+
+
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    """(..., V) f32 logits of the hidden states ``x``: the final norm, then
+    the logits product."""
+    return _logits(cfg, _shards(cfg, params), x)
+
+
+def _logit_cols(cfg: ModelConfig, params, x, slabs: int) -> torch.Tensor:
+    """One shard's logits columns (its vocab slice, in ``slabs`` slabs;
+    the tied embedding's in slabs of its rows)."""
     if cfg.tie_embeddings and cfg.n_codebooks:
-        logits = torch.einsum("bsd,kvd->bskv", x, params["embed"])
-    elif cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"].t())
-    else:
-        logits = L.proj(x, params["lm_head"])
-        if cfg.n_codebooks:
-            logits = logits.reshape(x.shape[:2] + (cfg.n_codebooks,
-                                                   cfg.vocab_size))
+        return torch.einsum("bsd,kvd->bskv", x, params["embed"])
+    if cfg.tie_embeddings:
+        emb = params["embed"]
+        if slabs <= 1 or emb.shape[0] % slabs:
+            return torch.matmul(x, emb.t())
+        return torch.cat([torch.matmul(x, e.t())
+                          for e in emb.chunk(slabs)], dim=-1)
+    return L.col_proj(x, params["lm_head"], slabs=slabs)
+
+
+def _logits(cfg: ModelConfig, sh: _Shards, x: torch.Tensor) -> torch.Tensor:
+    x = L.rms_norm(x, sh.params[0]["final_norm"], cfg.norm_eps)
+    logits = sh.gather([_logit_cols(cfg, p, x.to(d), sh.slabs)
+                        for p, d in zip(sh.params, sh.devices)], dim=-1)
+    if cfg.n_codebooks and not cfg.tie_embeddings:
+        logits = logits.reshape(x.shape[:2] + (cfg.n_codebooks,
+                                               cfg.vocab_size))
     if cfg.final_logit_softcap:
         logits = L.softcap(logits.float(), cfg.final_logit_softcap)
     return logits.float()
@@ -328,13 +459,39 @@ def _ffn(cfg: ModelConfig, p, x):
     return L.swiglu(x, p["wg"], p["wu"], p["wd"])
 
 
-def _qkv(cfg: ModelConfig, p, h):
+def _qkv(cfg: ModelConfig, p, h, slabs: int = 1):
+    """q (B, S, ., hd), k, v of ``p``'s columns (a shard's heads, or all),
+    each product in ``slabs`` column slabs (``layers.col_proj``)."""
     B, S, _ = h.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = L.proj(h, p["wq"], p.get("bq")).reshape(B, S, H, hd)
-    k = L.proj(h, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
-    v = L.proj(h, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+    hd = cfg.hd
+    q = L.col_proj(h, p["wq"], p.get("bq"), slabs).reshape(B, S, -1, hd)
+    k = L.col_proj(h, p["wk"], p.get("bk"), slabs).reshape(B, S, -1, hd)
+    v = L.col_proj(h, p["wv"], p.get("bv"), slabs).reshape(B, S, -1, hd)
     return q, k, v
+
+
+def _attn_in(cfg: ModelConfig, sh: _Shards, ps, x):
+    """q, k, v (B, S, heads, hd) of one layer (``ps``: every shard's
+    leaves of it), the shards' columns gathered along heads on the
+    controller."""
+    h = L.rms_norm(x, ps[0]["ln1"], cfg.norm_eps)
+    parts = [_qkv(cfg, p, h.to(d), sh.slabs)
+             for p, d in zip(ps, sh.devices)]
+    return tuple(sh.gather([pt[j] for pt in parts], dim=2) for j in range(3))
+
+
+def _ffn_out(cfg: ModelConfig, sh: _Shards, ps, x):
+    """One layer's FFN residual update: x + FFN(norm(x)).  The shards'
+    gate and up columns are gathered, so the activation and the
+    replicated down product run on the whole tensors (the MoE family on a
+    trivial mesh only)."""
+    h = L.rms_norm(x, ps[0]["ln2"], cfg.norm_eps)
+    if cfg.moe_experts:
+        return x + _ffn(cfg, ps[0], h)
+    g, u = (sh.gather([L.col_proj(h.to(d), p[w], slabs=sh.slabs)
+                       for p, d in zip(ps, sh.devices)], dim=-1)
+            for w in ("wg", "wu"))
+    return x + L.dense_rowsum(F.silu(g) * u, ps[0]["wd"])
 
 
 # ---------------------------------------------------------------------------
@@ -512,7 +669,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
             prefix_len: int = 0, *, attn_impl: str | None = None,
-            patch_embeds: torch.Tensor | None = None):
+            patch_embeds: torch.Tensor | None = None, mesh=None):
     """Serving prefill over an optional cached document prefix.
 
     tokens: (B, S) ids of the new tokens, the first at absolute position
@@ -527,10 +684,18 @@ def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
     the prefix's state is only read).  Each layer's K/V is written into
     that cache once and attended from it in place.  patch_embeds: (B,
     Simg, D) for the VLM family, prepended (projected) ahead of the tokens,
-    so S counts Simg + the token count.
+    so S counts Simg + the token count.  mesh: tensor-parallel serving
+    (see the module docstring); the cache and the attention stay on the
+    controller.
     """
     _check_family(cfg)
-    x = embed_inputs(cfg, params, tokens, patch_embeds)
+    sh = _shards(cfg, params, mesh)
+    if not trivial(sh.mesh) and patch_embeds is not None:
+        raise ValueError("tensor-parallel prefill serves the text backbone; "
+                         "it takes no patch embeddings")
+    params = sh.params[0]
+    x = _embed(cfg, sh, tokens) if patch_embeds is None else \
+        embed_inputs(cfg, params, tokens, patch_embeds)
     B, S = x.shape[:2]
     if cfg.family == "ssm":
         state = (prefix_cache if prefix_cache is not None
@@ -552,9 +717,9 @@ def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
     windows = cfg.layer_windows()
     positions = P + torch.arange(S, dtype=torch.int32, device=tokens.device)
     for li in range(cfg.n_layers):
-        p = _layer(params, li)
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, p, h)
+        ps = sh.layers(li)
+        p = ps[0]
+        q, k, v = _attn_in(cfg, sh, ps, x)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         cache["k"][li, :, P:] = L.apply_rope(k, positions, cfg.rope_theta)
         cache["v"][li, :, P:] = v
@@ -562,20 +727,20 @@ def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
                               q_offset=P, window=windows[li],
                               logit_cap=cfg.attn_logit_softcap,
                               impl=attn_impl)
-        x = x + L.proj(o.reshape(B, S, -1), p["wo"])
+        x = x + L.dense_rowsum(o.reshape(B, S, -1), p["wo"])
         if hybrid:
             y, st = _ssm_branch_seq(cfg, p, x,
                                     None if ssm0 is None else ssm0[li])
             x = x + y
             new_ssm.append(st)
-        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + _ffn(cfg, p, h2)
+        x = _ffn_out(cfg, sh, ps, x)
     if hybrid:
         cache["ssm"] = torch.stack(new_ssm)
-    return lm_logits(cfg, params, x[:, -1:]), cache
+    return _logits(cfg, sh, x[:, -1:]), cache
 
 
-def decode_step(cfg: ModelConfig, params, tokens, cache, pos) -> torch.Tensor:
+def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
+                mesh=None) -> torch.Tensor:
     """One decode iteration over a dense cache.
 
     tokens: (B, 1), or (B, K, 1) for codebook models.  cache: {"k", "v"}
@@ -584,10 +749,13 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos) -> torch.Tensor:
     (the hybrid family's "ssm", the ssm family's whole cache) is never
     written: the step replaces the dict's entries with new state tensors.
     pos: (B,) sequence length including that token.  Returns the (B, 1,
-    V) f32 logits.
+    V) f32 logits.  mesh: tensor-parallel serving (see the module
+    docstring); the cache and the attention stay on the controller.
     """
     _check_family(cfg)
-    x = embed_inputs(cfg, params, tokens)
+    sh = _shards(cfg, params, mesh)
+    params = sh.params[0]
+    x = _embed(cfg, sh, tokens)
     if cfg.family == "ssm":
         x, new_state = _run_xlstm(cfg, params, x, cache)
         cache.update(new_state)
@@ -599,9 +767,9 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos) -> torch.Tensor:
     at = (pos - 1).long()
     new_ssm = []
     for li in range(cfg.n_layers):
-        p = _layer(params, li)
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, p, h)                          # S == 1
+        ps = sh.layers(li)
+        p = ps[0]
+        q, k, v = _attn_in(cfg, sh, ps, x)                 # S == 1
         q = L.apply_rope(q, rope_pos, cfg.rope_theta)
         k = L.apply_rope(k, rope_pos, cfg.rope_theta)
         kc, vc = cache["k"][li], cache["v"][li]
@@ -609,60 +777,77 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos) -> torch.Tensor:
         vc[bidx, at] = v[:, 0].to(vc.dtype)
         o = L.decode_attention(q, kc, vc, pos=pos, window=windows[li],
                                logit_cap=cfg.attn_logit_softcap)
-        x = x + L.proj(o.reshape(B, 1, -1), p["wo"])
+        x = x + L.dense_rowsum(o.reshape(B, 1, -1), p["wo"])
         if cfg.family == "hybrid":
             y, st = _ssm_branch_seq(cfg, p, x, cache["ssm"][li])
             x = x + y
             new_ssm.append(st)
-        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + _ffn(cfg, p, h2)
+        x = _ffn_out(cfg, sh, ps, x)
     if new_ssm:
         cache["ssm"] = torch.stack(new_ssm)
-    return lm_logits(cfg, params, x)
+    return _logits(cfg, sh, x)
+
+
+def _write_kv(sh: _Shards, planes, li: int, index, kv) -> None:
+    """Write layer li's new K or V (..., KV, hd), on the controller, into
+    each shard's pool plane at ``index`` (a (blk, slot) pair per device):
+    shard i takes its KV / tp heads."""
+    n = kv.shape[-2] // sh.tp
+    for i, (plane, dev) in enumerate(zip(planes, sh.devices)):
+        part = kv[..., i * n:(i + 1) * n, :]
+        plane[li].index_put_(index[dev], part.to(dev, plane.dtype))
+
+
+def _per_device(sh: _Shards, *ts) -> dict:
+    """``ts`` copied once to each of the shards' devices."""
+    return {d: tuple(t.to(d) for t in ts) for d in dict.fromkeys(sh.devices)}
 
 
 def paged_decode_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
                       tables, counts, starts, write_blk, write_slot, pos,
-                      *, attn_impl: str | None = None) -> torch.Tensor:
+                      *, attn_impl: str | None = None,
+                      mesh=None) -> torch.Tensor:
     """One decode iteration straight against the paged pool.
 
-    tokens: (B, 1).  k_pages/v_pages: the ``PagedKVStore`` tensors,
+    tokens: (B, 1).  k_pages/v_pages: the ``PagedKVStore`` planes (a
+    list, one (L, n_blocks, block, KV / tp, hd) plane a shard),
     (L, n_blocks, block, KV, hd) — MUTATED IN PLACE: each layer writes the
     new token's K/V at (write_blk, write_slot), (B,) each, before its
     attention reads the pool.  tables/counts/starts: (B, n_slots) int32 run
     descriptors whose counts already include that token.  pos: (B,) int32
     sequence length including it.  Returns the (B, 1, V) f32 logits.
     Attention families only: recurrent state cannot be paged per block.
+    mesh: tensor-parallel serving; the run tables and write coordinates
+    are the same for every shard.
     """
     _check_family(cfg)
     _check_paged(cfg)
-    x = embed_inputs(cfg, params, tokens)
+    sh = _shards(cfg, params, mesh)
+    x = _embed(cfg, sh, tokens)
     B = x.shape[0]
     windows = cfg.layer_windows()
     rope_pos = (pos - 1)[:, None]
-    wb, ws = write_blk.long(), write_slot.long()
+    index = _per_device(sh, write_blk.long(), write_slot.long())
     for li in range(cfg.n_layers):
-        p = _layer(params, li)
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, p, h)                          # S == 1
+        ps = sh.layers(li)
+        q, k, v = _attn_in(cfg, sh, ps, x)                 # S == 1
         q = L.apply_rope(q, rope_pos, cfg.rope_theta)
         k = L.apply_rope(k, rope_pos, cfg.rope_theta)
-        k_pages[li].index_put_((wb, ws), k[:, 0].to(k_pages.dtype))
-        v_pages[li].index_put_((wb, ws), v[:, 0].to(v_pages.dtype))
+        _write_kv(sh, k_pages, li, index, k[:, 0])
+        _write_kv(sh, v_pages, li, index, v[:, 0])
         o = ops.paged_decode_attention(
             q[:, 0].contiguous(), k_pages, v_pages, tables, counts, starts,
             pos - 1, li, windows[li], logit_cap=cfg.attn_logit_softcap,
-            impl=attn_impl)
-        x = x + L.proj(o.reshape(B, 1, -1), p["wo"])
-        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + _ffn(cfg, p, h2)
-    return lm_logits(cfg, params, x)
+            impl=attn_impl, mesh=sh.mesh)
+        x = x + L.dense_rowsum(o.reshape(B, 1, -1), ps[0]["wo"])
+        x = _ffn_out(cfg, sh, ps, x)
+    return _logits(cfg, sh, x)
 
 
 def paged_prefill_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
                        tables, counts, starts, q_start, q_len, write_blk,
-                       write_slot, *,
-                       attn_impl: str | None = None) -> torch.Tensor:
+                       write_slot, *, attn_impl: str | None = None,
+                       mesh=None) -> torch.Tensor:
     """One ragged prefill chunk computed straight against the paged pool.
 
     tokens: (B, Sq) right-padded rows; row ``b`` holds ``q_len[b]`` valid
@@ -673,33 +858,33 @@ def paged_prefill_step(cfg: ModelConfig, params, tokens, k_pages, v_pages,
     which no live run reads).  tables/counts/starts: (B, n_slots) run
     descriptors covering the cached prefix plus this chunk.  Returns the
     (B, 1, V) f32 logits at each row's last valid token.  Attention
-    families only.
+    families only.  mesh: as for ``paged_decode_step``.
     """
     _check_family(cfg)
     _check_paged(cfg)
-    x = embed_inputs(cfg, params, tokens)
+    sh = _shards(cfg, params, mesh)
+    x = _embed(cfg, sh, tokens)
     B, Sq = tokens.shape
     windows = cfg.layer_windows()
     positions = q_start[:, None] + torch.arange(
         Sq, dtype=torch.int32, device=tokens.device)[None]
-    wb, ws = write_blk.long(), write_slot.long()
+    index = _per_device(sh, write_blk.long(), write_slot.long())
     for li in range(cfg.n_layers):
-        p = _layer(params, li)
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, p, h)                          # (B, Sq, ., hd)
+        ps = sh.layers(li)
+        q, k, v = _attn_in(cfg, sh, ps, x)                 # (B, Sq, ., hd)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-        k_pages[li].index_put_((wb, ws), k.to(k_pages.dtype))
-        v_pages[li].index_put_((wb, ws), v.to(v_pages.dtype))
+        _write_kv(sh, k_pages, li, index, k)
+        _write_kv(sh, v_pages, li, index, v)
         # q is read in place through its strides; on the card o is a view
-        # of a (B, Sq, H, hd) buffer, so neither side is copied
+        # of a (B, Sq, H, hd) buffer, so neither side is copied at tp 1
         o = ops.paged_prefill_attention(
             q.transpose(1, 2), k_pages, v_pages, tables, counts, starts,
             q_start, q_len, li, windows[li],
-            logit_cap=cfg.attn_logit_softcap, impl=attn_impl)
-        x = x + L.proj(o.transpose(1, 2).reshape(B, Sq, -1), p["wo"])
-        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + _ffn(cfg, p, h2)
+            logit_cap=cfg.attn_logit_softcap, impl=attn_impl, mesh=sh.mesh)
+        x = x + L.dense_rowsum(o.transpose(1, 2).reshape(B, Sq, -1),
+                               ps[0]["wo"])
+        x = _ffn_out(cfg, sh, ps, x)
     last = torch.clamp(q_len.long() - 1, 0, Sq - 1)
     x_last = torch.gather(x, 1, last[:, None, None].expand(B, 1, x.shape[-1]))
-    return lm_logits(cfg, params, x_last)
+    return _logits(cfg, sh, x_last)

@@ -43,6 +43,7 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.retrieval.corpus import Corpus, Request
 from repro_torch.serving.config import EngineConfig, reject_legacy_kwargs
+from repro_torch.launch.sharding import shard_params
 from repro_torch.serving.runtime import pinned, resolve_device, sync
 from repro_torch.serving.scheduler import prefill_piece_sizes
 
@@ -129,17 +130,23 @@ class RAGServer:
         reorder_window: int = 32,
         profiler: Optional[CostProfiler] = None,
         device=None,
+        mesh=None,
         **legacy,
     ):
         # ``config=`` is the sole constructor API (serving/config.py).  The
         # sequential engine ignores config.mesh and the attention options:
         # it is the single-device dense oracle.  ``device``: None resolves
         # to CUDA and raises without it; the CPU runs only when asked for.
+        # ``mesh``: a one-device mesh whose column-slab group
+        # (launch/mesh.py) is a tensor-parallel serve's, so the oracle
+        # computes that serve's bits; None serves unslabbed.
         reject_legacy_kwargs("RAGServer", legacy, EngineConfig)
         config = config if config is not None else EngineConfig()
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params
+        self.mesh = mesh
+        self.params = (params if mesh is None
+                       else shard_params(params, cfg, mesh))
         self.corpus = corpus
         self.index = index
         self.top_k = config.top_k
@@ -310,7 +317,8 @@ class RAGServer:
         for n in prefill_piece_sizes([len(tokens)], self.prefill_chunk):
             logits, cache = M.prefill(self.cfg, self.params,
                                       self._tokens(tokens[off:off + n]),
-                                      prefix, plen, attn_impl=self.attn_impl)
+                                      prefix, plen, attn_impl=self.attn_impl,
+                                      mesh=self.mesh)
             prefix, plen = cache, plen + n
             off += n
         # a zero-length segment runs no pieces: keep the prefix chain
@@ -344,7 +352,8 @@ class RAGServer:
         tok = self._tokens([last_tok])
         for _ in range(n):
             pos = pos + 1
-            logits = M.decode_step(self.cfg, self.params, tok, dc, pos)
+            logits = M.decode_step(self.cfg, self.params, tok, dc, pos,
+                                   mesh=self.mesh)
             t = int(logits[0, -1].argmax())
             out.append(t)
             tok = self._tokens([t])

@@ -1,5 +1,5 @@
 """Continuous-batching async serving runtime (counterpart of
-``repro.serving.runtime`` on the prefix-reuse, tp=1 paths).
+``repro.serving.runtime``).
 
 The event-loop engine of the paper's serving numbers: iteration-level
 scheduling over many concurrent requests, with
@@ -41,9 +41,20 @@ its page-aligned head at the new position and shares its tail in place
 (approximate; results carry ``exact=False``).
 
 Families: the attention families (dense, MoE, and the VLM's text
-backbone).  Recurrent state cannot be paged per-block.  Not ported yet
-(ROADMAP.md Queue A): tensor parallelism; asking for it raises
-``NotImplementedError``.
+backbone).  Recurrent state cannot be paged per-block.
+
+Tensor parallelism (``config.mesh.tp > 1``, the reference's single-
+controller model): the params shard per ``launch/sharding.py::
+serving_param_shardings`` over a ``(1, tp)`` mesh of devices (the cards
+``cuda:0 .. tp-1``, tp CPU shards with ``device="cpu"``, or an explicit
+``mesh``), the pool's planes shard whole KV heads, and
+``ShardedPagedBackend`` moves each shard's head slice between the tiers.
+Block tables, slot mappings and run tables stay single, so every scheduler
+and tree decision is the same at any tp, and the tokens, tier hits and
+first-token logits are those of a one-device mesh of the same column-slab
+group (``launch/mesh.py``) bit for bit.  The runtime holds only the
+shards: CAG preloads through the dense prefill over the mesh.  The MoE
+family under TP raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,6 +72,8 @@ from repro_torch.core.knowledge_tree import (CacheBackend, EvictionError,
                                              KnowledgeTree)
 from repro_torch.core.profiler import CostProfiler
 from repro_torch.core.speculative import SpecState, SpeculativeController
+from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.launch.sharding import assert_tp_compatible, shard_params
 from repro_torch.kvcache.paged import (DiskSegmentStore, OutOfBlocks,
                                        PagedKVStore, PagedSegment,
                                        make_disk_store, to_host)
@@ -121,7 +134,7 @@ class PagedBackend(CacheBackend):
                                               node.payload_host["v"])
         except OutOfBlocks as e:
             raise EvictionError(str(e))   # promote() degrades to recompute
-        sync(self.store.device)
+        self.store.sync()
         return time.perf_counter() - t0
 
     def spill(self, node):
@@ -146,6 +159,34 @@ class PagedBackend(CacheBackend):
         if node.payload_disk is not None:
             self.disk.delete(node.payload_disk)
         node.payload_disk = None
+
+
+class ShardedPagedBackend(PagedBackend):
+    """The tensor-parallel pool's backend (counterpart of
+    ``repro.serving.runtime.ShardedPagedBackend``): ``PagedBackend``'s tier
+    semantics over a KV-head-sharded pool, each hop copying per shard.
+
+      * demote (``swap_out``): each shard's head slice is pulled once into
+        its heads of one (pinned) host copy of the whole heads;
+      * promote (``load``, inherited): ``store.put`` splits the host copy
+        through ``_shard_segment``, one copy per shard; ``OutOfBlocks``
+        becomes ``EvictionError``.
+    """
+
+    def swap_out(self, node):
+        t0 = time.perf_counter()
+        seg = node.payload_gpu
+        host = {}
+        for name, pieces in zip(("k", "v"), self.store.gather_shards(seg)):
+            L, _, T, n, hd = pieces[0].shape
+            h = torch.empty((L, 1, T, n * len(pieces), hd),
+                            dtype=pieces[0].dtype,
+                            pin_memory=pieces[0].is_cuda)
+            for i, piece in enumerate(pieces):
+                h[..., i * n:(i + 1) * n, :].copy_(piece)
+            host[name] = h
+        node.payload_host = host
+        return time.perf_counter() - t0
 
 
 @dataclasses.dataclass
@@ -277,11 +318,14 @@ class ContinuousRuntime:
         reorder_window: int = 32,
         profiler: Optional[CostProfiler] = None,
         device=None,
+        mesh=None,
         **legacy,
     ):
         # ``config=`` is the sole constructor API (serving/config.py).
         # ``device``: None resolves to CUDA and raises without it; the CPU
-        # runs only when asked for (the tests).
+        # runs only when asked for (the tests).  ``mesh``: the serving mesh
+        # of ``config.mesh.tp`` shards (launch/mesh.py); None builds the
+        # default one on ``device``.
         reject_legacy_kwargs("ContinuousRuntime", legacy, EngineConfig)
         config = config if config is not None else EngineConfig()
         if cfg.family in ("ssm", "hybrid"):
@@ -306,10 +350,6 @@ class ContinuousRuntime:
             raise ValueError(
                 "mode='cag' preloads the whole corpus KV into the disk tier "
                 "and needs disk_cache_bytes > 0 sized for the corpus")
-        if config.mesh.tp > 1:
-            raise NotImplementedError(
-                "tensor parallelism is not ported yet (ROADMAP.md Queue A "
-                "item 6)")
         self.device = resolve_device(device)
         self.attn_impl = config.attn_impl
         self.cfg = cfg
@@ -317,6 +357,27 @@ class ContinuousRuntime:
         self.index = index
         self.top_k = config.top_k
         self.search_time_scale = config.search_time_scale
+        # ---- the serving mesh: one replica over tp devices (one at tp 1) --
+        tp = config.mesh.tp
+        if tp > 1:
+            if cfg.moe_experts:
+                raise NotImplementedError(
+                    f"tensor parallelism of the MoE family ({cfg.name}) is "
+                    f"not ported yet (ROADMAP.md Queue A: MoE under TP)")
+            assert_tp_compatible(cfg, tp)
+        if mesh is None:
+            mesh = make_serving_mesh(tp, device=self.device)
+        if mesh.shape["model"] != tp:
+            raise ValueError(f"mesh of {mesh.shape['model']} shards for tp "
+                             f"{tp}")
+        self._mesh = mesh
+        self.device = mesh.controller
+        # params: a tree, sharded here (copies, so nothing here keeps a
+        # whole tree alive), or shard_params' list for this mesh
+        if not isinstance(params, list):
+            params = shard_params(params, cfg, mesh)
+        if len(params) != tp:
+            raise ValueError(f"{len(params)} param shards for tp {tp}")
         self.params = params
         kv_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd
                     * cfg.tdtype.itemsize)
@@ -326,7 +387,7 @@ class ContinuousRuntime:
                 128, 4096))
         self.store = PagedKVStore(cfg.n_layers, n_blocks, config.block_size,
                                   cfg.n_kv_heads, cfg.hd, dtype=cfg.tdtype,
-                                  device=self.device)
+                                  device=self.device, mesh=self._mesh)
         self._scratch_block = self.store.pool.alloc(1)[0]  # dummy-row sink
         self.disk = make_disk_store(config.disk_cache_dir,
                                     config.disk_cache_bytes)
@@ -337,7 +398,8 @@ class ContinuousRuntime:
             profiler=profiler or CostProfiler.from_fn(
                 lambda a, b: 1e-4 * b + 2e-8 * b * (a + b),
                 (0, 64, 256, 1024), (1, 32, 128, 512, 1024)),
-            backend=PagedBackend(self.store, self.disk),
+            backend=(ShardedPagedBackend if tp > 1
+                     else PagedBackend)(self.store, self.disk),
             bytes_per_token=max(kv_bytes, 1),
         )
         self.controller = RAGController(self.tree)
@@ -384,7 +446,7 @@ class ContinuousRuntime:
         dense prefill.  The disk tier writes and drops them."""
         toks = self._tensor(np.asarray(self.corpus.doc_tokens[doc_id]))[None]
         _, cache = M.prefill(self.cfg, self.params, toks.long(),
-                             attn_impl=self.attn_impl)
+                             attn_impl=self.attn_impl, mesh=self._mesh)
         return {"k": cache["k"].cpu(), "v": cache["v"].cpu()}
 
     # ------------------------------------------------------------------
@@ -865,7 +927,8 @@ class ContinuousRuntime:
             toks = self._tensor(np.asarray(
                 seg[cs.seg_off:cs.seg_off + take], np.int64))[None]
             logits, cache = M.prefill(self.cfg, self.params, toks, prefix,
-                                      plen, attn_impl=self.attn_impl)
+                                      plen, attn_impl=self.attn_impl,
+                                      mesh=self._mesh)
             prefix, plen = cache, plen + take
             cs.seg_off += take
             left -= take
@@ -876,7 +939,7 @@ class ContinuousRuntime:
         last = logits[0, -1]
         cs.first_token = int(last.argmax())
         cs.logits = last.cpu().numpy()
-        sync(self.device)
+        self.store.sync()
         cs.plen = plen
         if not cs.pieces or not multi_iter:
             # final piece (or single-iteration prefill): the carried cache
@@ -1008,14 +1071,16 @@ class ContinuousRuntime:
             q_start[i] = qs
             q_len[i] = n
         logits = M.paged_prefill_step(
-            self.cfg, self.params, self._tensor(toks), self.store.k,
-            self.store.v, self._tensor(tables), self._tensor(counts),
+            self.cfg, self.params, self._tensor(toks), self.store.k_planes,
+            self.store.v_planes,
+            self._tensor(tables), self._tensor(counts),
             self._tensor(starts), self._tensor(q_start), self._tensor(q_len),
-            self._tensor(wblk), self._tensor(wslot), attn_impl=self.attn_impl)
+            self._tensor(wblk), self._tensor(wslot), attn_impl=self.attn_impl,
+            mesh=self._mesh)
         last = logits[:len(rows), -1]                       # (n_rows, V)
         first = last.argmax(dim=-1).cpu().numpy()
         host = last.cpu().numpy()
-        sync(self.device)
+        self.store.sync()
         for i, row in enumerate(rows):
             row[0].cs.first_token = int(first[i])
             row[0].cs.logits = host[i]
@@ -1357,13 +1422,14 @@ class ContinuousRuntime:
             (toks, tables, counts, starts, pos, write_blk,
              write_slot) = self._paged_decode_args(batch)
             logits = M.paged_decode_step(
-                self.cfg, self.params, toks, self.store.k, self.store.v,
+                self.cfg, self.params, toks, self.store.k_planes,
+            self.store.v_planes,
                 tables, counts, starts, write_blk, write_slot, pos,
-                attn_impl=self.attn_impl)
+                attn_impl=self.attn_impl, mesh=self._mesh)
         else:
             logits = self._dense_decode(*self._dense_decode_args(batch))
         next_toks = logits[:, -1].argmax(dim=-1).cpu().numpy()
-        sync(self.device)
+        self.store.sync()
         return next_toks
 
     def _dense_decode(self, toks, blk_map, slot_map, lengths):
@@ -1372,16 +1438,14 @@ class ContinuousRuntime:
         (blk_map[b, p], slot_map[b, p]), so the gathered cache is hole-free
         even where shared tree segments end mid-block — decode over it, and
         write the new token's K/V back into the pool."""
-        k = self.store.k[:, blk_map, slot_map]          # (L, B, S, KV, hd)
-        v = self.store.v[:, blk_map, slot_map]
+        k, v = self.store.read_slots(blk_map, slot_map)  # (L, B, S, KV, hd)
         cache = {"k": k, "v": v}
         logits = M.decode_step(self.cfg, self.params, toks, cache,
-                               lengths + 1)
+                               lengths + 1, mesh=self._mesh)
         bidx = torch.arange(toks.shape[0], device=self.device)
         at = lengths.long()
         blk, slot = blk_map[bidx, at], slot_map[bidx, at]
-        self.store.k[:, blk, slot] = k[:, bidx, at]
-        self.store.v[:, blk, slot] = v[:, bidx, at]
+        self.store.write_slots(blk, slot, k[:, bidx, at], v[:, bidx, at])
         return logits
 
     def _dense_decode_args(self, batch):

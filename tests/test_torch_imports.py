@@ -125,6 +125,8 @@ SLICE_MODULES = [
     "repro_torch.training.train_lib",
     "repro_torch.training.checkpoint",
     "repro_torch.launch.train",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.sharding",
 ]
 
 

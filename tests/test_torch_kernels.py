@@ -215,3 +215,56 @@ def test_row_check_takes_views_and_refuses_split_rows():
         PA.check_rows("t", q=q.transpose(2, 3))
     with pytest.raises(ValueError, match="multiples of 8"):
         PA.check_rows("t", q=q[..., 1:61])
+
+
+@pytest.mark.parametrize("B,H,KV,hd,page,npages,nslots", [
+    (2, 4, 2, 32, 8, 16, 4),
+    (1, 8, 8, 64, 16, 8, 3),
+    (3, 4, 4, 128, 8, 32, 6),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_sweep_matches_jax(B, H, KV, hd, page, npages,
+                                           nslots, dtype):
+    """Twin of tests/test_kernels.py::test_paged_attention_sweep: the
+    single-layer ``paged_attention`` against the Pallas kernel in interpret
+    mode, and the port's dense oracle against the reference's, on the same
+    inputs; the port's wrapper against its own oracle at the reference
+    test's tolerance (1e-4 in f32, 2e-2 in bf16)."""
+    rng = np.random.default_rng(B * 100 + hd)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, H, hd), (npages, page, KV, hd),
+                      (npages, page, KV, hd))]
+    arrs += [rng.integers(0, npages, (B, nslots)).astype(np.int32),
+             rng.integers(1, page * nslots + 1, (B,)).astype(np.int32)]
+    jin, tin = _to_jax(arrs, dtype), _to_torch(arrs, dtype)
+    got = ops.paged_attention(*tin)
+    _close(got, jax_ops.paged_attention(*jin, interpret=True), dtype)
+    oracle = ref.reference_paged_attention(*tin)
+    _close(oracle, jax_ref.reference_paged_attention(*jin), dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert float((got.float() - oracle.float()).abs().max()) <= tol
+
+
+def test_paged_attention_respects_block_table_permutation():
+    """Twin of the reference's test of the same name: one logical sequence
+    under two physical page placements gives identical outputs."""
+    rng = np.random.default_rng(11)
+    B, H, KV, hd, page, nslots, npages = 1, 4, 2, 32, 8, 3, 12
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32))
+    kv = torch.from_numpy(
+        rng.standard_normal((nslots * page, KV, hd)).astype(np.float32))
+    lengths = torch.tensor([20], dtype=torch.int32)
+
+    def place(order):
+        kp = torch.zeros((npages, page, KV, hd))
+        vp = torch.zeros((npages, page, KV, hd))
+        for i, pg in enumerate(order):
+            kp[pg] = kv[i * page:(i + 1) * page]
+            vp[pg] = kv[i * page:(i + 1) * page] * 0.5
+        return kp, vp, torch.tensor([order], dtype=torch.int32)
+
+    o1 = ops.paged_attention(q, *place([0, 1, 2]), lengths)
+    o2 = ops.paged_attention(q, *place([7, 3, 11]), lengths)
+    assert float((o1 - o2).abs().max()) <= 1e-6
+    assert torch.equal(ops.paged_attention(q, *place([0, 1, 2]), lengths,
+                                           impl="torch"), o1)

@@ -381,7 +381,7 @@ def test_paged_steps_match_jax(weights):
     jl, jk, jv = JM.paged_prefill_step(jcfg, jp, _j(toks), _j(kp), _j(vp),
                                        *map(_j, ins), attn_impl="jnp")
     tk, tv = _t(kp), _t(vp)
-    tl = M.paged_prefill_step(cfg, tp, _t(toks).long(), tk, tv,
+    tl = M.paged_prefill_step(cfg, tp, _t(toks).long(), [tk], [tv],
                               *map(_t, ins))
     _close(tl, jl)
     _pool_close(tk, jk)
@@ -402,7 +402,7 @@ def test_paged_steps_match_jax(weights):
     jl2, jk2, jv2 = JM.paged_decode_step(
         jcfg, jp, _j(dtok), jk, jv, _j(dt), _j(dc), _j(ds), _j(wb), _j(ws),
         _j(pos), attn_impl="jnp")
-    tl2 = M.paged_decode_step(cfg, tp, _t(dtok).long(), tk, tv, _t(dt),
+    tl2 = M.paged_decode_step(cfg, tp, _t(dtok).long(), [tk], [tv], _t(dt),
                               _t(dc), _t(ds), _t(wb), _t(ws), _t(pos))
     _close(tl2, jl2)
     _pool_close(tk, jk2)

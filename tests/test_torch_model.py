@@ -132,7 +132,7 @@ def test_prefill_then_decode_match_jax(weights):
         _j(wblk), _j(wslot), attn_impl="jnp")
     tk, tv = _t(kp, dtype), _t(vp, dtype)
     k_obj = tk
-    tl = M.paged_prefill_step(cfg, tp, _t(toks).long(), tk, tv,
+    tl = M.paged_prefill_step(cfg, tp, _t(toks).long(), [tk], [tv],
                               *map(_t, ins[1:6]), _t(wblk), _t(wslot))
     assert tk is k_obj                              # written in place
     eps = 1e-4 if dtype == "float32" else BF16_LOGIT_EPS
@@ -158,7 +158,7 @@ def test_prefill_then_decode_match_jax(weights):
     jl2, jk2, jv2 = JM.paged_decode_step(
         jcfg, jp, _j(dtok), jk, jv, _j(dt), _j(dc), _j(ds), _j(wb), _j(ws),
         _j(pos), attn_impl="jnp")
-    tl2 = M.paged_decode_step(cfg, tp, _t(dtok).long(), tk, tv, _t(dt),
+    tl2 = M.paged_decode_step(cfg, tp, _t(dtok).long(), [tk], [tv], _t(dt),
                               _t(dc), _t(ds), _t(wb), _t(ws), _t(pos))
     assert tl2.shape == (B, 1, cfg.vocab_size)
     assert np.max(np.abs(tl2.numpy() - np.asarray(jl2))) <= eps

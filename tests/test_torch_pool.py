@@ -45,7 +45,7 @@ def _gathered_equal(j, js, t, ts):
 def test_store_ops_match_jax_store():
     rng = np.random.default_rng(0)
     j, t = _stores()
-    k_obj, v_obj = t.k, t.v
+    k_obj, v_obj = t.k_planes[0], t.v_planes[0]
     a, b = _seg(rng, 6), _seg(rng, 6)
     js = j.put(jnp.asarray(a), jnp.asarray(b), reserve_tokens=3)
     ts = t.put(torch.from_numpy(a), torch.from_numpy(b), reserve_tokens=3)
@@ -76,7 +76,7 @@ def test_store_ops_match_jax_store():
     t.free(ts)
     _same_pool(j, t)
     assert t.pool.free_blocks == NB                  # nothing leaked
-    assert t.k is k_obj and t.v is v_obj             # written in place
+    assert t.k_planes[0] is k_obj and t.v_planes[0] is v_obj  # in place
 
 
 def test_out_of_blocks_leaves_segment_unchanged():

@@ -125,12 +125,15 @@ def test_chunked_prefill_gives_the_same_tokens(setup, port_run):
                                        mesh=MeshConfig(tp=2)),
                                   dict(mesh=MeshConfig(tp=2))])
 def test_unported_options_raise(setup, conf):
-    """Tensor parallelism, alone or under the dense, chunk-reuse and CAG
-    paths, is still to port."""
-    _, cfg, _, tp, _, corpus, _, idx, _, _ = setup
+    """Tensor parallelism serves the dense family under every path
+    (tests/test_torch_tp.py); the MoE family under it, alone or under the
+    dense, chunk-reuse and CAG paths, is still to port."""
+    _, _, _, _, _, corpus, _, idx, _, _ = setup
+    cfg = get_reduced("mixtral-8x7b")
+    params = M.init_params(cfg, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousRuntime(cfg, tp, corpus, idx, config=EngineConfig(**conf),
-                          device="cpu")
+        ContinuousRuntime(cfg, params, corpus, idx,
+                          config=EngineConfig(**conf), device="cpu")
 
 
 def test_default_device_is_the_card(setup):
