@@ -232,9 +232,9 @@ PAPER_LAYERS = {"mistral-7b": 4, "llama2-7b": 2}
 # 4096-token window, prefilled in 512-token chunks
 WINDOW_ARGV = ["--docs", "12", "--doc-tokens", "2400", "--requests", "4",
                "--prefill-chunk", "512"]
-# ... through the layers phase 15 serves (PAPER_LAYERS), the pool keeping
-# its 3,904 blocks (the whole window phase took 176-187 s at 32 layers, 79
-# s at 16)
+# ... through the first WINDOW_LAYERS of the layers phase 15 serves, the
+# pool keeping its 3,904 blocks (the whole window phase took 176-187 s at
+# 32 layers, 79 s at 16, 21.8 s at 4)
 # phase 16: Mixtral-8x7B (8 experts, top 2) at full published width and 4
 # of its 32 identical layers: 11.9e9 B of bf16 weights (all 32 layers take
 # 93.4e9 B, past one 80 GB card; 24 layers, 70.2e9 B, until the depth cut
@@ -338,6 +338,16 @@ TRAIN_LOSS_TOL = 1e-2
 TRAIN_GNORM_RTOL = 5e-2
 TRAIN_F32_LAYERS = 2
 TRAIN_F32_TOL = 1e-3
+# phase 24b (train tp): TRAIN_TP_STEPS steps of the same model and batches
+# on a (data 2, model 2) mesh (launch/mesh.py::make_debug_mesh), every
+# shard on the one card: Megatron row sums of wo/wd, the batch split over
+# data, ZeRO-1 moments.  Each step's loss within TRAIN_LOSS_TOL and grad
+# norm within TRAIN_GNORM_RTOL of the one-device step's from the same
+# params and batches; at TRAIN_F32_LAYERS layers in f32, one step's loss
+# and grad norm within TRAIN_TP_F32_RTOL (relative) of each other
+TRAIN_TP_MESH = (2, 2)
+TRAIN_TP_STEPS = 3
+TRAIN_TP_F32_RTOL = 1e-4
 # the profiler's spans over one train step
 BWD_SPAN = "flash attention backward"
 LOSS_SPAN = "chunked loss"
@@ -369,7 +379,20 @@ HOP_DOCS = 2
 # them on the real clock (TP_DECODE_REPS rounds of the runtimes' warm-up
 # steps at max_batch rows, the runs taking turns).  TP_PROBE_ROWS: the rows of the
 # column-product probe.
-TP_MODELS = {"qwen2-0.5b": (2,), "mistral-7b": (2, 4)}
+# Mixtral-8x7B (phase 16's MOE_LAYERS layers at full width, 8 experts) at
+# tp 2 and 4: its expert stacks split along E (4 and 2 whole experts a
+# shard), the router's 8 columns in slabs, the expert wd on the
+# controller; the probe adds the router's columns and the batched expert
+# products of moe_capacity in groups of E / G experts (TP_EXPERT_ROWS
+# tokens a buffer's worth)
+TP_MODELS = {"qwen2-0.5b": (2,), "mistral-7b": (2, 4),
+             "mixtral-8x7b": (2, 4)}
+TP_EXPERT_ROWS = (64, 512, 2048)
+# depth cuts that make room for Mixtral's tp runs and the training mesh
+# (phase 24b): Qwen2-0.5B's tp runs through the first 12 of its 24
+# layers, Mistral-7B's window phase through the first 2 of phase 15's 4
+TP_LAYERS = {"qwen2-0.5b": 12}
+WINDOW_LAYERS = 2
 TP_REQUESTS = 16
 TP_DECODE_REPS = 20
 TP_PROBE_ROWS = (1, 8, 64, 512, 2048)
@@ -2457,6 +2480,13 @@ def constant_clock():
         R.time = real
 
 
+def first_layers(cfg, params, n):
+    """``cfg`` and ``params`` cut to their first ``n`` layers (views of the
+    weights): a depth cut that keeps every width."""
+    blocks = {k: w[:n] for k, w in params["blocks"].items()}
+    return dataclasses.replace(cfg, n_layers=n), dict(params, blocks=blocks)
+
+
 def one_card_mesh(tp, slabs=0):
     """tp shards, all on cuda:0, of column-slab group ``slabs`` (0: tp)."""
     from repro_torch.launch.mesh import make_serving_mesh
@@ -2480,9 +2510,13 @@ def tp_probe(torch, cfg, params, tps, tag):
     x = torch.randn((max(TP_PROBE_ROWS), cfg.d_model), generator=gen,
                     device="cuda").to(cfg.tdtype)
     blk = params["blocks"]
+    cols = ("q", "k", "v") + (("outer",) if cfg.moe_experts else ("g", "u"))
     prods = [(n, ("blocks", f"w{n}"), blk[f"w{n}"][:1],
               blk[f"b{n}"][:1] if f"b{n}" in blk else None)
-             for n in ("q", "k", "v", "g", "u")]
+             for n in cols if n != "outer"]
+    if cfg.moe_experts:
+        prods.append(("router", ("blocks", "router"), blk["router"][:1],
+                      None))
     logit = "embed" if cfg.tie_embeddings else "lm_head"
     prods.append(("logits", (logit,), params[logit], None))
     bad, plain_diff = [], {}
@@ -2515,6 +2549,9 @@ def tp_probe(torch, cfg, params, tps, tag):
                         plain_diff.setdefault((tp, name), []).append(rows)
                 del whole, plain, got
             del w1, ws
+    if cfg.moe_experts:
+        expert_probe(torch, cfg, params, tps, x, bad, plain_diff)
+        prods.append(("experts (batched)",))
     torch.cuda.synchronize()
     for tp in tps:
         for name, *_ in prods:
@@ -2529,6 +2566,42 @@ def tp_probe(torch, cfg, params, tps, tag):
             f"their group: {bad[:8]}")
     return {f"tp{tp} {name}": sorted(set(rows))
             for (tp, name), rows in plain_diff.items()}
+
+
+def expert_probe(torch, cfg, params, tps, x, bad, plain_diff):
+    """The batched expert products of layers.moe_capacity (``eCd,edf->eCf``
+    over the experts' buffers) as tensor-parallel serving computes them
+    (models/model.py::_moe_shards): each shard its whole experts, in
+    groups of E / G experts a call.  For each tp of ``tps`` at G = tp, at
+    buffers of TP_EXPERT_ROWS rows, every shard's groups must equal tp 1's
+    of group G bit for bit (appended to ``bad``); where the default tp 1's
+    one product over all E experts differs from them is recorded in
+    ``plain_diff`` (whether a batched product's slice keeps its bits when
+    the batch count changes)."""
+    from repro_torch.launch.sharding import expert_rule
+    E = cfg.moe_experts
+    wg = params["blocks"]["wg"][0]                       # (E, D, F)
+    for tp in tps:
+        if expert_rule(cfg, tp) != "experts":
+            continue
+        n = E // tp
+        for rows in TP_EXPERT_ROWS:
+            xbuf = torch.stack([x.roll(97 * e, 0)[:rows] for e in range(E)])
+            plain = torch.einsum("eCd,edf->eCf", xbuf, wg)
+            whole = torch.cat([torch.einsum("eCd,edf->eCf",
+                                            xbuf[j * n:(j + 1) * n],
+                                            wg[j * n:(j + 1) * n])
+                               for j in range(tp)])
+            for i in range(tp):
+                part = wg[i * n:(i + 1) * n].contiguous()
+                got = torch.einsum("eCd,edf->eCf",
+                                   xbuf[i * n:(i + 1) * n].contiguous(), part)
+                if not torch.equal(got, whole[i * n:(i + 1) * n]):
+                    bad.append((tp, "experts (batched)", rows, i))
+            if not torch.equal(plain, whole):
+                plain_diff.setdefault((tp, "experts (batched)"),
+                                      []).append(rows)
+            del xbuf, plain, whole
 
 
 def tp_kernel_bits(torch, np, cfg, tps, tag):
@@ -2800,7 +2873,8 @@ def phase_paper(torch, np, arch):
     phase_check(torch, np, cfg, params, corpus, idx, wl, args, results,
                 n=4, eps=eps, tag=f"{arch} check")
     if arch == "mistral-7b":
-        out["window"] = phase_window(torch, np, cfg, params, eps, full)
+        out["window"] = phase_window(
+            torch, np, *first_layers(cfg, params, WINDOW_LAYERS), eps, full)
     if arch in TP_MODELS:
         out["tp"] = phase_tp(torch, np, cfg, params, corpus, idx, wl, args,
                              TP_MODELS[arch], full)
@@ -3023,6 +3097,8 @@ def phase_moe(torch, np):
                                      f"{tag} capacity")
     out["seq"] = phase_seq_in_process(torch, np, cfg, params, corpus, idx,
                                       wl, args, eps, f"{tag} seq")
+    out["tp"] = phase_tp(torch, np, cfg, params, corpus, idx, wl, args,
+                         TP_MODELS[MOE_ARCH], get_config(MOE_ARCH))
     phase_profile(torch, cfg, params, corpus, idx, wl, args,
                   tag=f"{tag} profile")
     del params, results
@@ -3870,6 +3946,118 @@ def phase_train(torch, np, cfg, params):
                 parity=parity, times=times, wall=wall)
 
 
+def phase_train_tp(torch, np, cfg, params):
+    """Phase 24b: train_lib.make_train_step(mesh=) on a TRAIN_TP_MESH mesh
+    of shards on the one card against the one-device step, TRAIN_TP_STEPS
+    steps each from the main serve's weights and the same batches: loss
+    and grad norm by step (bf16, full width and depth), then one step in
+    f32 at TRAIN_F32_LAYERS layers; the prefix kernel's launches a step
+    (each shard's forward and recompute: data x model x the one-device
+    step's), ms a step and peak memory.  Every data replica must hold the
+    same param bits after each step."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training.optimizer import (AdamWConfig, init_state,
+                                                init_state_zero, tree_leaves)
+    from repro_torch.training.train_lib import make_train_step
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_data, n_model = TRAIN_TP_MESH
+    mesh = make_debug_mesh(n_data, n_model,
+                           devices=["cuda:0"] * (n_data * n_model))
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(10, TRAIN_STEPS // 20),
+                      total_steps=TRAIN_STEPS)
+    batches = train_batches(torch, cfg, TRAIN_TP_STEPS)
+
+    def run(step_fn, p, state):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = dict(loss=[], gnorm=[], ms=[], launches=None)
+        for i, batch in enumerate(batches):
+            if i == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, state, m = step_fn(p, state, batch)
+            out["loss"].append(float(m["loss"]))
+            out["gnorm"].append(float(m["grad_norm"]))
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            if i == 0:
+                out["launches"], plain = read_counts()
+                if plain:
+                    die(f"[train tp] the plain versions ran: {plain}")
+            if isinstance(p, list):
+                for d in range(1, n_data):
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves(p[0]), tree_leaves(p[d])))
+                    if not same:
+                        die(f"[train tp] step {i}: data replica {d}'s "
+                            f"params differ from replica 0's")
+        out["peak"] = torch.cuda.max_memory_allocated() - held
+        return out, p
+
+    one, _ = run(make_train_step(cfg, opt), params, init_state(params))
+    placed = sh.place_train(params, cfg, mesh)
+    tp, trained = run(make_train_step(cfg, opt, mesh=mesh), placed,
+                      init_state_zero(sh.train_dims(cfg, mesh), placed,
+                                      mesh))
+    del placed, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = "prefix_flash_attention"
+    want = n_data * n_model * one["launches"][name]
+    print(f"[train tp] {cfg.name}: a ({n_data}, {n_model}) mesh, every "
+          f"shard on the one card; {TRAIN_TP_STEPS} steps of {TRAIN_BATCH} "
+          f"x {TRAIN_SEQ} tokens, bf16; {card_line(torch)}", flush=True)
+    for key, r in (("one device", one), ("mesh", tp)):
+        print(f"[train tp] {key}: loss by step {r['loss']}; grad norm by "
+              f"step {r['gnorm']}; ms by step "
+              f"{[round(t, 1) for t in r['ms']]}; peak device memory "
+              f"{r['peak']} B above what was held; prefix launches a step "
+              f"{r['launches'][name]}", flush=True)
+    dl = [abs(a - b) for a, b in zip(tp["loss"], one["loss"])]
+    dg = [abs(a - b) / b for a, b in zip(tp["gnorm"], one["gnorm"])]
+    print(f"[train tp] mesh vs one device by step: |loss d| {dl} (tol "
+          f"{TRAIN_LOSS_TOL:g}); grad norm relative {dg} (tol "
+          f"{TRAIN_GNORM_RTOL:g}); prefix launches {tp['launches'][name]} "
+          f"(want {n_data} x {n_model} x {one['launches'][name]})",
+          flush=True)
+    if tp["launches"][name] != want:
+        die(f"[train tp] prefix kernel launched {tp['launches'][name]} "
+            f"times in a mesh step, not {want}")
+    if max(dl) > TRAIN_LOSS_TOL or max(dg) > TRAIN_GNORM_RTOL:
+        die(f"[train tp] mesh steps differ from the one-device steps: "
+            f"loss {dl}, grad norm {dg}")
+    c32 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
+                              dtype="float32")
+    p32 = {k: ({n: w[:TRAIN_F32_LAYERS].float() for n, w in v.items()}
+               if k == "blocks" else v.float()) for k, v in params.items()}
+    batch = batches[0]
+    _, _, m1 = make_train_step(c32, opt)(p32, init_state(p32), batch)
+    placed = sh.place_train(p32, c32, mesh)
+    _, _, m2 = make_train_step(c32, opt, mesh=mesh)(
+        placed, init_state_zero(sh.train_dims(c32, mesh), placed, mesh),
+        batch)
+    del placed
+    f32 = {k: abs(float(m2[k]) - float(m1[k])) / abs(float(m1[k]))
+           for k in ("loss", "grad_norm")}
+    print(f"[train tp] f32, {TRAIN_F32_LAYERS} layers, one step: mesh vs "
+          f"one device, relative {f32} (tol {TRAIN_TP_F32_RTOL:g})",
+          flush=True)
+    if max(f32.values()) > TRAIN_TP_F32_RTOL:
+        die(f"[train tp] f32 mesh step differs from the one-device step: "
+            f"{f32}")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[train tp] phase wall {wall:.1f}s", flush=True)
+    return dict(launches=tp["launches"][name], one=one, mesh=tp, f32=f32,
+                wall=wall)
+
+
 def kv_digest(torch, k, v):
     """sha256 over the bytes of a (k, v) pair."""
     import hashlib
@@ -4070,8 +4258,10 @@ def main() -> None:
     fault = phase_fault(torch, np, cfg, params, corpus, idx, wl, args)
     hops = phase_hops(torch, np, cfg, params, corpus, idx, wl, args)
     train = phase_train(torch, np, cfg, params)
-    tp_qwen = phase_tp(torch, np, cfg, params, corpus, idx, wl, args,
-                       TP_MODELS[cfg.name], cfg)
+    train_tp = phase_train_tp(torch, np, cfg, params)
+    tp_qwen = phase_tp(torch, np,
+                       *first_layers(cfg, params, TP_LAYERS[cfg.name]),
+                       corpus, idx, wl, args, TP_MODELS[cfg.name], cfg)
     del params, results
     paper = {arch: phase_paper(torch, np, arch) for arch in PAPER_MODELS}
     moe = phase_moe(torch, np)
@@ -4109,12 +4299,14 @@ def main() -> None:
                "prefix_flash_attention": {
                    "cag preload": cag["preload"], "cag serve": cag["serve"],
                    "dense serve": dense, "sequential check": seq,
-                   "train step": train["launches"]}}
+                   "train step": train["launches"],
+                   "train step, (2, 2) mesh": train_tp["launches"]}}
     for name in ("paged_decode_attention", "paged_prefill_attention"):
         by_path[name]["fault serve"] = fault["launches"][name]
         by_path[name]["hops serve"] = hops["launches"][name]
         for arch, o in (("qwen2-0.5b", tp_qwen),
-                        ("mistral-7b", paper["mistral-7b"]["tp"])):
+                        ("mistral-7b", paper["mistral-7b"]["tp"]),
+                        (MOE_ARCH, moe["tp"])):
             for key, n in o["launches"].items():
                 by_path[name][f"{arch} {key}"] = n[name]
     for arch, o in paper.items():
@@ -4172,8 +4364,16 @@ def main() -> None:
           f"{train['peak']} B, loss {train['losses'][0]:.4f} -> "
           f"{train['losses'][-1]:.4f}, prefix launches a step "
           f"{train['launches']}; phase wall {train['wall']:.1f}s", flush=True)
+    print(f"[train tp] {cfg.name} on a {TRAIN_TP_MESH} mesh, shards on one "
+          f"card: ms by step {[round(t, 1) for t in train_tp['mesh']['ms']]}"
+          f" (one device {[round(t, 1) for t in train_tp['one']['ms']]}); "
+          f"peak {train_tp['mesh']['peak']} B (one device "
+          f"{train_tp['one']['peak']} B); prefix launches a step "
+          f"{train_tp['launches']}; f32 relative {train_tp['f32']}; phase "
+          f"wall {train_tp['wall']:.1f}s", flush=True)
     for arch, o in (("qwen2-0.5b", tp_qwen),
-                    ("mistral-7b", paper["mistral-7b"]["tp"])):
+                    ("mistral-7b", paper["mistral-7b"]["tp"]),
+                    (MOE_ARCH, moe["tp"])):
         print(f"[tp] {arch}, shards on one card: ms a decode step by run "
               f"{ {k: round(ms, 3) for k, ms in o['ms'].items()} }; peak "
               f"device memory above what was held, by run {o['peak']}; "

@@ -1,5 +1,4 @@
-"""Serving mesh of the port (counterpart of the serving half of
-``repro.launch.mesh``).
+"""Device meshes of the port (counterpart of ``repro.launch.mesh``).
 
 The reference's tensor parallelism is single-controller: one process, a
 ``(data=1, model=tp)`` mesh of devices.  The port keeps that model with an
@@ -23,8 +22,15 @@ bits a tp-N serve reproduces.
 ``--xla_force_host_platform_device_count``.  An explicit ``devices`` list
 may name one card more than once (``["cuda:0"] * tp``): every shard then
 runs on that card, which is how one card shows the per-shard path.
-``make_production_mesh``/``make_debug_mesh`` and ``data_axes`` belong to
-the compile analysis, which the port does not have yet.
+
+Training runs on the reference's ``(data, model)`` shape: a ``DeviceMesh``
+is an ordered grid of devices, ``grid[d][m]`` the device of data replica
+``d``'s model shard ``m``; each row is one replica's ``ServingMesh`` (the
+``(1, tp)`` case, ``replica(d)``), whose first device is that replica's
+controller.  ``make_debug_mesh`` builds one (the reference's CI mesh,
+(2, 4) by default), ``data_axes`` names its batch axes.
+``make_production_mesh`` belongs to the compile analysis, which the port
+does not have yet.
 """
 
 from __future__ import annotations
@@ -63,6 +69,80 @@ class ServingMesh:
         the replicated products (shard 0's)."""
         return self.devices[0]
 
+    def replica(self, d: int) -> "ServingMesh":
+        if d != 0:
+            raise IndexError(f"a serving mesh has one data replica, not {d}")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh:
+    """A ``(data, model)`` grid of devices: ``grid[d][m]`` holds model
+    shard ``m`` of data replica ``d``."""
+
+    grid: Tuple[Tuple[torch.device, ...], ...]
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    def __post_init__(self):
+        if not self.grid or len({len(row) for row in self.grid}) != 1:
+            raise ValueError("a mesh's rows must be non-empty and of one "
+                             "length")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": len(self.grid), "model": len(self.grid[0])}
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """Every device, row by row."""
+        return tuple(dev for row in self.grid for dev in row)
+
+    def replica(self, d: int) -> ServingMesh:
+        """Data replica ``d``'s ``(1, model)`` mesh."""
+        return ServingMesh(self.grid[d])
+
+
+def data_axes(mesh) -> tuple:
+    """The batch-sharding axes of a mesh (pod included when present)."""
+    names = mesh.axis_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _devices(n: int, device, devices, what: str) -> Tuple[torch.device, ...]:
+    """``n`` devices: ``devices`` as given (a card may repeat), else ``n``
+    CPU shards for ``device="cpu"``, else the cards ``cuda:0 .. n-1``."""
+    if devices is not None:
+        devs = tuple(torch.device(d) for d in devices)
+        if len(devs) != n:
+            raise ValueError(f"{what} needs {n} devices, got {len(devs)}")
+        return devs
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return (dev,) * n
+    if n == 1 and dev.index is not None:
+        return (dev,)
+    avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if avail < n:
+        raise ValueError(
+            f"{what} needs {n} devices but only {avail} are visible; "
+            f"on the CPU pass --device cpu"
+        )
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 4, device=None,
+                    devices: Sequence = None) -> DeviceMesh:
+    """A ``(n_data, n_model)`` mesh (the reference's CI mesh, (2, 4) by
+    default): ``devices`` lists its ``n_data * n_model`` devices row by row
+    (a card may repeat); else ``device="cpu"`` gives CPU shards and
+    ``None``/``"cuda"`` the first cards."""
+    if n_data < 1 or n_model < 1:
+        raise ValueError(f"mesh ({n_data}, {n_model}) needs both sizes >= 1")
+    devs = _devices(n_data * n_model, device, devices,
+                    f"a ({n_data}, {n_model}) mesh")
+    return DeviceMesh(tuple(devs[d * n_model:(d + 1) * n_model]
+                            for d in range(n_data)))
+
 
 def make_serving_mesh(tp: int, device=None, devices: Sequence = None,
                       slabs: int = 0) -> ServingMesh:
@@ -75,21 +155,4 @@ def make_serving_mesh(tp: int, device=None, devices: Sequence = None,
     column-slab group, a multiple of tp (0: tp)."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    if devices is not None:
-        devs = tuple(torch.device(d) for d in devices)
-        if len(devs) != tp:
-            raise ValueError(f"tp {tp} needs {tp} devices, got {len(devs)}")
-        return ServingMesh(devs, slabs)
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type != "cuda":
-        return ServingMesh((dev,) * tp, slabs)
-    if tp == 1 and dev.index is not None:
-        return ServingMesh((dev,), slabs)
-    avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if avail < tp:
-        raise ValueError(
-            f"--tp {tp} needs {tp} devices but only {avail} are visible; "
-            f"on the CPU pass --device cpu"
-        )
-    return ServingMesh(tuple(torch.device("cuda", i) for i in range(tp)),
-                       slabs)
+    return ServingMesh(_devices(tp, device, devices, f"--tp {tp}"), slabs)

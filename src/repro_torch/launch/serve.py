@@ -82,8 +82,9 @@ partition specs are printed.  Params shard over the mesh, the pool's
 planes shard whole KV heads, and the tokens, tier hits and first-token
 logits are tp 1's bit for bit, so ``--check-tokens`` holds;
 ``--replicas R --tp N`` is the 2D fleet, each replica with its own mesh
-over the same first N devices.  The MoE family under ``--tp`` raises
-``NotImplementedError`` (ROADMAP.md Queue A).
+over the same first N devices.  The MoE family serves under ``--tp`` too
+(``--arch mixtral-8x7b --tp 2 --check-tokens``): its expert stacks split
+along E when N divides it, else along d_ff (the printed specs say which).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --tp 2 --check-tokens
@@ -315,7 +316,8 @@ def make_setup(args, cfg=None, mesh=None):
                     f"--full-size --arch {args.arch} --tp {tp}: "
                     f"{need / 1e9:.1f} GB of {cfg.dtype} weights on the "
                     f"first card (the split ones / {tp} plus the whole "
-                    f"wo/wd and norms) do not fit one 80 GB card")
+                    f"wo/wd, expert wd and norms) do not fit one 80 GB "
+                    f"card")
     if not trivial(mesh):
         params = split_shards(
             M.init_params(cfg, args.seed, mesh.controller,
@@ -608,7 +610,7 @@ def main(argv=None) -> None:
             raise SystemExit(str(e))
     # the continuous engine's shards are drawn split over the mesh, unless
     # a one-device oracle (the sequential engine) needs the whole tree
-    split = (smesh is not None and family in ("dense", "vlm")
+    split = (smesh is not None and family in ("dense", "moe", "vlm")
              and not args.sequential
              and not args.check_tokens)
     cfg, params, corpus, idx, wl, tenants = make_setup(

@@ -1,37 +1,53 @@
-"""Partition rules of tensor-parallel serving (counterpart of the serving
-half of ``repro.launch.sharding``).
+"""Partition rules of tensor parallelism (counterpart of
+``repro.launch.sharding``).
 
 Megatron-style tensor parallelism over the ``model`` axis:
-  column-parallel: wq/wk/wv (fused head dim), wg/wu (d_ff), lm_head, and
-                   the embedding's vocab dim
+  column-parallel: wq/wk/wv (fused head dim), wg/wu (d_ff), router,
+                   lm_head, and the embedding's vocab dim
   row-parallel:    wo, wd (contracting dim), which serving replicates
                    (``serving_param_shardings``)
-Every rule checks divisibility and falls back to replication.
+  expert-parallel: the MoE expert stacks shard their expert dim over
+                   ``model`` when it divides, else fall back to d_ff
+Optimizer moments additionally shard one more dim over the data axes
+(ZeRO-1, ``opt_spec``).  Every rule checks divisibility and falls back to
+replication.
 
 A spec is a tuple naming, for each dim of a leaf, ``"model"`` (sharded
 over the model axis), a data-axis name, or ``None``, as a JAX
-``PartitionSpec`` does; ``()`` replicates.  ``shard_params`` turns a param
-tree into one tree per shard by ``torch.chunk`` along the spec's dim.
+``PartitionSpec`` does; ``()`` replicates.  The ``*_shardings`` functions
+return trees of specs (the reference's ``NamedSharding`` less the mesh).
 
-Placement (the port's choice): the residual stream and the replicated
-products (norms, wo, wd, RoPE and every elementwise op) run once, on the
-mesh's first device (its controller); the column products and the paged
-attention run on each shard's device.  So the replicated leaves live on the
-controller only, and every shard's tree refers to that one copy; a split
-leaf's parts are copies, and the column leaves are laid out slab-major
-when a shard computes more than one slab of the mesh's group (``placer``).
-The ragged-heads option (``ATTN_REPLICATE_IF_RAGGED``) comes with the
-compile analysis, its only caller in the reference.  The
-training half (``param_shardings``, ``opt_shardings``, ``input_shardings``,
-``batch_spec``, ``cache_shardings``) is not ported yet.
+Serving placement (the port's choice): the residual stream and the
+replicated products (norms, wo, wd, RoPE and every elementwise op) run
+once, on the mesh's first device (its controller); the column products
+and the paged attention run on each shard's device.  So the replicated
+leaves live on the controller only, and every shard's tree refers to that
+one copy; a split leaf's parts are copies, and the column leaves are laid
+out slab-major when a shard computes more than one slab of the mesh's
+group (``placer``).  The MoE leaves take the reference's serving rules at
+the group's size G: the router splits along E when G divides it, the
+expert ``wg``/``wu`` along E (whole experts a shard) when G divides E and
+else along d_ff in slabs, and the expert ``wd`` stays whole on the
+controller, so every mesh of one group computes the same products.
+
+Training placement (``place_train``): ``param_shardings``' specs, so
+``wo``/``wd`` (and the expert ``wd``) keep Megatron row parallelism; each
+data replica holds its own copy of the tree, a split leaf as its model
+shards on the replica's devices, a replicated leaf once on the replica's
+controller.  ``gather_train`` turns it back into one tree.  The
+ragged-heads option (``ATTN_REPLICATE_IF_RAGGED``) comes with the compile
+analysis, its only caller in the reference.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models.config import ModelConfig
 
 # param-name kinds: "col" shards the output dim, "row" the contracting dim
@@ -147,6 +163,8 @@ def _leaves(tree, path=()):
 
 
 def _map(tree, fn, path=()):
+    """``fn(path, leaf)`` over a nested dict's leaves (a placed leaf's
+    tuple of parts is one leaf)."""
     out = {}
     for key, node in tree.items():
         if isinstance(node, dict):
@@ -154,6 +172,20 @@ def _map(tree, fn, path=()):
         else:
             out[key] = fn(path + (key,), node)
     return out
+
+
+def _map_nested(tree, fn, path=()):
+    """``fn(path, leaf)`` over the tensors of nested dicts, tuples and
+    lists (a tuple's element keyed by its index, as ``str``); None stays
+    None, as in a JAX tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_nested(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_nested(v, fn, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def serving_param_shardings(cfg: ModelConfig, params, mesh) -> Dict[str, Any]:
@@ -192,26 +224,65 @@ def spec_summary(cfg: ModelConfig, mesh, params) -> str:
             seen[name] += f" | {label}"
     for name in sorted(seen):
         lines.append(f"  {name:12s} -> {seen[name]}")
+    if cfg.moe_experts:
+        E, F = cfg.moe_experts, cfg.d_ff
+        rule = {
+            "experts": f"expert-parallel, {E // msize} of {E} experts a shard",
+            "ffn": f"d_ff-parallel ({E} experts do not split over "
+                   f"{msize}), {F // msize} of {F} columns a shard",
+            "replicated": "replicated",
+        }[expert_rule(cfg, msize)]
+        lines.append(f"  expert rule  -> {rule}; serving keeps the expert "
+                     f"wd whole")
     return "\n".join(lines)
 
 
 # the column leaves the serving steps compute in column slabs, and the
 # q/k/v biases, which follow their weight's columns
-_SLABBED = {"wq", "wk", "wv", "wg", "wu", "lm_head"}
+_SLABBED = {"wq", "wk", "wv", "wg", "wu", "lm_head", "router"}
 _BIASES = {"bq", "bk", "bv"}
+
+
+def _is_expert(path, cfg: ModelConfig) -> bool:
+    return (cfg.moe_experts > 0 and path[-1] in ("wg", "wu", "wd")
+            and "blocks" in path)
+
+
+def expert_rule(cfg: ModelConfig, size: int) -> str:
+    """How ``param_spec`` splits the expert stacks over a model axis of
+    ``size``: ``"experts"`` (along E), ``"ffn"`` (along d_ff) or
+    ``"replicated"``."""
+    if _fits(cfg.moe_experts, size):
+        return "experts"
+    return "ffn" if _fits(cfg.d_ff, size) else "replicated"
+
+
+def router_split(cfg: ModelConfig, size: int) -> bool:
+    """Whether ``param_spec`` splits the router's E columns over ``size``."""
+    return _fits(cfg.moe_experts, size)
 
 
 def _shard_dim(path, leaf, cfg: ModelConfig, mesh) -> int:
     """The dim a leaf is split along over the mesh's shards, or -1 for a
     leaf the controller holds whole: the serving specs' dim, and for a
     q/k/v bias its weight's (the reference replicates the biases; the
-    port's shards add their own columns')."""
+    port's shards add their own columns').  The router and the expert
+    stacks take their rule at the mesh's column-slab group (the
+    reference's at tp, which is the group unless one is given), so every
+    mesh of one group splits them alike."""
     name = path[-1]
     if name in _BIASES:
         n = leaf.shape[-1]
         return leaf.ndim - 1 if _fits(n, _axis_size(mesh, "model")) else -1
     if name in ("wo", "wd"):
         return -1
+    if name == "router":
+        return leaf.ndim - 1 if router_split(cfg, mesh.slabs) else -1
+    if _is_expert(path, cfg):
+        rule = expert_rule(cfg, mesh.slabs)
+        if rule == "experts":
+            return leaf.ndim - 3
+        return leaf.ndim - 1 if rule == "ffn" else -1
     spec = param_spec(path, leaf, cfg, mesh)
     return spec.index("model") if "model" in spec else -1
 
@@ -236,6 +307,17 @@ def _slab_major(path, part, slabs: int) -> torch.Tensor:
     return part.contiguous()
 
 
+def _slab_major_experts(part, slabs: int) -> torch.Tensor:
+    """A shard's d_ff columns of an expert stack (..., E, D, F / tp) as
+    ``slabs`` slabs ahead of the experts, (..., slabs, E, D, F / G): slab
+    j of every expert is then one contiguous (E, D, F / G) operand (a
+    batched product's) and of expert e one contiguous (D, F / G)."""
+    if slabs == 1:
+        return part
+    part = part.unflatten(-1, (slabs, part.shape[-1] // slabs))
+    return part.movedim(-2, -4).contiguous()
+
+
 def placer(cfg: ModelConfig, mesh):
     """``place(path, leaf)``: a leaf's per-shard parts (a tuple, one a
     shard, each on its device) or, for a leaf the controller holds whole,
@@ -243,15 +325,12 @@ def placer(cfg: ModelConfig, mesh):
     (never views of ``leaf``), the column leaves laid out slab-major
     (``_slab_major``) when a shard computes more than one slab.  Used by
     ``shard_params`` and, leaf by leaf as they are drawn, by
-    ``models/model.py::init_params(place=)``."""
+    ``models/model.py::init_params(place=)``.  An expert stack split along
+    E keeps whole experts (no slabs); along d_ff its slabs come ahead of
+    the experts (``_slab_major_experts``)."""
     tp = _axis_size(mesh, "model")
     per = mesh.slabs // tp
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"tensor parallelism serves the dense family and the VLM text "
-            f"backbone; {cfg.name} ({cfg.family}) under TP is not ported "
-            f"yet (ROADMAP.md Queue A)"
-        )
+    check_mesh_family(cfg)
     if not kv_heads_shardable(cfg, mesh.slabs):
         raise ValueError(
             f"a column-slab group of {mesh.slabs} would split a head of "
@@ -263,6 +342,12 @@ def placer(cfg: ModelConfig, mesh):
         if d < 0:
             return leaf.to(mesh.controller)
         name = path[-1]
+        if _is_expert(path, cfg):
+            parts = leaf.chunk(tp, d)
+            if d == leaf.ndim - 3:          # whole experts a shard
+                return tuple(_own(p, dev) for p, dev in zip(parts, mesh.devices))
+            return tuple(_slab_major_experts(_own(p, dev), per)
+                         for p, dev in zip(parts, mesh.devices))
         col = name in _SLABBED or name in _BIASES
         if col and leaf.shape[d] % mesh.slabs:
             raise ValueError(
@@ -275,6 +360,19 @@ def placer(cfg: ModelConfig, mesh):
         )
 
     return place
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Tensor parallelism runs the attention families (dense, MoE and the
+    VLM's text backbone); the recurrent and audio families under a mesh
+    come with the compile analysis (ROADMAP.md Queue A)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"tensor parallelism runs the dense, MoE and VLM families; "
+            f"{cfg.name} ({cfg.family}) under a mesh is not ported yet "
+            f"(ROADMAP.md Queue A: the recurrent and audio families under "
+            f"a mesh)"
+        )
 
 
 def split_shards(tree, tp: int) -> list:
@@ -308,7 +406,8 @@ def card_bytes(cfg: ModelConfig, tp: int) -> int:
     there, leaf by leaf in draw order: its share of every leaf placed so
     far (a split leaf's 1/tp, a whole leaf all of it), plus the leaf in
     flight, whole in its dtype with its f32 draw and that draw's scaled
-    copy (one layer's of a stack drawn layer by layer).  At tp 1, the
+    copy (one layer's of a stack drawn layer by layer, one (layer,
+    expert) slice's of an expert stack).  At tp 1, the
     tree's bytes.  Counts shapes only (``init_params`` on the meta
     device)."""
     from repro_torch.launch.mesh import make_serving_mesh
@@ -325,8 +424,183 @@ def card_bytes(cfg: ModelConfig, tp: int) -> int:
         if path[-1].startswith(("ln", "b", "final")):
             drawn = 0  # zeros, allocated in their dtype
         else:
-            layers = cfg.n_layers if by_layer and path[0] == "blocks" else 1
-            drawn = 8 * leaf.numel() // layers
+            slices = 1                # f32 draws made at once
+            if _is_expert(path, cfg):
+                slices = leaf.shape[0] * leaf.shape[1]
+            elif by_layer and path[0] == "blocks":
+                slices = cfg.n_layers
+            drawn = 8 * leaf.numel() // slices
         most = max(most, held + n + drawn)
         held += n // tp if _shard_dim(path, leaf, cfg, mesh) >= 0 else n
     return max(most, held)
+
+
+# ---------------------------------------------------------------------------
+# the training half: params, optimizer state, inputs and decode caches
+# ---------------------------------------------------------------------------
+
+
+def _data_size(mesh) -> Tuple[tuple, int, Any]:
+    """(data axes, their total size, the spec entry naming them)."""
+    daxes = data_axes(mesh)
+    dsize = math.prod(_axis_size(mesh, a) for a in daxes)
+    return daxes, dsize, (daxes if len(daxes) > 1 else daxes[0])
+
+
+def tree_shardings(tree, spec_fn, mesh):
+    """``spec_fn(path, leaf)`` over every tensor of ``tree`` (nested dicts,
+    tuples and lists): the tree of specs."""
+    return _map_nested(tree, spec_fn)
+
+
+def param_shardings(cfg: ModelConfig, params, mesh):
+    """``param_spec`` of every leaf: the training layout, which keeps
+    Megatron row parallelism of ``wo``/``wd``."""
+    return tree_shardings(params, lambda p, l: param_spec(p, l, cfg, mesh),
+                          mesh)
+
+
+def opt_spec(pspec: tuple, leaf, mesh) -> tuple:
+    """ZeRO-1: a moment takes its param's spec plus the first free dim that
+    the data axes divide, over them."""
+    _, dsize, ax = _data_size(mesh)
+    spec = list(pspec) + [None] * (leaf.ndim - len(pspec))
+    for d in range(leaf.ndim):
+        if spec[d] is None and _fits(leaf.shape[d], dsize):
+            spec[d] = ax
+            break
+    return tuple(spec)
+
+
+def opt_shardings(cfg: ModelConfig, params, opt_state, mesh):
+    """The specs of an ``AdamWState(step, m, v)``: the step replicated, each
+    moment ``opt_spec`` of its param's spec."""
+    def m_spec(path, leaf):
+        return opt_spec(param_spec(path, leaf, cfg, mesh), leaf, mesh)
+
+    return type(opt_state)(step=(),
+                           m=tree_shardings(opt_state.m, m_spec, mesh),
+                           v=tree_shardings(opt_state.v, m_spec, mesh))
+
+
+def batch_spec(cfg: ModelConfig, batch: int, mesh) -> Tuple[Any, int]:
+    """(the batch dim's spec entry, the data axes' size): the data axes
+    when they divide ``batch``, else None (replicated)."""
+    _, dsize, ax = _data_size(mesh)
+    return (ax if _fits(batch, dsize) else None), dsize
+
+
+def input_shardings(cfg: ModelConfig, inputs, mesh):
+    """Every input's leading (batch) dim over the data axes when they
+    divide it; scalars replicated."""
+    def spec(path, leaf):
+        if leaf.ndim == 0:
+            return ()
+        bax, _ = batch_spec(cfg, leaf.shape[0], mesh)
+        return (bax,) + (None,) * (leaf.ndim - 1)
+
+    return tree_shardings(inputs, spec, mesh)
+
+
+def cache_shardings(cfg: ModelConfig, cache, mesh, batch: int):
+    """Decode-cache specs.  KV (L, B, S, KV, hd): the batch over the data
+    axes when they divide it, else the sequence (distributed-context
+    decode); hd over model.  Hymba's ssm (L, B, H, hd, N): batch over data,
+    hd over model.  xLSTM states: the batch dim over data, then the largest
+    remaining dim of at least 4 x model over model."""
+    _, dsize, ax = _data_size(mesh)
+    msize = _axis_size(mesh, "model")
+    batch_ok = _fits(batch, dsize)
+
+    def spec(path, leaf):
+        name = path[-1] if path else ""
+        nd = leaf.ndim
+        s = [None] * nd
+        if name in ("k", "v"):
+            if batch_ok:
+                s[1] = ax
+            elif _fits(leaf.shape[2], dsize):
+                s[2] = ax
+            if _fits(leaf.shape[4], msize):
+                s[4] = "model"
+            return tuple(s)
+        if name == "ssm":
+            if batch_ok:
+                s[1] = ax
+            if _fits(leaf.shape[3], msize):
+                s[3] = "model"
+            return tuple(s)
+        for d in range(nd):
+            if batch_ok and leaf.shape[d] == batch and s[d] is None:
+                s[d] = ax
+                break
+        for d in sorted(range(nd), key=lambda d: -leaf.shape[d]):
+            if (s[d] is None and _fits(leaf.shape[d], msize)
+                    and leaf.shape[d] >= 4 * msize):
+                s[d] = "model"
+                break
+        return tuple(s)
+
+    return tree_shardings(cache, spec, mesh)
+
+
+@functools.lru_cache(maxsize=None)
+def _logical_tree(cfg: ModelConfig):
+    from repro_torch.models.model import init_params
+    return dict(_leaves(init_params(cfg, 0, device="meta")))
+
+
+def train_dims(cfg: ModelConfig, mesh) -> Dict[tuple, Tuple[int, int]]:
+    """Each leaf's (model dim, data dim) in the training layout: the dim
+    ``param_spec`` splits over model and the one ``opt_spec`` adds over
+    the data axes (-1: none), by path."""
+    out = {}
+    for path, leaf in _logical_tree(cfg).items():
+        ps = param_spec(path, leaf, cfg, mesh)
+        os_ = opt_spec(ps, leaf, mesh)
+        md = ps.index("model") if "model" in ps else -1
+        dd = next((i for i, a in enumerate(os_)
+                   if a is not None and a != "model"), -1)
+        out[path] = (md, dd)
+    return out
+
+
+def place_train(params, cfg: ModelConfig, mesh) -> list:
+    """The training layout over ``mesh`` (a ``DeviceMesh``, or a
+    ``ServingMesh`` as one data replica): one placed tree per data
+    replica, each its own copies.  A leaf ``param_spec`` splits over model
+    is a tuple of its model shards, shard ``m`` on the replica's device
+    ``m``; a replicated leaf is one tensor on the replica's controller.
+    At a model axis of 1 every leaf is whole."""
+    check_mesh_family(cfg)
+    dims = train_dims(cfg, mesh)
+    tp = _axis_size(mesh, "model")
+    out = []
+    for d in range(_axis_size(mesh, "data")):
+        row = mesh.replica(d)
+
+        def place(path, leaf):
+            md = dims[path][0]
+            if md < 0 or tp == 1:
+                return _own(leaf, row.controller)
+            return tuple(_own(part, dev)
+                         for part, dev in zip(leaf.chunk(tp, md), row.devices))
+
+        out.append(_map(params, place))
+    return out
+
+
+def gather_train(placed, cfg: ModelConfig, mesh, device="cpu"):
+    """One whole tree on ``device`` from a data replica's placed tree (or
+    ``place_train``'s list, whose first replica it takes): each split
+    leaf's shards concatenated along its model dim."""
+    if isinstance(placed, list):
+        placed = placed[0]
+    dims = train_dims(cfg, mesh)
+
+    def whole(path, leaf):
+        if isinstance(leaf, tuple):
+            return torch.cat([p.to(device) for p in leaf], dims[path][0])
+        return leaf.to(device)
+
+    return _map(placed, whole)

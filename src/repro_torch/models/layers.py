@@ -401,8 +401,13 @@ def route(x: torch.Tensor, router_w: torch.Tensor, k: int):
     """Top-``k`` routing: router logits (rounded to the activation dtype,
     then f32), their top ``k`` and the softmax of those in f32.  Returns
     (gates (..., k) f32, expert ids (..., k) int64)."""
-    logits = proj(x, router_w).float()
-    topv, topi = stable_top_k(logits, k)
+    return route_logits(proj(x, router_w), k)
+
+
+def route_logits(logits: torch.Tensor, k: int):
+    """``route`` from the router's logits (..., E) in the activation dtype
+    (a tensor-parallel mesh gathers them from its shards' columns)."""
+    topv, topi = stable_top_k(logits.float(), k)
     return torch.softmax(topv, dim=-1), topi
 
 
@@ -414,13 +419,25 @@ def moe_dense(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
     terms are summed in expert order in the activation dtype, each
     ``(y * gate.to(y.dtype)).to(acc_dt)`` as ``repro.models.layers``
     rounds them.  wg/wu (E, D, F), wd (E, F, D), router_w (D, E)."""
-    E = router_w.shape[-1]
-    gates, topi = route(x, router_w, top_k)
+    return moe_dense_with(x, route(x, router_w, top_k),
+                          lambda e: swiglu(x, wg[e], wu[e], wd[e]),
+                          router_w.shape[-1])
+
+
+def moe_dense_with(x: torch.Tensor, routed, expert,
+                   n_experts: int) -> torch.Tensor:
+    """``moe_dense`` from ``routed``, the rows' (gates, expert ids) as
+    ``route`` gives them, and ``expert(e)``, expert e's output (..., D)
+    over every row of ``x``, on x's device: the form a tensor-parallel
+    mesh computes with its shards' products.  The combine runs here, in
+    expert order, with ``moe_dense``'s rounding."""
+    E = n_experts
+    gates, topi = routed
     w_full = torch.zeros(x.shape[:-1] + (E,), dtype=torch.float32,
                          device=x.device).scatter_(-1, topi, gates)
     acc = torch.zeros_like(x)
     for e in range(E):
-        y = swiglu(x, wg[e], wu[e], wd[e])
+        y = expert(e)
         acc = acc + (y * w_full[..., e, None].to(y.dtype)).to(acc.dtype)
     return acc
 
@@ -435,6 +452,14 @@ def capacity_slots(topi: torch.Tensor, n_experts: int, cap: int):
     return oh, pos, (pos < cap) & (oh > 0)
 
 
+def glu_buffers(xbuf: torch.Tensor, wg: torch.Tensor,
+                wu: torch.Tensor) -> torch.Tensor:
+    """The experts' gated activations over their buffers: xbuf (E, C, D),
+    wg/wu (E, D, F) -> (E, C, F), products batched over E."""
+    h = F.silu(torch.einsum("eCd,edf->eCf", xbuf, wg))
+    return h * torch.einsum("eCd,edf->eCf", xbuf, wu)
+
+
 def moe_capacity(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
                  wu: torch.Tensor, wd: torch.Tensor, top_k: int, *,
                  capacity_factor: float = 1.25,
@@ -444,8 +469,24 @@ def moe_capacity(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
     an expert's capacity are dropped for that expert), each expert over
     its buffer only, and a gate-weighted one-hot combine; the dispatch and
     combine in f32, the expert products in the activation dtype."""
+    return moe_capacity_with(
+        x, lambda xc: route(xc, router_w, top_k),
+        lambda xbuf: torch.einsum("eCf,efd->eCd",
+                                  glu_buffers(xbuf, wg, wu), wd),
+        router_w.shape[-1], top_k, capacity_factor=capacity_factor,
+        token_chunk=token_chunk)
+
+
+def moe_capacity_with(x: torch.Tensor, route_fn, experts_fn, n_experts: int,
+                      top_k: int, *, capacity_factor: float = 1.25,
+                      token_chunk: int = 4096) -> torch.Tensor:
+    """``moe_capacity`` from ``route_fn(xc)``, a chunk's rows' (gates,
+    expert ids) as ``route`` gives them, and ``experts_fn(xbuf)``,
+    the experts' outputs (E, cap, D) over their buffers (E, cap, D): the
+    form a tensor-parallel mesh computes with its shards' products.  The
+    dispatch and the combine run here."""
     B, S, D = x.shape
-    E = router_w.shape[-1]
+    E = n_experts
     T = B * S
     token_chunk = min(token_chunk, T)
     n_chunks = -(-T // token_chunk)
@@ -454,15 +495,13 @@ def moe_capacity(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
     slots = torch.arange(cap, device=x.device)
     out = []
     for xc in xt.split(token_chunk):
-        gates, topi = route(xc, router_w, top_k)
+        gates, topi = route_fn(xc)
         oh, pos, keep = capacity_slots(topi, E, cap)
         pos_oh = (pos.long()[..., None] == slots).float()
         disp = oh[..., None] * keep[..., None] * pos_oh         # (C,k,E,cap)
         xbuf = torch.einsum("ceC,cd->eCd", disp.sum(dim=1),
                             xc.float()).to(xc.dtype)
-        h = F.silu(torch.einsum("eCd,edf->eCf", xbuf, wg))
-        h = h * torch.einsum("eCd,edf->eCf", xbuf, wu)
-        ybuf = torch.einsum("eCf,efd->eCd", h, wd)
+        ybuf = experts_fn(xbuf)
         comb = (disp * gates[:, :, None, None]).sum(dim=1)      # (C,E,cap)
         yc = torch.einsum("ceC,eCd->cd", comb, ybuf.float())
         out.append(yc.to(xc.dtype))

@@ -50,7 +50,20 @@ stream, norms, RoPE, the elementwise ops, and the replicated wo/wd through
 whole tensors, so every op there sees the shapes a one-device mesh gives
 it.  So every mesh of one column-slab group gives the same bits.  The
 dense steps keep their cache and attention on the first device too.  The
-MoE and recurrent families run on trivial meshes only.
+MoE family's router columns and expert gate/up products run on the shards
+that hold them (``_moe_shards``), its down products and combine on the
+first device.  The recurrent and audio families run on trivial meshes
+only.
+
+The training forward (``forward_hidden``/``forward``/``lm_logits``) runs
+one data replica's params over its mesh (``_Replica``): with ``mesh=``,
+the training layout (``launch/sharding.py::place_train``): column
+products per shard, row products (wo, wd, the expert wd) per shard with
+their partial sums added on the replica's controller, and attention per
+shard on whole heads (gathered onto the controller when the heads do not
+tile the model axis); without one, the whole tree as a one-shard replica.
+``training/train_lib.py::make_train_step(mesh=)`` runs it on each data
+replica.
 
 The recurrent steps never write a state tensor they were given: they
 build new ones, and replace the cache dict's entries.  The sequential
@@ -70,7 +83,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import ServingMesh
-from repro_torch.launch.sharding import trivial
+from repro_torch.launch.sharding import (check_mesh_family, expert_rule,
+                                         kv_heads_shardable, router_split,
+                                         trivial)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -132,12 +147,8 @@ def _shards(cfg: ModelConfig, params, mesh=None) -> _Shards:
         params = [params]
     if mesh is None:
         mesh = ServingMesh((params[0]["embed"].device,))
-    if not trivial(mesh) and (cfg.moe_experts or cfg.family in RECURRENT
-                              or cfg.n_codebooks):
-        raise NotImplementedError(
-            f"tensor parallelism serves the dense family and the VLM text "
-            f"backbone; {cfg.name} ({cfg.family}) under TP is not ported "
-            f"yet (ROADMAP.md Queue A)")
+    if not trivial(mesh):
+        check_mesh_family(cfg)
     if len(params) != mesh.shape["model"]:
         raise ValueError(f"mesh of tp {mesh.shape['model']} with "
                          f"{len(params)} param shards")
@@ -182,7 +193,7 @@ def init_params(cfg: ModelConfig, seed: int, device="cpu", *,
     On the ``meta`` device no value is drawn: the tree's shapes and
     dtypes only.
 
-    ``place(path, leaf)``, for the dense and VLM families: each leaf
+    ``place(path, leaf)``, for the dense, MoE and VLM families: each leaf
     (a whole layer stack) is handed to it as soon as it is drawn and its
     return value kept instead (``launch/sharding.py::placer`` splits it
     over a mesh), so a tree too large for its first device is never whole
@@ -245,10 +256,10 @@ def init_params(cfg: ModelConfig, seed: int, device="cpu", *,
     put("ln2", zeros((nl, D)))
     if cfg.moe_experts:
         E = cfg.moe_experts
-        blk["router"] = mk((nl, D, E))
-        blk["wg"] = mk_slices((nl, E, D, F))
-        blk["wu"] = mk_slices((nl, E, D, F))
-        blk["wd"] = mk_slices((nl, E, F, D), out_scale)
+        put("router", mk((nl, D, E)))
+        put("wg", mk_slices((nl, E, D, F)))
+        put("wu", mk_slices((nl, E, D, F)))
+        put("wd", mk_slices((nl, E, F, D), out_scale))
     else:
         put("wg", stack((nl, D, F)))
         put("wu", stack((nl, D, F)))
@@ -403,23 +414,30 @@ def _embed(cfg: ModelConfig, sh: _Shards, tokens) -> torch.Tensor:
     if (not isinstance(tokens, torch.Tensor)
             or sh.params[0]["embed"].shape[-2] == cfg.vocab_size):
         return embed_inputs(cfg, sh.params[0], tokens)
+    return _vocab_rows([p["embed"] for p in sh.params], sh.devices, tokens)
+
+
+def _vocab_rows(parts, devices, tokens) -> torch.Tensor:
+    """Each token's embedding row from the one part (a vocab slice, on its
+    device) that holds it, on the first device: a select, so exact."""
     x = None
     lo = 0
-    for shard, dev in zip(sh.params, sh.devices):
-        emb = shard["embed"]
+    for emb, dev in zip(parts, devices):
         n = emb.shape[0]
         local = torch.clamp(tokens - lo, 0, n - 1).to(dev)
-        rows = emb[local].to(sh.devices[0])
+        rows = emb[local].to(devices[0])
         mine = ((tokens >= lo) & (tokens < lo + n))[..., None]
-        x = rows if x is None else torch.where(mine, rows, x)
+        x = rows if x is None else torch.where(mine.to(devices[0]), rows, x)
         lo += n
     return x
 
 
-def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    """(..., V) f32 logits of the hidden states ``x``: the final norm, then
-    the logits product."""
-    return _logits(cfg, _shards(cfg, params), x)
+def lm_logits(cfg: ModelConfig, params, x: torch.Tensor,
+              mesh=None) -> torch.Tensor:
+    """(..., V) f32 logits of the hidden states ``x`` (the training path's):
+    the final norm, then the logits product.  ``mesh``: as for
+    ``forward_hidden``."""
+    return _logits_seq(cfg, _replica(cfg, params, mesh), x)
 
 
 def _logit_cols(cfg: ModelConfig, params, x, slabs: int) -> torch.Tensor:
@@ -483,15 +501,94 @@ def _attn_in(cfg: ModelConfig, sh: _Shards, ps, x):
 def _ffn_out(cfg: ModelConfig, sh: _Shards, ps, x):
     """One layer's FFN residual update: x + FFN(norm(x)).  The shards'
     gate and up columns are gathered, so the activation and the
-    replicated down product run on the whole tensors (the MoE family on a
-    trivial mesh only)."""
+    replicated down product run on the whole tensors."""
     h = L.rms_norm(x, ps[0]["ln2"], cfg.norm_eps)
     if cfg.moe_experts:
-        return x + _ffn(cfg, ps[0], h)
+        if trivial(sh.mesh):
+            return x + _ffn(cfg, ps[0], h)
+        return x + _moe_shards(cfg, sh, ps, h)
     g, u = (sh.gather([L.col_proj(h.to(d), p[w], slabs=sh.slabs)
                        for p, d in zip(ps, sh.devices)], dim=-1)
             for w in ("wg", "wu"))
     return x + L.dense_rowsum(F.silu(g) * u, ps[0]["wd"])
+
+
+def _expert_cols(w, e: int, slabs: int):
+    """Expert e's d_ff columns of a shard's expert stack split along d_ff:
+    (slabs, D, F / G) of a slab-major (slabs, E, D, F / G) stack, else
+    (D, F / tp)."""
+    return w[:, e] if slabs > 1 else w[e]
+
+
+def _moe_shards(cfg: ModelConfig, sh: _Shards, ps, h):
+    """The MoE FFN of one layer over the shards (``ps``: every shard's
+    leaves of it) at h, the normed residual on the controller.  The
+    router's columns and the experts' gate and up products run on the
+    shards that hold them (``launch/sharding.py::placer``: whole experts a
+    shard when the group G divides E, else each shard's d_ff slabs); their
+    outputs are gathered, and the activation, the replicated down product
+    and the combine run on the controller in ``layers.moe_dense``'s /
+    ``moe_capacity``'s order and rounding.  Under ``moe_capacity`` a
+    shard's whole experts run in batched products of E / G experts each,
+    so every mesh of one group makes the same calls."""
+    E, k, G = cfg.moe_experts, cfg.moe_top_k, sh.mesh.slabs
+    devs, ctl, tp, per = sh.devices, sh.devices[0], sh.tp, sh.slabs
+    rule = expert_rule(cfg, G)
+    wd = ps[0]["wd"]
+
+    def routed(xr):
+        if router_split(cfg, G):
+            logits = sh.gather([L.col_proj(xr.to(d), p["router"], slabs=per)
+                                for p, d in zip(ps, devs)], dim=-1)
+        else:
+            logits = L.proj(xr, ps[0]["router"])
+        return L.route_logits(logits, k)
+
+    if cfg.moe_impl == "capacity":
+        def experts(xbuf):
+            if rule == "experts":
+                n, own = E // G, E // tp
+                g, u = [], []
+                for m, (p, d) in enumerate(zip(ps, devs)):
+                    xb = xbuf[m * own:(m + 1) * own].to(d)
+                    for j in range(per):
+                        grp = slice(j * n, (j + 1) * n)
+                        for out, w in ((g, "wg"), (u, "wu")):
+                            out.append(torch.einsum("eCd,edf->eCf", xb[grp],
+                                                    p[w][grp]))
+                g, u = sh.gather(g, dim=0), sh.gather(u, dim=0)
+            elif rule == "ffn":
+                def cols(w):
+                    return sh.gather(
+                        [torch.einsum("eCd,edf->eCf", xbuf.to(d),
+                                      p[w][j] if per > 1 else p[w])
+                         for p, d in zip(ps, devs) for j in range(per)],
+                        dim=-1)
+                g, u = cols("wg"), cols("wu")
+            else:
+                return torch.einsum("eCf,efd->eCd", L.glu_buffers(
+                    xbuf, ps[0]["wg"], ps[0]["wu"]), wd)
+            return torch.einsum("eCf,efd->eCd", F.silu(g) * u, wd)
+
+        return L.moe_capacity_with(h, routed, experts, E, k)
+
+    on = {d: h.to(d) for d in dict.fromkeys(devs)}
+
+    def expert(e):
+        if rule == "experts":
+            m, j = divmod(e, E // tp)
+            p, d = ps[m], devs[m]
+            g, u = (L.proj(on[d], p[w][j]).to(ctl) for w in ("wg", "wu"))
+        elif rule == "ffn":
+            g, u = (sh.gather([L.col_proj(on[d], _expert_cols(p[w], e, per),
+                                          slabs=per)
+                               for p, d in zip(ps, devs)], dim=-1)
+                    for w in ("wg", "wu"))
+        else:
+            return L.swiglu(h, ps[0]["wg"][e], ps[0]["wu"][e], wd[e])
+        return L.proj(F.silu(g) * u, wd[e])
+
+    return L.moe_dense_with(h, routed(h), expert, E)
 
 
 # ---------------------------------------------------------------------------
@@ -596,27 +693,8 @@ def _hybrid_ssm_init(cfg: ModelConfig, batch: int, device="cpu"):
                         cfg.ssm_state), device=device)
 
 
-def _attn_block_seq(cfg: ModelConfig, p, x, window: int, positions,
-                    attn_impl):
-    """One attention-family block over a whole sequence from position 0
-    (the training forward): attention through ``L.flash_attention``, then
-    Hymba's SSM branch from a zero state, then the FFN."""
-    B, S, _ = x.shape
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, h)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = L.flash_attention(q, k, v, window=window,
-                          logit_cap=cfg.attn_logit_softcap, impl=attn_impl)
-    x = x + L.proj(o.reshape(B, S, -1), p["wo"])
-    if cfg.family == "hybrid":
-        x = x + _ssm_branch_seq(cfg, p, x)[0]
-    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, p, h2)
-
-
 def forward_hidden(cfg: ModelConfig, params, inputs, *, remat: bool = False,
-                   attn_impl: str | None = None) -> torch.Tensor:
+                   attn_impl: str | None = None, mesh=None) -> torch.Tensor:
     """Training-path forward over whole sequences from position 0: the
     final hidden states (B, S, D) before the final norm (counterpart of
     ``repro.models.model.forward_hidden``).  ``inputs``: {"tokens" (B, S)
@@ -624,32 +702,254 @@ def forward_hidden(cfg: ModelConfig, params, inputs, *, remat: bool = False,
     family, prepended as in ``embed_inputs``}.  With ``remat`` each layer
     of an attention family runs under ``torch.utils.checkpoint`` (its
     activations recomputed in the backward); the xLSTM blocks run as in
-    ``prefill`` from a fresh state, as the reference's do."""
+    ``prefill`` from a fresh state, as the reference's do.
+
+    ``mesh``: one data replica's ``(1, tp)`` mesh, ``params`` then that
+    replica's tree of ``launch/sharding.py::place_train`` (the training
+    layout; see ``_Replica``); without one, ``params`` is the whole tree on
+    one device.  The hidden states come back on the mesh's controller."""
     _check_family(cfg)
-    x = embed_inputs(cfg, params, inputs)
-    B, S = x.shape[:2]
+    rep = _replica(cfg, params, mesh)
     if cfg.family == "ssm":
+        x = embed_inputs(cfg, params, inputs)
         x, _ = _run_xlstm(cfg, params, x,
-                          _xlstm_init_state(cfg, B, x.device))
+                          _xlstm_init_state(cfg, x.shape[0], x.device))
         return x
+    x = _embed_seq(cfg, rep, inputs)
     windows = cfg.layer_windows()
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for li in range(cfg.n_layers):
-        p = _layer(params, li)
+        p = _rep_layer(rep, li)
         if remat:
-            x = checkpoint(_attn_block_seq, cfg, p, x, windows[li],
+            x = checkpoint(_attn_block_seq, cfg, rep, p, x, windows[li],
                            positions, attn_impl, use_reentrant=False)
         else:
-            x = _attn_block_seq(cfg, p, x, windows[li], positions, attn_impl)
+            x = _attn_block_seq(cfg, rep, p, x, windows[li], positions,
+                                attn_impl)
     return x
 
 
 def forward(cfg: ModelConfig, params, inputs, *, remat: bool = False,
-            attn_impl: str | None = None) -> torch.Tensor:
-    """Full-sequence logits (B, S, V), or (B, S, K, V) with codebooks, f32."""
+            attn_impl: str | None = None, mesh=None) -> torch.Tensor:
+    """Full-sequence logits (B, S, V), or (B, S, K, V) with codebooks, f32.
+    ``mesh``: as for ``forward_hidden``."""
     return lm_logits(cfg, params, forward_hidden(cfg, params, inputs,
                                                  remat=remat,
-                                                 attn_impl=attn_impl))
+                                                 attn_impl=attn_impl,
+                                                 mesh=mesh), mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# the training forward over a data replica's model shards
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Replica:
+    """One data replica's params in the training layout (``launch/
+    sharding.py::place_train``) over its ``(1, tp)`` mesh: a leaf split
+    over the model axis is a tuple of its shards, shard m on the mesh's
+    device m; a replicated leaf is one tensor on the controller.  The
+    one-device forward is the one-shard case: every leaf whole.
+
+    A column product (``col``) runs on each shard over its columns, with
+    its slice of a replicated bias; a row product (``row``: wo, wd, the
+    expert wd) runs on each shard over its rows, and the shards' partial
+    sums, each rounded to the activation dtype as ``layers.dense`` rounds
+    a product, are added on the controller in shard order in that dtype:
+    the reduction the reference's all-reduce makes in the operands' dtype.
+    Everything else (norms, RoPE, residual adds, the loss) runs on the
+    controller.  Autograd carries the gradients back through the copies;
+    a replicated leaf is one tensor, so it gets its summed gradient
+    once."""
+    tree: Dict[str, Any]
+    mesh: ServingMesh
+
+    @property
+    def devices(self) -> List[torch.device]:
+        return list(self.mesh.devices)
+
+    @property
+    def controller(self) -> torch.device:
+        return self.mesh.controller
+
+    def gather(self, parts, dim: int = -1) -> torch.Tensor:
+        if len(parts) == 1:
+            return parts[0].to(self.controller)
+        return torch.cat([t.to(self.controller) for t in parts], dim=dim)
+
+    def col(self, w, x, b=None) -> List[torch.Tensor]:
+        """x @ w (+ b) by columns: one part per shard of a split ``w``, on
+        its device, or one whole product on the controller."""
+        if not isinstance(w, tuple):
+            return [L.proj(x, w, b)]
+        out, lo = [], 0
+        for wm, d in zip(w, self.devices):
+            n = wm.shape[-1]
+            bm = None if b is None else b[..., lo:lo + n].to(d)
+            out.append(L.proj(x.to(d), wm, bm))
+            lo += n
+        return out
+
+    def row(self, w, xs) -> torch.Tensor:
+        """The sum over the contraction of ``xs`` (per-shard parts along
+        it, or one whole tensor in a list) times ``w``, on the
+        controller."""
+        if not isinstance(w, tuple):
+            return L.proj(self.gather(xs), w)
+        if len(xs) != len(w):
+            xs = self.gather(xs).split([wm.shape[-2] for wm in w], dim=-1)
+        total = None
+        for xm, wm, d in zip(xs, w, self.devices):
+            part = L.proj(xm.to(d), wm).to(self.controller)
+            total = part if total is None else total + part
+        return total
+
+
+def _replica(cfg: ModelConfig, params, mesh) -> _Replica:
+    """The ``_Replica`` of a training-layout tree over ``mesh``, or of a
+    whole tree over a one-shard mesh of its device when ``mesh`` is
+    None."""
+    if mesh is None:
+        return _Replica(params, ServingMesh((params["embed"].device,)))
+    check_mesh_family(cfg)
+    if mesh.shape["data"] != 1:
+        raise ValueError("the training forward runs one data replica: pass "
+                         "its (1, tp) mesh (DeviceMesh.replica(d))")
+    return _Replica(params, mesh.replica(0))
+
+
+def _rep_layer(rep: _Replica, li: int) -> Dict[str, Any]:
+    return {k: tuple(t[li] for t in w) if isinstance(w, tuple) else w[li]
+            for k, w in rep.tree["blocks"].items()}
+
+
+def _embed_seq(cfg: ModelConfig, rep: _Replica, inputs) -> torch.Tensor:
+    """``embed_inputs`` over the shards: each token's row from the shard
+    whose vocab slice holds it; the VLM's patches through the column
+    parts of ``vision_proj``."""
+    tokens, patches = inputs, None
+    if isinstance(inputs, Mapping):
+        tokens, patches = inputs["tokens"], inputs.get("patch_embeds")
+    emb = rep.tree["embed"]
+    if isinstance(emb, tuple):
+        x = _vocab_rows(emb, rep.devices, tokens)
+    else:
+        x = embed_inputs(cfg, {"embed": emb}, tokens.to(rep.controller))
+    if cfg.family == "vlm" and patches is not None:
+        pe = rep.gather(rep.col(rep.tree["vision_proj"],
+                                patches.to(rep.controller, cfg.tdtype)))
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def _attn_block_seq(cfg: ModelConfig, rep: _Replica, p, x, window: int,
+                    positions, attn_impl):
+    """One attention-family block over a whole sequence from position 0
+    (the training forward): attention through ``L.flash_attention``, then
+    Hymba's SSM branch from a zero state, then the FFN.  When the model
+    axis splits the heads whole (``kv_heads_shardable``), each shard runs
+    attention on its own heads; else the fused head columns the
+    reference's ``param_spec`` still splits tear heads apart, so q, k and
+    v are gathered and attention runs once on the controller over whole
+    heads."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    qs, ks, vs = (rep.col(p[w], h, p.get(b))
+                  for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+    tp = len(rep.devices)
+    if not (len(qs) == len(ks) == tp and kv_heads_shardable(cfg, tp)):
+        qs, ks, vs = ([rep.gather(t)] for t in (qs, ks, vs))
+    outs = []
+    for q, k, v in zip(qs, ks, vs):
+        pos = positions.to(q.device)
+        q = L.apply_rope(q.reshape(B, S, -1, hd), pos, cfg.rope_theta)
+        k = L.apply_rope(k.reshape(B, S, -1, hd), pos, cfg.rope_theta)
+        o = L.flash_attention(q, k, v.reshape(B, S, -1, hd), window=window,
+                              logit_cap=cfg.attn_logit_softcap,
+                              impl=attn_impl)
+        outs.append(o.reshape(B, S, -1))
+    x = x + rep.row(p["wo"], outs)
+    if cfg.family == "hybrid":              # whole leaves: never on a mesh
+        x = x + _ssm_branch_seq(cfg, p, x)[0]
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.moe_experts:
+        return x + _moe_seq(cfg, rep, p, h2)
+    gs, us = rep.col(p["wg"], h2), rep.col(p["wu"], h2)
+    return x + rep.row(p["wd"], [F.silu(g) * u for g, u in zip(gs, us)])
+
+
+def _moe_seq(cfg: ModelConfig, rep: _Replica, p, h):
+    """The MoE FFN over the shards in the training layout: the router's
+    columns gathered; whole experts a shard (E split) run their gate, up
+    and down products there, or (d_ff split) each shard's columns and
+    rows of every expert, summed as a row product; the combine on the
+    controller in expert order."""
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    tp, devs, ctl = len(rep.devices), rep.devices, rep.controller
+    rule = expert_rule(cfg, tp) if isinstance(wg, tuple) else "replicated"
+
+    def routed(xr):
+        return L.route_logits(rep.gather(rep.col(p["router"], xr)), k)
+
+    if cfg.moe_impl == "capacity":
+        def experts(xbuf):
+            if rule == "experts":
+                n = E // tp
+                return rep.gather([torch.einsum(
+                    "eCf,efd->eCd",
+                    L.glu_buffers(xbuf[m * n:(m + 1) * n].to(d), wg[m],
+                                  wu[m]), wd[m])
+                    for m, d in enumerate(devs)], dim=0)
+            if rule == "ffn":
+                total = None
+                for m, d in enumerate(devs):
+                    part = torch.einsum("eCf,efd->eCd", L.glu_buffers(
+                        xbuf.to(d), wg[m], wu[m]), wd[m]).to(ctl)
+                    total = part if total is None else total + part
+                return total
+            return torch.einsum("eCf,efd->eCd", L.glu_buffers(xbuf, wg, wu),
+                                wd)
+
+        return L.moe_capacity_with(h, routed, experts, E, k)
+
+    on = {d: h.to(d) for d in dict.fromkeys(devs)}
+
+    def expert(e):
+        if rule == "experts":
+            m, j = divmod(e, E // tp)
+            return L.swiglu(on[devs[m]], wg[m][j], wu[m][j],
+                            wd[m][j]).to(ctl)
+        if rule == "ffn":
+            hs = [F.silu(L.proj(on[d], wg[m][e])) * L.proj(on[d], wu[m][e])
+                  for m, d in enumerate(devs)]
+            return rep.row(tuple(w[e] for w in wd), hs)
+        return L.swiglu(h, wg[e], wu[e], wd[e])
+
+    return L.moe_dense_with(h, routed(h), expert, E)
+
+
+def _logits_seq(cfg: ModelConfig, rep: _Replica, x) -> torch.Tensor:
+    """``lm_logits`` over the shards: each shard's vocab columns (the tied
+    embedding's rows), gathered on the controller."""
+    x = L.rms_norm(x, rep.tree["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings and cfg.n_codebooks:   # whole: never on a mesh
+        logits = torch.einsum("bsd,kvd->bskv", x, rep.tree["embed"])
+    elif cfg.tie_embeddings:
+        emb = rep.tree["embed"]
+        parts = emb if isinstance(emb, tuple) else (emb,)
+        logits = rep.gather([torch.matmul(x.to(e.device), e.t())
+                             for e in parts])
+    else:
+        logits = rep.gather(rep.col(rep.tree["lm_head"], x))
+        if cfg.n_codebooks:
+            logits = logits.reshape(x.shape[:2] + (cfg.n_codebooks,
+                                                   cfg.vocab_size))
+    if cfg.final_logit_softcap:
+        logits = L.softcap(logits.float(), cfg.final_logit_softcap)
+    return logits.float()
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -701,7 +1001,7 @@ def prefill(cfg: ModelConfig, params, tokens, prefix_cache=None,
         state = (prefix_cache if prefix_cache is not None
                  else _xlstm_init_state(cfg, B, tokens.device))
         x, new_state = _run_xlstm(cfg, params, x, state)
-        return lm_logits(cfg, params, x[:, -1:]), new_state
+        return _logits(cfg, sh, x[:, -1:]), new_state
     P = int(prefix_len)
     if prefix_cache is not None and prefix_cache["k"].shape[2] != P:
         raise ValueError(f"prefix cache holds {prefix_cache['k'].shape[2]} "
@@ -759,7 +1059,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
     if cfg.family == "ssm":
         x, new_state = _run_xlstm(cfg, params, x, cache)
         cache.update(new_state)
-        return lm_logits(cfg, params, x)
+        return _logits(cfg, sh, x)
     B = x.shape[0]
     windows = cfg.layer_windows()
     rope_pos = (pos - 1)[:, None]

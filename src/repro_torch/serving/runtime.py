@@ -54,7 +54,10 @@ and tree decision is the same at any tp, and the tokens, tier hits and
 first-token logits are those of a one-device mesh of the same column-slab
 group (``launch/mesh.py``) bit for bit.  The runtime holds only the
 shards: CAG preloads through the dense prefill over the mesh.  The MoE
-family under TP raises ``NotImplementedError``.
+family shards its router and expert stacks by the reference's rules
+(``launch/sharding.py::placer``: whole experts a shard when the group
+divides E, else d_ff slabs; the expert ``wd`` on the controller), with the
+dense family's pool, backend and copies.
 """
 from __future__ import annotations
 
@@ -360,10 +363,6 @@ class ContinuousRuntime:
         # ---- the serving mesh: one replica over tp devices (one at tp 1) --
         tp = config.mesh.tp
         if tp > 1:
-            if cfg.moe_experts:
-                raise NotImplementedError(
-                    f"tensor parallelism of the MoE family ({cfg.name}) is "
-                    f"not ported yet (ROADMAP.md Queue A: MoE under TP)")
             assert_tp_compatible(cfg, tp)
         if mesh is None:
             mesh = make_serving_mesh(tp, device=self.device)

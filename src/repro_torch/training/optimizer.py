@@ -9,6 +9,15 @@ dimensions, and the update cast back to the param's dtype.  It is not
 ``torch.optim.AdamW``, which decays every tensor and rounds in another
 order.  Leaves are visited in sorted-key order, as ``jax.tree.leaves``
 visits a dict, so the global norm sums them in the reference's order.
+
+On a ``(data, model)`` mesh (``launch/sharding.py::place_train``'s
+layout) the moments are ZeRO-1 slices (``init_state_zero``): each device
+keeps the slice of its param shard that ``opt_spec``'s data dim gives its
+replica.  ``apply_updates_zero`` sums each shard's gradient over the data
+replicas onto the owner of each slice (a reduce-scatter), takes the norm
+of the whole gradient from those slices (each piece once), updates each
+slice where it lives, and gathers the slices into every replica's copy,
+so every replica holds the same param bits.
 """
 from __future__ import annotations
 
@@ -39,9 +48,12 @@ class AdamWState(NamedTuple):
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in sorted-key order."""
+    """The tensors of a nested dict (and of the lists and tuples in it:
+    a placed leaf's shards), in sorted-key order."""
     if isinstance(tree, Mapping):
         return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in tree_leaves(x)]
     return [tree]
 
 
@@ -73,12 +85,29 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 sum of squares, leaf by leaf."""
-    total = None
+    """sqrt of the sum of every leaf's f32 sum of squares, leaf by leaf, on
+    the first leaf's device.  A tensor that appears more than once (a
+    replicated leaf that several shards' trees share) counts once."""
+    total, seen = None, set()
     for x in tree_leaves(tree):
+        if id(x) in seen:
+            continue
+        seen.add(id(x))
         sq = torch.sum(torch.square(x.float()))
-        total = sq if total is None else total + sq
+        total = sq if total is None else total + sq.to(total.device)
     return torch.sqrt(total)
+
+
+def _adamw(cfg: AdamWConfig, p, g, m, v, lr, clip, bc1, bc2, ndim: int):
+    """One leaf's (or one slice's) AdamW update: (new p, m, v).  ``ndim``
+    is the whole leaf's, which decides the decay."""
+    g = g.float() * clip
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * g * g
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    if ndim >= 2:               # decoupled weight decay on matrices only
+        delta = delta + cfg.weight_decay * p.float()
+    return (p.float() - lr * delta).to(p.dtype), m, v
 
 
 @torch.no_grad()
@@ -94,13 +123,7 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):
     bc2 = 1 - torch.pow(cfg.b2, stepf)
 
     def upd(p, g, m, v):
-        g = g.float() * clip
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if p.dim() >= 2:            # decoupled weight decay on matrices only
-            delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        return _adamw(cfg, p, g, m, v, lr, clip, bc1, bc2, p.dim())
 
     out = tree_map(upd, params, grads, state.m, state.v)
     return _pick(out, 0), AdamWState(step=step, m=_pick(out, 1),
@@ -112,3 +135,156 @@ def _pick(tree, i):
     if isinstance(tree, Mapping):
         return {k: _pick(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+def _parts(leaf) -> tuple:
+    """A placed leaf's model shards (one for a replicated leaf)."""
+    return leaf if isinstance(leaf, tuple) else (leaf,)
+
+
+def _placed(parts: list, like):
+    return tuple(parts) if isinstance(like, tuple) else parts[0]
+
+
+def _paths(tree, path=()):
+    """The leaf paths of a nested dict, in sorted-key order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], Mapping):
+            yield from _paths(tree[k], path + (k,))
+        else:
+            yield path + (k,)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _put(tree, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _slice(t: torch.Tensor, dd: int, n: int, d: int) -> torch.Tensor:
+    """Replica ``d``'s ZeRO-1 slice of ``t`` along ``dd`` (all of it when
+    the moments have no data dim)."""
+    return t if dd < 0 else t.chunk(n, dd)[d]
+
+
+def init_state_zero(dims, params: list, mesh) -> AdamWState:
+    """f32 zero moments in ZeRO-1 slices for ``place_train``'s list over
+    ``mesh``: replica d's trees hold, for each shard of each leaf, the
+    slice ``opt_spec`` gives it (the whole shard when no dim divides),
+    on the shard's device.  ``dims``: ``launch/sharding.py::train_dims``
+    of the model over ``mesh``.  The step counter lives on replica 0's
+    controller."""
+    n = mesh.shape["data"]
+
+    def zeros(d):
+        out = {}
+        for path in _paths(params[d]):
+            leaf, dd = _get(params[d], path), dims[path][1]
+            _put(out, path, _placed(
+                [torch.zeros(_slice(t, dd, n, d).shape, dtype=torch.float32,
+                             device=t.device) for t in _parts(leaf)], leaf))
+        return out
+
+    m = [zeros(d) for d in range(n)]
+    v = [zeros(d) for d in range(n)]
+    step = torch.zeros((), dtype=torch.int32,
+                       device=mesh.replica(0).controller)
+    return AdamWState(step=step, m=m, v=v)
+
+
+@torch.no_grad()
+def apply_updates_zero(cfg: AdamWConfig, dims, mesh, params: list,
+                       grads: list, state: AdamWState):
+    """One AdamW step over ZeRO-1 slices.  ``params``: ``place_train``'s
+    list (one placed tree a data replica); ``grads``: the replicas' grads
+    in the same layout (one tree per replica that computed a share of the
+    loss); ``state``: ``init_state_zero``'s; ``dims``: as there.  Returns
+    (new params, new state, grad norm on replica 0's controller): new
+    tensors."""
+    n = mesh.shape["data"]
+    ctl = mesh.replica(0).controller
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    stepf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(cfg.b1, stepf)
+    bc2 = 1 - torch.pow(cfg.b2, stepf)
+    paths = list(_paths(params[0]))
+    # the reduce-scatter: each slice's gradient summed over the replicas in
+    # replica order, on the device that owns the slice
+    reduced, pieces = {}, []
+    for path in paths:
+        dd = dims[path][1]
+        for i in range(len(_parts(_get(params[0], path)))):
+            sums = []
+            for d in range(n):
+                dev = _parts(_get(params[d], path))[i].device
+                total = None
+                for g in grads:
+                    s = _slice(_parts(_get(g, path))[i], dd, n, d).to(dev)
+                    total = s if total is None else total + s
+                sums.append(total)
+            reduced[path, i] = sums
+            pieces += sums if dd >= 0 else sums[:1]
+    gnorm = global_norm(pieces).to(ctl)
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    new_p = [{} for _ in range(n)]
+    new_m = [{} for _ in range(n)]
+    new_v = [{} for _ in range(n)]
+    for path in paths:
+        dd = dims[path][1]
+        like = _get(params[0], path)
+        shards = [[] for _ in range(n)]
+        moments = [([], []) for _ in range(n)]
+        for i in range(len(_parts(like))):
+            slices = []
+            for d in range(n):
+                p = _parts(_get(params[d], path))[i]
+                dev = p.device
+                scal = [t.to(dev) for t in (lr, clip, bc1, bc2)]
+                ps, m, v = _adamw(
+                    cfg, _slice(p, dd, n, d), reduced[path, i][d],
+                    _parts(_get(state.m[d], path))[i],
+                    _parts(_get(state.v[d], path))[i], *scal, p.dim())
+                slices.append(ps)
+                moments[d][0].append(m)
+                moments[d][1].append(v)
+            for d in range(n):
+                dev = _parts(_get(params[d], path))[i].device
+                shards[d].append(
+                    slices[d] if dd < 0
+                    else torch.cat([t.to(dev) for t in slices], dim=dd))
+        for d in range(n):
+            _put(new_p[d], path, _placed(shards[d], like))
+            _put(new_m[d], path, _placed(moments[d][0], like))
+            _put(new_v[d], path, _placed(moments[d][1], like))
+    return new_p, AdamWState(step=step, m=new_m, v=new_v), gnorm
+
+
+def gather_moments(dims, mesh, moments: list, device="cpu"):
+    """One whole moment tree on ``device`` from the replicas' ZeRO-1
+    slices (``init_state_zero``'s ``m`` or ``v``): the slices concatenated
+    along their data dim, then the shards along their model dim
+    (``dims``: as for ``init_state_zero``)."""
+    n = mesh.shape["data"]
+    out = {}
+    for path in _paths(moments[0]):
+        md, dd = dims[path]
+        parts = []
+        for i in range(len(_parts(_get(moments[0], path)))):
+            sl = [_parts(_get(moments[d], path))[i].to(device)
+                  for d in range(n)]
+            parts.append(sl[0] if dd < 0 else torch.cat(sl, dim=dd))
+        _put(out, path, parts[0] if len(parts) == 1
+             else torch.cat(parts, dim=md))
+    return out

@@ -7,6 +7,16 @@ Qwen2-0.5B's vocabulary of 151,936 a batch of 8 x 1024 tokens would take
 5.0 GB in f32); the backward recomputes each chunk's logits.  The model's
 layers run under ``remat`` too.  On the card the forward's attention is
 the prefix-attention kernel, its backward ``layers.flash_attention_bwd``.
+
+``make_train_step(cfg, opt, mesh=)`` takes the step on a ``(data,
+model)`` mesh (``launch/mesh.py::DeviceMesh``) in the training layout of
+``launch/sharding.py::place_train``: the batch splits over the data axis
+as ``batch_spec`` says, each replica runs the forward over its model
+shards (``models/model.py::_Replica``), the loss is the global masked mean
+(every replica's NLL sum over the global token count), and the grads are
+summed over the replicas into ZeRO-1 slices
+(``optimizer.apply_updates_zero``).  A capacity-dispatch MoE trains on a
+data axis of 1 only (``_check_dispatch``).
 """
 from __future__ import annotations
 
@@ -15,16 +25,18 @@ from typing import Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.sharding import batch_spec, train_dims
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
-                                            apply_updates, tree_leaves,
+                                            apply_updates,
+                                            apply_updates_zero, tree_leaves,
                                             tree_map)
 
 
-def _chunk_nll(cfg: ModelConfig, params, xc, lc, mc):
+def _chunk_nll(cfg: ModelConfig, params, xc, lc, mc, mesh=None):
     """Masked NLL sum and mask sum of one chunk of hidden states."""
-    logits = M.lm_logits(cfg, params, xc)               # (B, C, [K,] V)
+    logits = M.lm_logits(cfg, params, xc, mesh=mesh)    # (B, C, [K,] V)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
     return ((lse - gold) * mc).sum(), mc.sum()
@@ -36,8 +48,17 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     """Mean next-token NLL over the unmasked positions.  ``batch``:
     {"tokens", "labels" (B, S) or (B, K, S), optionally "loss_mask" of the
     labels' shape and "patch_embeds"}."""
+    nll, cnt = nll_sums(cfg, params, batch, seq_chunk, attn_impl)
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def nll_sums(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+             seq_chunk: int = 512, attn_impl: str | None = None, mesh=None):
+    """(masked NLL sum, mask sum) of a batch, each summed chunk by chunk.
+    ``mesh``: one data replica's mesh, ``params`` its training layout
+    (``models/model.py::forward_hidden``)."""
     x = M.forward_hidden(cfg, params, batch, remat=True,
-                         attn_impl=attn_impl)          # (B, S, D)
+                         attn_impl=attn_impl, mesh=mesh)  # (B, S, D)
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if cfg.n_codebooks:
@@ -45,18 +66,18 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         if mask is not None:
             mask = mask.movedim(1, 2)
     mask = (torch.ones(labels.shape, dtype=torch.float32, device=x.device)
-            if mask is None else mask.float())
+            if mask is None else mask.float().to(x.device))
+    labels = labels.to(x.device)
     S = x.shape[1]
     chunk = min(seq_chunk, S)
     nll, cnt = [], []
     for c0 in range(0, S, chunk):
         sl = slice(c0, c0 + chunk)
         n, c = checkpoint(_chunk_nll, cfg, params, x[:, sl], labels[:, sl],
-                          mask[:, sl], use_reentrant=False)
+                          mask[:, sl], mesh, use_reentrant=False)
         nll.append(n)
         cnt.append(c)
-    return torch.stack(nll).sum() / torch.clamp(torch.stack(cnt).sum(),
-                                                min=1.0)
+    return torch.stack(nll).sum(), torch.stack(cnt).sum()
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch, seq_chunk: int = 512,
@@ -71,11 +92,102 @@ def loss_and_grads(cfg: ModelConfig, params, batch, seq_chunk: int = 512,
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
+def _live(tree):
+    """``tree`` (a placed tree: a leaf may be a tuple of shards) with every
+    tensor detached and requiring grad, and the list of those tensors in
+    ``tree_leaves`` order."""
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
+    return _refill(tree, iter(live)), live
+
+
+def _refill(tree, it):
+    if isinstance(tree, dict):
+        return {k: _refill(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, tuple):
+        return tuple(next(it) for _ in tree)
+    return next(it)
+
+
+def _split_batch(cfg: ModelConfig, batch, mesh):
+    """Each data replica's rows of ``batch`` (``batch_spec``: the data axis
+    when it divides the batch), on its controller.  A batch the axis does
+    not divide is replicated by the reference, every replica computing
+    the same grads: it goes whole to replica 0 alone, which computes them
+    once."""
+    B = batch["tokens"].shape[0]
+    bax, n = batch_spec(cfg, B, mesh)
+    if bax is None:
+        n = 1
+    return [{k: v.chunk(n)[d].to(mesh.replica(d).controller)
+             for k, v in batch.items()} for d in range(n)]
+
+
+def _check_dispatch(cfg: ModelConfig, mesh) -> None:
+    """The reference's capacity dispatch fills each expert's buffer from
+    the whole batch's tokens in order, so replicas that dispatched their
+    own rows would keep other tokens; a data axis over 1 needs the
+    dispatch run across replicas, which comes with the compile analysis
+    (ROADMAP.md Queue A)."""
+    if (cfg.moe_experts and cfg.moe_impl == "capacity"
+            and mesh.shape["data"] > 1):
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl='capacity' on a data axis of "
+            f"{mesh.shape['data']} needs the dispatch run across the data "
+            f"replicas, which is not ported yet (ROADMAP.md Queue A: the "
+            f"compile analysis); use a (1, tp) mesh or moe_impl='dense'")
+
+
+def sharded_loss_and_grads(cfg: ModelConfig, params: list, batch, mesh,
+                           seq_chunk: int = 512,
+                           attn_impl: str | None = None):
+    """(loss, grads) on a ``(data, model)`` mesh: the global masked mean
+    (the replicas' NLL sums over the whole batch's mask sum) on replica 0's
+    controller, and each computing replica's grads of its share in its
+    layout (a leaf's shards, a replicated leaf once), unsummed."""
+    _check_dispatch(cfg, mesh)
+    parts = _split_batch(cfg, batch, mesh)
+    ctl = mesh.replica(0).controller
+    mask = batch.get("loss_mask")
+    count = (torch.tensor(float(batch["labels"].numel()), device=ctl)
+             if mask is None else mask.float().sum().to(ctl))
+    count = torch.clamp(count, min=1.0)
+    loss, grads = None, []
+    for d, part in enumerate(parts):
+        row = mesh.replica(d)
+        tree, live = _live(params[d])
+        nll, _ = nll_sums(cfg, tree, part, seq_chunk, attn_impl, mesh=row)
+        share = nll / count.to(nll.device)
+        got = torch.autograd.grad(share, live, allow_unused=True)
+        got = [torch.zeros_like(t) if g is None else g
+               for g, t in zip(got, live)]
+        grads.append(_refill(params[d], iter(got)))
+        share = share.detach().to(ctl)
+        loss = share if loss is None else loss + share
+    return loss, grads
+
+
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
-                    attn_impl: str | None = None):
+                    attn_impl: str | None = None, mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``: ``loss_and_grads``, then ``apply_updates``.
-    Returns new params; the given ones are only read."""
+    Returns new params; the given ones are only read.
+
+    ``mesh``: a ``(data, model)`` mesh; ``params`` is then
+    ``launch/sharding.py::place_train``'s list and ``opt_state``
+    ``optimizer.init_state_zero``'s, and the step is
+    ``sharded_loss_and_grads``, then ``apply_updates_zero``."""
+    if mesh is not None:
+        _check_dispatch(cfg, mesh)
+        dims = train_dims(cfg, mesh)
+
+        def sharded_step(params, opt_state: AdamWState, batch):
+            loss, grads = sharded_loss_and_grads(cfg, params, batch, mesh,
+                                                 attn_impl=attn_impl)
+            params, opt_state, gnorm = apply_updates_zero(
+                opt, dims, mesh, params, grads, opt_state)
+            return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+        return sharded_step
+
     def train_step(params, opt_state: AdamWState, batch):
         loss, grads = loss_and_grads(cfg, params, batch, attn_impl=attn_impl)
         params, opt_state, gnorm = apply_updates(opt, params, grads,

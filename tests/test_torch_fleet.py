@@ -243,10 +243,14 @@ def test_serve_main_fleet_flags_on_cpu(capsys, argv):
         assert "note: --replicas applies to the continuous engine" in out
 
 
-def test_serve_main_tp_still_raises():
-    """--tp serves the dense family (tests/test_torch_tp.py); the MoE
-    family under --tp is still to port and raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _quiet(serve.main, ["--device", "cpu", "--tp", "2",
-                            "--arch", "mixtral-8x7b",
-                            "--requests", "2", "--docs", "8"])
+def test_serve_main_tp_still_raises(capsys):
+    """--tp serves the dense family (tests/test_torch_tp.py) and the MoE
+    family (tests/test_torch_tp_moe.py), here in the 2D fleet; a tp that
+    would split a KV head of Mixtral's (reduced: 2 KV heads) still raises
+    before any device work."""
+    argv = ["--device", "cpu", "--arch", "mixtral-8x7b", "--requests", "2",
+            "--docs", "8"]
+    serve.main(argv + ["--tp", "2", "--replicas", "2", "--check-tokens"])
+    assert "token check: all 2 requests identical" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="shard a KV head"):
+        _quiet(serve.main, argv + ["--tp", "4"])

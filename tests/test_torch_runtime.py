@@ -125,14 +125,31 @@ def test_chunked_prefill_gives_the_same_tokens(setup, port_run):
                                        mesh=MeshConfig(tp=2)),
                                   dict(mesh=MeshConfig(tp=2))])
 def test_unported_options_raise(setup, conf):
-    """Tensor parallelism serves the dense family under every path
-    (tests/test_torch_tp.py); the MoE family under it, alone or under the
-    dense, chunk-reuse and CAG paths, is still to port."""
-    _, _, _, _, _, corpus, _, idx, _, _ = setup
+    """Tensor parallelism serves the dense family (tests/test_torch_tp.py)
+    and, alone or under the dense, chunk-reuse and CAG paths, the MoE
+    family: its tp 2 gives the tokens and first-token logits of tp 1 over
+    a one-device mesh of its column-slab group.  The recurrent families
+    stay refused by the runtime, under a mesh too."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    _, _, _, _, _, corpus, _, idx, _, wl = setup
     cfg = get_reduced("mixtral-8x7b")
     params = M.init_params(cfg, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousRuntime(cfg, params, corpus, idx,
+    runs = []
+    for tp in (2, 1):
+        config = dataclasses.replace(EngineConfig(**conf),
+                                     mesh=MeshConfig(tp=tp))
+        rt = ContinuousRuntime(cfg, params, corpus, idx, config=config,
+                               device="cpu",
+                               mesh=make_serving_mesh(tp, device="cpu",
+                                                      slabs=2))
+        runs.append(sorted(rt.serve(wl[:4], max_new_tokens=2),
+                           key=lambda r: r.req_id))
+    assert [r.tokens for r in runs[0]] == [r.tokens for r in runs[1]]
+    for a, b in zip(*runs):
+        assert np.array_equal(a.first_logits, b.first_logits), a.req_id
+    hymba = get_reduced("hymba-1.5b")
+    with pytest.raises(ValueError, match="recurrent"):
+        ContinuousRuntime(hymba, M.init_params(hymba, 0), corpus, idx,
                           config=EngineConfig(**conf), device="cpu")
 
 

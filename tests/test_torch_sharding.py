@@ -182,8 +182,10 @@ def test_slab_group_must_split_over_tp_and_whole_heads():
     with pytest.raises(ValueError, match="would split a head"):
         sh.shard_params(params, cfg, make_serving_mesh(1, device="cpu", slabs=16))
     moe = get_reduced("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="under TP is not ported"):
-        sh.placer(moe, make_serving_mesh(2, device="cpu"))
+    assert len(sh.shard_params(M.init_params(moe, 0), moe,
+                               make_serving_mesh(2, device="cpu"))) == 2
+    with pytest.raises(NotImplementedError, match="under a mesh is not ported"):
+        sh.placer(get_reduced("hymba-1.5b"), make_serving_mesh(2, device="cpu"))
 
 
 def test_card_bytes_and_the_full_size_check(monkeypatch):
@@ -392,3 +394,173 @@ def test_row_rule_at_the_column_slab_shapes():
     # the slab shapes of a group of 4: LLaMA2-7B's gate/up
     cfg = get_config("llama2-7b")
     assert cfg.d_ff // 4 == 2752
+
+
+# ---------------------------------------------------------------------------
+# the training half of the rules, against the reference's
+# ---------------------------------------------------------------------------
+
+
+class FakeMesh:
+    """A stand-in (data, model) mesh: the rules read only ``shape`` and
+    ``axis_names`` (as tests/test_sharding.py's does)."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, n_data, n_model):
+        self.shape = {"data": n_data, "model": n_model}
+
+
+MESHES = [(2, 4), (1, 8), (16, 16)]
+
+
+def _capture(monkeypatch):
+    """Make the reference's tree_shardings return its specs as a dict by
+    path (the keys it would name them by)."""
+    captured = {}
+
+    def capture(tree, spec_fn, mesh):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            captured[_keys(path)] = tuple(spec_fn(_keys(path), leaf))
+        return captured
+
+    monkeypatch.setattr(jsh, "tree_shardings", capture)
+    return captured
+
+
+@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_and_opt_specs_match_reference(trees, arch, shape,
+                                             monkeypatch):
+    jshapes, tree = trees[arch]
+    mesh = FakeMesh(*shape)
+    captured = _capture(monkeypatch)
+    jsh.param_shardings(jax_config(arch), jshapes, mesh)
+    ours = dict(sh._leaves(sh.param_shardings(get_config(arch), tree, mesh)))
+    assert ours == captured
+    jleaves = _jax_leaves(jshapes)
+    for path, leaf in sh._leaves(tree):
+        ps = sh.param_spec(path, leaf, get_config(arch), mesh)
+        want = tuple(jsh.opt_spec(jsh.P(*ps), jleaves[path], mesh))
+        assert sh.opt_spec(ps, leaf, mesh) == want, path
+    from repro_torch.training.optimizer import AdamWState
+    state = AdamWState(step=None, m=tree, v=tree)
+    osh = sh.opt_shardings(get_config(arch), tree, state, mesh)
+    assert osh.step == ()
+    for path, leaf in sh._leaves(tree):
+        ps = sh.param_spec(path, leaf, get_config(arch), mesh)
+        assert dict(sh._leaves(osh.m))[path] == sh.opt_spec(ps, leaf, mesh)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_batch_and_input_specs_match_reference(arch, shape, monkeypatch):
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    mesh = FakeMesh(*shape)
+    for batch in (1, 3, 8, 16, 256):
+        assert sh.batch_spec(cfg, batch, mesh) == jsh.batch_spec(jcfg, batch,
+                                                                 mesh)
+    shapes = {"tokens": (16, 64), "labels": (16, 64), "pos": (16,),
+              "step": (), "patch_embeds": (16, 4, 32), "odd": (3, 5)}
+    captured = _capture(monkeypatch)
+    jsh.input_shardings(jcfg, {k: jax.ShapeDtypeStruct(v, np.float32)
+                               for k, v in shapes.items()}, mesh)
+    ours = sh.input_shardings(cfg, {k: torch.empty(v, device="meta")
+                                    for k, v in shapes.items()}, mesh)
+    assert {(k,): v for k, v in ours.items()} == captured
+
+
+@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_specs_match_reference(arch, shape, monkeypatch):
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    mesh = FakeMesh(*shape)
+    for batch in (1, 16, 128):
+        jcache = jax.eval_shape(lambda: JM.init_decode_cache(jcfg, batch, 64))
+        captured = _capture(monkeypatch)
+        jsh.cache_shardings(jcfg, jcache, mesh, batch)
+        cache = M.init_decode_cache(cfg, batch, 64, device="meta")
+        ours = sh.cache_shardings(cfg, cache, mesh, batch)
+        flat = {}
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, path + (k,))
+            elif isinstance(node, list):
+                for i, v in enumerate(node):
+                    walk(v, path + (str(i),))
+            elif node is not None:
+                flat[path] = node
+
+        walk(_as_lists(ours), ())
+        assert flat == captured and captured, (batch, flat, captured)
+
+
+def _as_lists(tree):
+    """A spec tree's containers of specs as lists (a spec is itself a
+    tuple), so that walking it tells the two apart."""
+    if isinstance(tree, dict):
+        return {k: _as_lists(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and tree and all(
+            isinstance(t, tuple) for t in tree):
+        return [_as_lists(t) for t in tree]
+    return tree
+
+
+def test_debug_mesh_and_data_axes(monkeypatch):
+    from repro_torch.launch.mesh import DeviceMesh, data_axes, make_debug_mesh
+    mesh = make_debug_mesh(device="cpu")
+    assert mesh.shape == {"data": 2, "model": 4}
+    assert mesh.axis_names == ("data", "model") and data_axes(mesh) == ("data",)
+    assert mesh.replica(0).slabs == 4 and len(mesh.devices) == 8
+    assert mesh.replica(1).devices == (torch.device("cpu"),) * 4
+    one = make_debug_mesh(2, 2, devices=["cuda:0"] * 4)
+    assert one.replica(1).controller == torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="needs 4 devices, got 3"):
+        make_debug_mesh(2, 2, devices=["cpu"] * 3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 8 devices but only 1"):
+        make_debug_mesh()
+    with pytest.raises(ValueError, match="one length"):
+        DeviceMesh(((torch.device("cpu"),), ()))
+    serving = make_serving_mesh(2, device="cpu")
+    assert serving.replica(0) is serving
+    assert data_axes(serving) == ("data",)
+    assert jsh.data_axes(FakeMesh(2, 4)) == data_axes(FakeMesh(2, 4))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "internvl2-1b"])
+def test_place_train_splits_by_param_spec_and_gathers_back(arch):
+    """The training layout: a leaf param_spec splits over model is a tuple
+    of its chunks along that dim (wo/wd rows too), a replicated leaf one
+    tensor; every replica holds its own copies; gather_train gives the
+    tree back bit for bit."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    params = M.init_params(cfg, 0)
+    mesh = make_debug_mesh(2, 2, device="cpu")
+    placed = sh.place_train(params, cfg, mesh)
+    assert len(placed) == 2
+    dims = sh.train_dims(cfg, mesh)
+    for path, leaf in sh._leaves(params):
+        spec = sh.param_spec(path, leaf, cfg, mesh)
+        got = [dict(sh._leaves(p))[path] for p in placed]
+        if "model" in spec:
+            d = spec.index("model")
+            assert dims[path][0] == d
+            for rep in got:
+                assert isinstance(rep, tuple) and len(rep) == 2
+                assert all(torch.equal(a, b)
+                           for a, b in zip(rep, leaf.chunk(2, d)))
+            assert got[0][0].data_ptr() != got[1][0].data_ptr()
+        else:
+            assert torch.equal(got[0], leaf) and got[0] is not leaf
+    assert isinstance(dict(sh._leaves(placed[0]))[("blocks", "wo")], tuple)
+    back = sh.gather_train(placed, cfg, mesh)
+    for path, leaf in sh._leaves(params):
+        assert torch.equal(dict(sh._leaves(back))[path], leaf), path
+    with pytest.raises(NotImplementedError, match="under a mesh"):
+        sh.place_train(M.init_params(get_reduced("hymba-1.5b"), 0),
+                       get_reduced("hymba-1.5b"), mesh)
