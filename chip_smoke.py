@@ -79,7 +79,7 @@ Phases, each fatal on failure:
  17. vlm     — InternVL2-1B at full width and 12 of its 24 layers: the
                main serve, chunk split,
                plain versions, a prefill with 256 patch embeddings;
- 18. xlstm   — xLSTM-1.3B at full width and 24 of its 48 blocks (a depth
+ 18. xlstm   — xLSTM-1.3B at full width and 16 of its 48 blocks (a depth
                cut, RECURRENT_LAYERS) through the sequential
                RAGServer, its state snapshots in the knowledge tree: 8
                requests cold, then 4 whose docs are cached (one through
@@ -87,7 +87,7 @@ Phases, each fatal on failure:
                every snapshot's checksum unchanged across the hits; billed
                and real tier bytes side by side; mlstm_chunkwise against
                mlstm_scan on one full-width layer;
- 19. hymba   — Hymba-1.5B at full width and 16 of its 32 layers the same
+ 19. hymba   — Hymba-1.5B at full width and 8 of its 32 layers the same
                way, its attention on the prefix kernel (R 5, windows of
                1024 and a global layer), and the 8 cold requests through
                the plain
@@ -128,6 +128,31 @@ Phases, each fatal on failure:
                a hop through a runtime that reuses each path's KV, tokens
                equal to a cold runtime's on each path.
 
+ seqpar  — Yi-34B at full width and 4 of its 60 layers, one 8192-token
+               prefill over a (1, 4) mesh of shards on the one card: the
+               seq-par option (512-row query chunks dealt over the shards,
+               each through the prefix kernel) bit for bit against the
+               unsplit prefill on that mesh (logits and cache), and
+               flat-gqa (K/V repeated to every head, the kernel at R 1)
+               against the plain version on layer 0's q, k, v;
+ train_mesh_families — one (2, 2) mesh train step of Hymba-1.5B (2
+               layers), xLSTM-1.3B (8 blocks) and MusicGen-large (2
+               layers) at full width against the one-device step on the
+               same batch (phase 24b's tolerances), the replicas' params
+               equal after it;
+ capacity_data2 — Mixtral-8x7B's first layer at full width with capacity
+               dispatch: a (2, 1) mesh step whose 4096-token dispatch
+               chunk straddles both data replicas, against the one-device
+               step;
+ dryrun_cal — the compile analysis against the card: phase 24's
+               one-device step and phase 24b's mesh step dry-run on fake
+               cards in processes started at the beginning (their
+               prefix-kernel calls must equal the card's launches), the
+               predicted peak of the one-device step beside the card's
+               (their ratio printed), and qwen2-0.5b decode_32k on the
+               (16, 16) production mesh through launch/dryrun.py, its
+               record printed.
+
  tp      — run after phase 26 on Qwen2-0.5B's weights (tp 2) and inside
                phase 15 on Mistral-7B's (tp 2 and 4), every shard on the
                one card: the column-product probe (each shard's columns
@@ -155,12 +180,14 @@ repository, the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
 import gc
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -273,10 +300,11 @@ RECURRENT_REQUESTS = 8
 WARM_REQUESTS = 4
 TIER_TOKENS = (3000, 6000)
 XLSTM_ARCH = "xlstm-1.3b"
-# depth cuts that make room for phases 21-23: xLSTM-1.3B through 24 of its
-# 48 blocks (3 periods of 7 mLSTM blocks and an sLSTM block), Hymba-1.5B
-# through 16 of its 32 layers (layer 15 global, the rest windowed)
-RECURRENT_LAYERS = {"xlstm-1.3b": 24, "hymba-1.5b": 16}
+# depth cuts that make room for phases 21-23 and the compile analysis's
+# phases: xLSTM-1.3B through 16 of its 48 blocks (2 periods of 7 mLSTM
+# blocks and an sLSTM block), Hymba-1.5B through 8 of its 32 layers (all
+# windowed)
+RECURRENT_LAYERS = {"xlstm-1.3b": 16, "hymba-1.5b": 8}
 # Hymba's comparisons of two bf16 serves take eps = max(paper_eps, 2 x F),
 # F the first-token L-inf of its plain-version serve in bf16 against the
 # same serve in f32, measured in the same run: each bf16 serve may lie F
@@ -396,6 +424,27 @@ WINDOW_LAYERS = 2
 TP_REQUESTS = 16
 TP_DECODE_REPS = 20
 TP_PROBE_ROWS = (1, 8, 64, 512, 2048)
+# the compile analysis (launch/dryrun.py) against the card: phase 24's
+# one-device step and phase 24b's (2, 2) mesh step run on fake cards in
+# processes of their own beside the card's phases, their prefix-kernel
+# calls held to the card's launch counters; the predicted peak of the
+# one-device step beside the card's (a ratio outside DRYRUN_PEAK_BAND is
+# recorded, not fatal); one production case (DRYRUN_CASE) through the CLI
+DRYRUN_CASE = ("qwen2-0.5b", "decode_32k")
+DRYRUN_TIMEOUT = 600
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+# phase seqpar: Yi-34B (56 / 8 heads) at full width, SEQPAR_LAYERS of its 60
+# layers, one SEQPAR_TOKENS-token prefill over a (1, 4) mesh on the card
+SEQPAR_ARCH = "yi-34b"
+SEQPAR_LAYERS = 4
+SEQPAR_TOKENS = 8192
+# phase train_mesh_families: full width, these depths (xLSTM: one period
+# of 7 mLSTM blocks and an sLSTM block), batch MESH_FAMILY_BATCH
+MESH_FAMILIES = {"hymba-1.5b": 2, "xlstm-1.3b": 8, "musicgen-large": 2}
+MESH_FAMILY_BATCH = (4, 256)
+# phase capacity_data2: Mixtral-8x7B's 1 layer at full width, 2 rows of
+# 2048 tokens: one 4096-token dispatch chunk over both data replicas
+CAPACITY_BATCH = (2, 2048)
 # where each kernel came from: (wrapper, source, TPU kernel it replaces)
 KERNELS = (
     ("paged_decode_attention", "src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -4227,11 +4276,399 @@ def phase_hops(torch, np, cfg, params, corpus, idx, wl, args):
                 same_logits=same_logits, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# the compile analysis against the card, seq-par, the mesh families
+# ---------------------------------------------------------------------------
+
+DRYRUN_WORKER = r'''
+import json, sys
+sys.path.insert(0, "src")
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun, op_analysis, specs
+from repro_torch.training import optimizer as O, train_lib as TL
+from repro_torch.training.data import DataConfig, make_batches
+cfg = get_config("qwen2-0.5b")
+which, B, S = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+if which == "one":
+    host = next(make_batches(DataConfig(batch_size=B, seq_len=S,
+                                        vocab_size=cfg.vocab_size), cfg))
+    with FakeTensorMode():
+        params = specs._whole_params(cfg, "meta:0")
+        state = O.init_state(params)
+        batch = {k: torch.zeros(v.shape, dtype=torch.as_tensor(v).dtype,
+                                device="meta:0") for k, v in host.items()}
+        _, tally = op_analysis.analyze(TL.make_train_step(
+            cfg, O.AdamWConfig()), params, state, batch)
+else:
+    tally, _ = dryrun.analyze_case(cfg, dict(kind="train", seq=S, batch=B),
+                                   dryrun.fake_mesh(2, 2, whole=True),
+                                   computed=None)
+calls = sum(c.kernels.get("prefix_flash_attention", 0)
+            for c in tally.cards.values())
+card = tally.cards[torch.device("meta:0")]
+print("RESULT" + json.dumps({"calls": calls, "peak": card.peak_bytes,
+                             "args": card.argument_bytes,
+                             "flops": sum(c.flops for c in
+                                          tally.cards.values())}))
+'''
+
+
+def start_dryruns():
+    """The compile analysis's runs, on the host's CPU while the card works:
+    phase 24's one-device step and phase 24b's (2, 2) mesh step on fake
+    cards, and one production case through launch/dryrun.py."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for which in ("one", "mesh"):
+        procs[which] = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_WORKER, which, str(TRAIN_BATCH),
+             str(TRAIN_SEQ)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    procs["production"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_CASE[0], "--shape", DRYRUN_CASE[1], "--out", str(out),
+         "--force"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    atexit.register(stop)
+    return procs, time.perf_counter()
+
+
+def train_step_peak(torch, cfg, params):
+    """One phase-24 step on the card from a clean allocator: (bytes of its
+    arguments, the most bytes allocated above what was held before it)."""
+    from repro_torch.training.optimizer import (AdamWConfig, init_state,
+                                                tree_leaves)
+    from repro_torch.training.train_lib import make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_state(params)
+    batch = train_batches(torch, cfg, 1)[0]
+    args = sum(t.numel() * t.element_size() for t in
+               tree_leaves(params) + tree_leaves(state.m) + tree_leaves(
+                   state.v) + [state.step] + list(batch.values()))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = make_train_step(cfg, AdamWConfig())(params, state, batch)
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - held
+    del out, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return args, above
+
+
+def phase_dryrun_cal(torch, procs, t_started, train, train_tp, card_peak):
+    """Phase dryrun_cal: the fake runs against the card.  Their prefix-kernel
+    calls must equal phases 24 / 24b's launch counters; the predicted peak
+    of the one-device step is printed beside the card's (its arguments
+    plus the most allocated above what was held) and their ratio; the
+    production case's record is printed."""
+    t_phase = time.perf_counter()
+    got = {}
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            die(f"[dryrun_cal] the {name} dry run passed {DRYRUN_TIMEOUT}s")
+        if p.returncode != 0:
+            die(f"[dryrun_cal] the {name} dry run failed: {err[-2000:]}")
+        got[name] = out
+    waited = time.perf_counter() - t_phase
+    res = {k: json.loads([ln for ln in got[k].splitlines()
+                          if ln.startswith("RESULT")][0][len("RESULT"):])
+           for k in ("one", "mesh")}
+    want = {"one": train["launches"], "mesh": train_tp["launches"]}
+    for k in ("one", "mesh"):
+        print(f"[dryrun_cal] {k}: fake run's prefix-kernel calls "
+              f"{res[k]['calls']}, the card's launches {want[k]}; FLOPs "
+              f"{res[k]['flops']:.6e}", flush=True)
+        if res[k]["calls"] != want[k]:
+            die(f"[dryrun_cal] {k}: the fake run counts {res[k]['calls']} "
+                f"prefix-kernel calls, the card launched {want[k]}")
+    args, above = card_peak
+    pred = res["one"]["peak"]
+    card = args + above
+    ratio = pred / card
+    print(f"[dryrun_cal] one-device step of {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"predicted peak {pred} B ({pred / 1e9:.2f} GB; arguments "
+          f"{res['one']['args']} B), the card's {card} B ({card / 1e9:.2f} "
+          f"GB = arguments {args} B + {above} B max allocated above them); "
+          f"ratio {ratio:.4f} (band {DRYRUN_PEAK_BAND}); "
+          f"{card_line(torch)}", flush=True)
+    rec = json.loads((ROOT / "chiprun_out" / "dryrun_torch" /
+                      f"{DRYRUN_CASE[0]}__{DRYRUN_CASE[1]}__single.json")
+                     .read_text())
+    if rec.get("status") != "ok":
+        die(f"[dryrun_cal] production case: {rec}")
+    rl = rec["roofline"]
+    print(f"[dryrun_cal] {DRYRUN_CASE[0]} {DRYRUN_CASE[1]} on "
+          f"{rec['mesh_shape']}: dominant {rl['dominant']}, t_compute "
+          f"{rl['t_compute_s']:.4e} s, t_memory {rl['t_memory_s']:.4e} s, "
+          f"t_collective {rl['t_collective_s']:.4e} s, peak "
+          f"{rec['memory']['peak_bytes']} B, useful ratio "
+          f"{rl['useful_ratio']:.4f} (published H100 peaks, not measured); "
+          f"dry run {rec['run_s']}s", flush=True)
+    print(f"[dryrun_cal] record {json.dumps(rec)[:3000]}", flush=True)
+    wall = time.perf_counter() - t_started
+    print(f"[dryrun_cal] phase wall {time.perf_counter() - t_phase:.1f}s "
+          f"({waited:.1f}s waiting; the dry runs ran {wall:.1f}s beside "
+          f"the card's phases)", flush=True)
+    return dict(ratio=ratio, pred=pred, card=card, calls={
+        k: res[k]["calls"] for k in res}, record=rec)
+
+
+def cut_params(torch, cfg, n_layers, seed=0):
+    """Seeded bf16 params of ``cfg`` cut to ``n_layers`` at full width,
+    drawn on the card."""
+    from repro_torch.models.model import init_params
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    return cut, init_params(cut, seed, device="cuda")
+
+
+def phase_seqpar(torch):
+    """Phase seqpar: Yi-34B at full width and SEQPAR_LAYERS layers, one
+    SEQPAR_TOKENS-token prefill (models/model.py::replica_prefill) over a
+    (1, 4) mesh of shards on the one card: seq-par (512-row query chunks
+    dealt over the shards, each through the prefix kernel) against the
+    unsplit prefill on the same mesh, bit for bit (logits and cache); then
+    flat-gqa (K/V repeated to 56 heads, the kernel at R 1) on layer 0's q,
+    k, v, row by row against the plain version run in f32 within
+    TOL_ROW_BF16 (the kernel's bf16 row tolerance), and its logits'
+    distance from the grouped run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.kernels import prefix_attention as PX
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = cut_params(torch, get_config(SEQPAR_ARCH), SEQPAR_LAYERS)
+    mesh = make_debug_mesh(1, 4, devices=["cuda:0"] * 4)
+    placed = sh.place_train(params, cfg, mesh)[0]
+    del params
+    row = mesh.replica(0)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (1, SEQPAR_TOKENS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    runs, launches = {}, {}
+    with torch.no_grad():
+        for name, opts in (("unsplit", sh.Options()),
+                           ("seq-par", sh.Options(seq_par=True)),
+                           ("flat-gqa", sh.Options(flat_gqa=True))):
+            reset_counts()
+            runs[name] = M.replica_prefill(cfg, placed, {"tokens": toks},
+                                           mesh=row, opts=opts)
+            torch.cuda.synchronize()
+            launches[name], plain = read_counts()
+            if plain or launches[name]["prefix_flash_attention"] <= 0:
+                die(f"[seqpar] {name}: launches {launches[name]}, plain "
+                    f"{plain}")
+    (la, ca), (lb, cb), (lf, _) = (runs[k] for k in ("unsplit", "seq-par",
+                                                     "flat-gqa"))
+    ka = torch.cat(ca["k"], dim=3) if isinstance(ca["k"], tuple) else ca["k"]
+    va = torch.cat(ca["v"], dim=3) if isinstance(ca["v"], tuple) else ca["v"]
+    bits = {"logits": bool(torch.equal(la, lb)),
+            "k": bool(torch.equal(ka, cb["k"])),
+            "v": bool(torch.equal(va, cb["v"]))}
+    dl = float((la - lb).abs().max())
+    flat_d = float((lf - la).abs().max())
+    # flat-gqa's kernel call at R 1 against the plain version on layer 0
+    with torch.no_grad():
+        p0 = M._rep_layer(M._replica(cfg, placed, row), 0)
+        rep = M._replica(cfg, placed, row, sh.Options(flat_gqa=True))
+        x = M._embed_seq(cfg, rep, {"tokens": toks})
+        (q, k, v), = M._qkv_parts(cfg, rep, p0, L.rms_norm(
+            x, p0["ln1"], cfg.norm_eps), torch.arange(
+                SEQPAR_TOKENS, dtype=torch.int32, device="cuda"), whole=True)
+        r = q.shape[2] // k.shape[2]
+        kr, vr = k.repeat_interleave(r, 2), v.repeat_interleave(r, 2)
+        got = M._attend(cfg, rep, q, k, v, 0, None)
+        exact = PX.prefix_attention_torch(
+            *(t.float().transpose(1, 2) for t in (q, kr, vr)),
+            prefix_len=0).transpose(1, 2)
+        plain = PX.prefix_attention_torch(
+            q.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2),
+            prefix_len=0).transpose(1, 2)
+        err = row_err(torch, got, exact)
+        plain_err = row_err(torch, plain, exact)
+        abs_d = float((got.float() - plain.float()).abs().max())
+    n = {k: launches[k]["prefix_flash_attention"] for k in launches}
+    print(f"[seqpar] {cfg.name}: full width, {cfg.n_layers} of 60 layers, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads over a (1, 4) mesh on "
+          f"one card; one {SEQPAR_TOKENS}-token prefill: seq-par vs "
+          f"unsplit bit-identical {bits} (max |d logits| {dl:.3e}); prefix "
+          f"launches unsplit {n['unsplit']}, seq-par {n['seq-par']}, "
+          f"flat-gqa {n['flat-gqa']}; flat-gqa layer 0, rows against the "
+          f"plain version in f32: kernel {err:.3e}, plain bf16 "
+          f"{plain_err:.3e} (tol {TOL_ROW_BF16:g}), max |kernel - plain| "
+          f"{abs_d:.3e}; flat-gqa vs grouped logits "
+          f"{flat_d:.3e}; {card_line(torch)}", flush=True)
+    if not all(bits.values()):
+        die(f"[seqpar] seq-par prefill differs from the unsplit one: {bits}")
+    if not err <= TOL_ROW_BF16:
+        die(f"[seqpar] flat-gqa kernel rows {err} > {TOL_ROW_BF16}")
+    del runs, placed, q, k, v, kr, vr, got, exact, plain, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[seqpar] phase wall {wall:.1f}s", flush=True)
+    return dict(bits=bits, flat_err=err, flat_logits=flat_d, launches=n,
+                wall=wall)
+
+
+def mesh_step(torch, cfg, params, batch, mesh=None):
+    """One AdamW step of ``cfg`` (one device, or on ``mesh``): (loss, grad
+    norm, launches); every data replica's params equal after it."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.training.optimizer import (AdamWConfig, init_state,
+                                                init_state_zero, tree_leaves)
+    from repro_torch.training.train_lib import make_train_step
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1)
+    if mesh is None:
+        p, state = params, init_state(params)
+    else:
+        p = sh.place_train(params, cfg, mesh)
+        state = init_state_zero(sh.train_dims(cfg, mesh), p, mesh)
+    reset_counts()
+    new, _, m = make_train_step(cfg, opt, mesh=mesh)(p, state, batch)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    if plain:
+        die(f"[train mesh] {cfg.name}: the plain versions ran ({plain})")
+    out = (float(m["loss"]), float(m["grad_norm"]),
+           launches["prefix_flash_attention"])
+    if not all(math.isfinite(x) for x in out[:2]):
+        die(f"[train mesh] {cfg.name}: loss / grad norm {out[:2]}")
+    if mesh is not None:
+        for d in range(1, len(new)):
+            for i, (a, b) in enumerate(zip(tree_leaves(new[0]),
+                                           tree_leaves(new[d]))):
+                if not torch.equal(a, b):
+                    bad = int((a != b).sum())
+                    die(f"[train mesh] {cfg.name}: replica {d}'s leaf {i} "
+                        f"{tuple(a.shape)} differs at {bad} of {a.numel()} "
+                        f"(max |d| {float((a.float() - b.float()).abs().max())}"
+                        f"; finite {bool(torch.isfinite(a.float()).all())})")
+    del new, p, state, m
+    return out
+
+
+def family_batch(torch, cfg, B, S, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, cfg.n_codebooks, S) if cfg.n_codebooks else (B, S)
+    return {k: torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+            for k in ("tokens", "labels")}
+
+
+def phase_train_mesh_families(torch):
+    """Phase train_mesh_families: one (2, 2) mesh train step of each of
+    MESH_FAMILIES (full width, the cut depth given) against the one-device
+    step on the same batch and weights: loss within TRAIN_LOSS_TOL, grad
+    norm within TRAIN_GNORM_RTOL; Hymba's and MusicGen's attention on the
+    prefix kernel (launches data x model x the one-device step's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import kv_heads_shardable
+    t_phase = time.perf_counter()
+    mesh = make_debug_mesh(2, 2, devices=["cuda:0"] * 4)
+    out = {}
+    for arch, layers in MESH_FAMILIES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg, params = cut_params(torch, get_config(arch), layers)
+        batch = family_batch(torch, cfg, *MESH_FAMILY_BATCH, seed=41)
+        one = mesh_step(torch, cfg, params, batch)
+        two = mesh_step(torch, cfg, params, batch, mesh)
+        dl, dg = abs(two[0] - one[0]), abs(two[1] - one[1]) / one[1]
+        print(f"[train mesh] {arch}: full width, {layers} of "
+              f"{get_config(arch).n_layers} layers, batch "
+              f"{MESH_FAMILY_BATCH}; one device loss {one[0]:.6f} grad "
+              f"norm {one[1]:.6f}; (2, 2) mesh loss {two[0]:.6f} grad norm "
+              f"{two[1]:.6f}: |d loss| {dl:.3e} (tol {TRAIN_LOSS_TOL:g}), "
+              f"grad norm relative {dg:.3e} (tol {TRAIN_GNORM_RTOL:g}); "
+              f"prefix launches {one[2]} / {two[2]}; "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        if not (dl <= TRAIN_LOSS_TOL and dg <= TRAIN_GNORM_RTOL):
+            die(f"[train mesh] {arch}: mesh step vs one device: loss {dl}, "
+                f"grad norm {dg}")
+        # each replica's shards attend on their whole heads, or (heads that
+        # do not split over 2) its controller once over all of them
+        per = 2 * (2 if kv_heads_shardable(cfg, 2) else 1)
+        if two[2] != per * one[2]:
+            die(f"[train mesh] {arch}: {two[2]} prefix launches on the "
+                f"mesh, not {per} x {one[2]}")
+        out[arch] = dict(one=one, mesh=two, loss=dl, gnorm=dg)
+        del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[train mesh] phase wall {wall:.1f}s", flush=True)
+    return dict(runs=out, wall=wall)
+
+
+def phase_capacity_data2(torch):
+    """Phase capacity_data2: Mixtral-8x7B at full width and 1 layer, moe_impl
+    capacity, one step on a (2, 1) mesh (the batch's single 4096-token
+    dispatch chunk straddles both replicas, whose slots follow the whole
+    batch's order: models/model.py::CapacityDispatch) against the
+    one-device capacity step, same tolerances as phase 24b."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = dataclasses.replace(get_config(MOE_ARCH), moe_impl="capacity")
+    cfg, params = cut_params(torch, base, 1)
+    batch = family_batch(torch, cfg, *CAPACITY_BATCH, seed=43)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one = mesh_step(torch, cfg, params, batch)
+    two = mesh_step(torch, cfg, params, batch,
+                    make_debug_mesh(2, 1, devices=["cuda:0"] * 2))
+    peak = torch.cuda.max_memory_allocated() - held
+    dl, dg = abs(two[0] - one[0]), abs(two[1] - one[1]) / one[1]
+    print(f"[capacity data2] {MOE_ARCH}: full width, 1 layer, capacity "
+          f"dispatch, batch {CAPACITY_BATCH}; one device loss {one[0]:.6f} "
+          f"grad norm {one[1]:.6f}; (2, 1) mesh loss {two[0]:.6f} grad "
+          f"norm {two[1]:.6f}: |d loss| {dl:.3e} (tol {TRAIN_LOSS_TOL:g}), "
+          f"grad norm relative {dg:.3e} (tol {TRAIN_GNORM_RTOL:g}); peak "
+          f"{peak} B above {held} B held; {card_line(torch)}", flush=True)
+    if not (dl <= TRAIN_LOSS_TOL and dg <= TRAIN_GNORM_RTOL):
+        die(f"[capacity data2] mesh step vs one device: loss {dl}, grad "
+            f"norm {dg}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[capacity data2] phase wall {wall:.1f}s", flush=True)
+    return dict(one=one, mesh=two, loss=dl, gnorm=dg, peak=peak, wall=wall,
+                launches=two[2])
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
     phase_device(torch)
     import numpy as np
+    dry_procs, dry_t0 = start_dryruns()
     phase_build()
     dec, dec_long, pre, pfx, paper, errs = phase_parity(torch, np)
     times = phase_times(torch, np, dec, dec_long, pre, pfx, paper, errs)
@@ -4259,6 +4696,7 @@ def main() -> None:
     hops = phase_hops(torch, np, cfg, params, corpus, idx, wl, args)
     train = phase_train(torch, np, cfg, params)
     train_tp = phase_train_tp(torch, np, cfg, params)
+    card_peak = train_step_peak(torch, cfg, params)
     tp_qwen = phase_tp(torch, np,
                        *first_layers(cfg, params, TP_LAYERS[cfg.name]),
                        corpus, idx, wl, args, TP_MODELS[cfg.name], cfg)
@@ -4270,6 +4708,11 @@ def main() -> None:
     hybrid = phase_hybrid(torch, np)
     audio = phase_audio(torch, np)
     large = {arch: phase_large_dense(torch, np, arch) for arch in LARGE_DENSE}
+    seqpar = phase_seqpar(torch)
+    families = phase_train_mesh_families(torch)
+    cap2 = phase_capacity_data2(torch)
+    cal = phase_dryrun_cal(torch, dry_procs, dry_t0, train, train_tp,
+                           card_peak)
     for arch, o in paper.items():
         print(f"[paper] {arch} ({PAPER_LAYERS[arch]} layers): "
               f"{o['blocks']} pool blocks, host tier {PAPER_HOST_BYTES} B; "
@@ -4301,6 +4744,15 @@ def main() -> None:
                    "dense serve": dense, "sequential check": seq,
                    "train step": train["launches"],
                    "train step, (2, 2) mesh": train_tp["launches"]}}
+    for key, n in seqpar["launches"].items():
+        by_path["prefix_flash_attention"][
+            f"{SEQPAR_ARCH} {key} prefill, (1, 4) mesh"] = n
+    for arch, o in families["runs"].items():
+        if o["mesh"][2]:
+            by_path["prefix_flash_attention"][
+                f"{arch} train step, (2, 2) mesh"] = o["mesh"][2]
+    by_path["prefix_flash_attention"][
+        f"{MOE_ARCH} capacity train step, (2, 1) mesh"] = cap2["launches"]
     for name in ("paged_decode_attention", "paged_prefill_attention"):
         by_path[name]["fault serve"] = fault["launches"][name]
         by_path[name]["hops serve"] = hops["launches"][name]
@@ -4423,6 +4875,12 @@ def main() -> None:
              "at_hd256": {k: times[k] for k in hd256
                           if k.split("_")[1] in name}},
             **extra))
+    print(f"[dryrun_cal] predicted / card peak {cal['ratio']:.4f}; calls "
+          f"{cal['calls']}; [seqpar] bits {seqpar['bits']}, flat-gqa "
+          f"{seqpar['flat_err']:.3e}, phase wall {seqpar['wall']:.1f}s; "
+          f"[train mesh] phase wall {families['wall']:.1f}s; [capacity "
+          f"data2] |d loss| {cap2['loss']:.3e}, grad norm {cap2['gnorm']:.3e}"
+          f", phase wall {cap2['wall']:.1f}s", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s wall in all",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -62,6 +62,14 @@ _ALIASES = {
 }
 
 
+# the architectures the compile analysis sweeps (launch/dryrun.py --all)
+ASSIGNED = [
+    "xlstm-1.3b", "hymba-1.5b", "phi3.5-moe-42b-a6.6b", "yi-34b",
+    "gemma3-12b", "internvl2-1b", "musicgen-large", "gemma2-27b",
+    "mixtral-8x7b", "qwen2-0.5b",
+]
+
+
 def _module(name: str):
     mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "p")
     if mod not in _ARCHS:

@@ -6,6 +6,12 @@
   impl="cuda"  -> force the kernel (raises for a CPU tensor)
   impl="torch" -> force the plain version (on either device)
 
+Under the compile analysis (``launch/op_analysis.py``) a kernel call is
+counted at its own formula: a fake tensor (``FakeTensorMode``) gets the
+kernel's output shape and dtype and nothing runs; a real one runs as
+above with the tally paused.  The plain version's block loop is never
+counted in the kernel's place.
+
 ``mesh``: the serving mesh (``launch/mesh.py``; one shard at tp 1).  With
 a mesh the paged ops take the pool's list of planes, one per shard, and
 dispatch the same kernel (or plain version) PER SHARD: shard i
@@ -21,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import paged_attention as _pg
+from repro_torch.launch import op_analysis
 from repro_torch.kernels import paged_prefill as _pp
 from repro_torch.kernels import prefix_attention as _pa
 
@@ -36,11 +43,49 @@ def _resolve(impl, q) -> str:
     return impl
 
 
+def prefix_pairs(prefix_len: int, sq: int, window: int) -> int:
+    """The (query, key) pairs the prefix kernel's masks leave visible over
+    ``sq`` query rows after ``prefix_len`` cached keys: row i sees
+    ``min(prefix_len + i + 1, window)`` keys (all of them without a
+    window)."""
+    a, b = prefix_len + 1, prefix_len + sq      # keys seen by the first, last
+    if sq <= 0:
+        return 0
+    if window <= 0 or b <= window:
+        return (a + b) * (b - a + 1) // 2
+    lo = (a + window) * (window - a + 1) // 2 if a <= window else 0
+    return lo + (b - max(a, window + 1) + 1) * window
+
+
+def _prefix_counted(q, k, v, prefix_len, window, logit_cap, impl):
+    """``prefix_attention`` under the compile analysis: one kernel call at
+    the kernel's formula (QK and PV over the visible pairs; q, k, v read
+    and the output written once); a fake call's output is the kernel's
+    (B, H, Sq, hd) view of a (B, Sq, H, hd) buffer."""
+    B, H, Sq, hd = q.shape
+    op_analysis.note(
+        q.device,
+        4 * B * H * hd * prefix_pairs(int(prefix_len), Sq, int(window)),
+        (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+        kernel="prefix_flash_attention")
+    if op_analysis.is_fake(q):
+        _pa._check_shapes(q, k, v, int(prefix_len))
+        return torch.empty((B, Sq, H, hd), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
+    with op_analysis.paused() as run:
+        out = prefix_attention(q, k, v, prefix_len=prefix_len, window=window,
+                               logit_cap=logit_cap, impl=impl)
+    return run.keep(out)
+
+
 def prefix_attention(q, k, v, *, prefix_len: int, window: int = 0,
                      logit_cap: float = 0.0, impl: str | None = None):
     """Prefill over dense [cached prefix ‖ new] KV (the dense prefill's
     attention; see prefix_attention.py).  Layouts: q (B, H, Sq, hd); k/v
     (B, KV, prefix_len + Sq, hd)."""
+    tally = op_analysis.active()
+    if op_analysis.is_fake(q) or (tally is not None and not tally.quiet):
+        return _prefix_counted(q, k, v, prefix_len, window, logit_cap, impl)
     if _resolve(impl, q) == "torch":
         return _pa.prefix_attention_torch(q, k, v, prefix_len=prefix_len,
                                           window=window, logit_cap=logit_cap)

@@ -29,14 +29,18 @@ is an ordered grid of devices, ``grid[d][m]`` the device of data replica
 ``(1, tp)`` case, ``replica(d)``), whose first device is that replica's
 controller.  ``make_debug_mesh`` builds one (the reference's CI mesh,
 (2, 4) by default), ``data_axes`` names its batch axes.
-``make_production_mesh`` belongs to the compile analysis, which the port
-does not have yet.
+``make_production_mesh`` builds the reference's production shapes,
+``(data 16, model 16)`` or ``(pod 2, data 16, model 16)``, over devices
+the caller names: the compile analysis (``launch/dryrun.py``) gives it
+fake cards.  A mesh with a ``pod`` axis keeps its replicas as rows in
+(pod, data) order: ``pods`` splits them, and ``n_replicas`` counts them
+whatever the axes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -64,6 +68,10 @@ class ServingMesh:
         return {"data": 1, "model": len(self.devices)}
 
     @property
+    def n_replicas(self) -> int:
+        return 1
+
+    @property
     def controller(self) -> torch.device:
         """The device that holds the replicated residual stream and runs
         the replicated products (shard 0's)."""
@@ -81,16 +89,30 @@ class DeviceMesh:
     shard ``m`` of data replica ``d``."""
 
     grid: Tuple[Tuple[torch.device, ...], ...]
-    axis_names: Tuple[str, ...] = ("data", "model")
+    pods: int = 1
 
     def __post_init__(self):
         if not self.grid or len({len(row) for row in self.grid}) != 1:
             raise ValueError("a mesh's rows must be non-empty and of one "
                              "length")
+        if self.pods < 1 or len(self.grid) % self.pods:
+            raise ValueError(f"{len(self.grid)} replicas do not split into "
+                             f"{self.pods} pods")
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return (("pod",) if self.pods > 1 else ()) + ("data", "model")
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": len(self.grid), "model": len(self.grid[0])}
+        out = {"pod": self.pods} if self.pods > 1 else {}
+        out.update(data=len(self.grid) // self.pods, model=len(self.grid[0]))
+        return out
+
+    @property
+    def n_replicas(self) -> int:
+        """The data replicas over every data axis (pod included)."""
+        return len(self.grid)
 
     @property
     def devices(self) -> Tuple[torch.device, ...]:
@@ -142,6 +164,33 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 4, device=None,
                     f"a ({n_data}, {n_model}) mesh")
     return DeviceMesh(tuple(devs[d * n_model:(d + 1) * n_model]
                             for d in range(n_data)))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Callable = None) -> DeviceMesh:
+    """The reference's production mesh: ``(data 16, model 16)``, or two
+    pods, ``(pod 2, data 16, model 16)``.  ``device(d, m)`` gives the
+    device of data replica ``d``'s model shard ``m``; by default the card
+    ``cuda:(16 d + m)``.  torch keeps a device index in 8 bits, so a mesh
+    whose indices pass 127 raises here rather than wrap: the compile
+    analysis (``launch/dryrun.py``) maps the replicas onto fewer fake
+    cards itself.  Nothing here touches a device."""
+    pods = 2 if multi_pod else 1
+    n_data, n_model = 16 * pods, 16
+    if device is None:
+        def device(d, m):
+            return torch.device("cuda", n_model * d + m)
+    grid = []
+    for d in range(n_data):
+        row = []
+        for m in range(n_model):
+            dev = torch.device(device(d, m))
+            if dev.index is not None and dev.index < 0:
+                raise ValueError(f"device index of replica {d} shard {m} "
+                                 f"is past torch's 127")
+            row.append(dev)
+        grid.append(tuple(row))
+    return DeviceMesh(tuple(grid), pods=pods)
 
 
 def make_serving_mesh(tp: int, device=None, devices: Sequence = None,

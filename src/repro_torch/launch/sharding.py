@@ -34,16 +34,28 @@ Training placement (``place_train``): ``param_shardings``' specs, so
 ``wo``/``wd`` (and the expert ``wd``) keep Megatron row parallelism; each
 data replica holds its own copy of the tree, a split leaf as its model
 shards on the replica's devices, a replicated leaf once on the replica's
-controller.  ``gather_train`` turns it back into one tree.  The
-ragged-heads option (``ATTN_REPLICATE_IF_RAGGED``) comes with the compile
-analysis, its only caller in the reference.
+controller.  ``gather_train`` turns it back into one tree.  Every family
+trains on a mesh; serving under a mesh (``placer``) takes the attention
+families only, as the reference's ``serve.py`` sends the recurrent and
+audio families to its sequential engine without ``--tp``.
+
+The compile analysis's layout options (the reference's ``--opt`` flags,
+module globals there) are an explicit ``Options`` here, threaded with the
+mesh.  ``attn_fallback`` is the reference's ``ATTN_REPLICATE_IF_RAGGED``:
+where the heads do not tile the model axis, the attention weights split
+over the data axes instead (``param_spec``), each replica holding its
+slice on its controller (``place_train``) and every layer gathering the
+slices (``models/model.py::_Replica``); their moments take the slice's
+shape.  The reference's ``opt_spec`` would add the data axes to such a
+moment a second time, which ``NamedSharding`` refuses.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -65,6 +77,27 @@ _COL = {
     "vision_proj",
 }
 _ROW = {"wo", "wd", "w_down", "ssm_out"}
+_ATTN = {"wq", "wk", "wv", "wo"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Options:
+    """The compile analysis's layout options (``launch/dryrun.py --opt``):
+
+    seq_par        ``seq-par``: the prefill's attention in query chunks of
+                   ``layers.SEQPAR_CHUNK`` dealt round-robin over the model
+                   axis (``layers.flash_attention_seqpar``)
+    flat_gqa       ``flat-gqa``: K/V repeated to every query head before
+                   attention (the kernel at R 1)
+    attn_fallback  ``attn-fallback``: attention weights split over the data
+                   axes where the heads do not tile the model axis
+    """
+    seq_par: bool = False
+    flat_gqa: bool = False
+    attn_fallback: bool = False
+
+
+NO_OPTIONS = Options()
 
 
 def _heads_tile_cleanly(cfg: ModelConfig, msize: int) -> bool:
@@ -111,9 +144,11 @@ def _fits(dim: int, size: int) -> bool:
     return dim % size == 0 and dim >= size
 
 
-def param_spec(path: Tuple[str, ...], leaf, cfg: ModelConfig, mesh) -> tuple:
+def param_spec(path: Tuple[str, ...], leaf, cfg: ModelConfig, mesh,
+               fallback: bool = False) -> tuple:
     """The spec of the leaf at ``path`` (its keys from the tree's root):
-    the reference's ``param_spec`` rules, as a tuple."""
+    the reference's ``param_spec`` rules, as a tuple.  ``fallback``: the
+    ragged-heads rule (``Options.attn_fallback``)."""
     name = path[-1]
     ndim = leaf.ndim
     msize = _axis_size(mesh, "model")
@@ -130,6 +165,15 @@ def param_spec(path: Tuple[str, ...], leaf, cfg: ModelConfig, mesh) -> tuple:
             d = ndim - 1 if name in ("wg", "wu") else ndim - 2
             if _fits(leaf.shape[d], msize):
                 spec[d] = "model"
+        return tuple(spec)
+
+    if (fallback and name in _ATTN and cfg.family != "ssm"
+            and not _heads_tile_cleanly(cfg, msize)):
+        # ragged heads: the attention weights split over the data axes
+        _, dsize, ax = _data_size(mesh)
+        d = ndim - 1 if name != "wo" else ndim - 2
+        if _fits(leaf.shape[d], dsize):
+            spec[d] = ax
         return tuple(spec)
 
     if name == "embed":
@@ -202,10 +246,12 @@ def serving_param_shardings(cfg: ModelConfig, params, mesh) -> Dict[str, Any]:
     return _map(params, spec)
 
 
-def spec_summary(cfg: ModelConfig, mesh, params) -> str:
+def spec_summary(cfg: ModelConfig, mesh, params,
+                 fallback: bool = False) -> str:
     """One line per param name of the chosen specs, surfacing the silent
     ``param_spec`` fallbacks to replication.  Printed by ``serve.py
-    --tp``."""
+    --tp`` and by the compile analysis (``fallback``: the ragged-heads
+    rule)."""
     msize = _axis_size(mesh, "model")
     lines = [
         f"partition specs over model={msize} "
@@ -215,7 +261,7 @@ def spec_summary(cfg: ModelConfig, mesh, params) -> str:
     ]
     seen = {}
     for path, leaf in _leaves(params):
-        spec = param_spec(path, leaf, cfg, mesh)
+        spec = param_spec(path, leaf, cfg, mesh, fallback)
         name = path[-1]
         label = f"{spec}" if any(s is not None for s in spec) else "replicated"
         if name not in seen:
@@ -363,15 +409,16 @@ def placer(cfg: ModelConfig, mesh):
 
 
 def check_mesh_family(cfg: ModelConfig) -> None:
-    """Tensor parallelism runs the attention families (dense, MoE and the
-    VLM's text backbone); the recurrent and audio families under a mesh
-    come with the compile analysis (ROADMAP.md Queue A)."""
+    """Tensor-parallel serving runs the attention families (dense, MoE and
+    the VLM's text backbone); the reference's ``serve.py`` serves the
+    recurrent and audio families through its sequential engine, without
+    ``--tp``.  Training takes every family on a mesh (``place_train``)."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"tensor parallelism runs the dense, MoE and VLM families; "
-            f"{cfg.name} ({cfg.family}) under a mesh is not ported yet "
-            f"(ROADMAP.md Queue A: the recurrent and audio families under "
-            f"a mesh)"
+            f"tensor-parallel serving runs the dense, MoE and VLM families; "
+            f"{cfg.name} ({cfg.family}) under a mesh is not ported for "
+            f"serving: the reference serves it through its sequential "
+            f"engine, without --tp"
         )
 
 
@@ -462,9 +509,12 @@ def param_shardings(cfg: ModelConfig, params, mesh):
 
 def opt_spec(pspec: tuple, leaf, mesh) -> tuple:
     """ZeRO-1: a moment takes its param's spec plus the first free dim that
-    the data axes divide, over them."""
+    the data axes divide, over them; a param the data axes split already
+    (the ragged-heads rule) gives its moment its own spec."""
     _, dsize, ax = _data_size(mesh)
     spec = list(pspec) + [None] * (leaf.ndim - len(pspec))
+    if ax in spec:
+        return tuple(spec)
     for d in range(leaf.ndim):
         if spec[d] is None and _fits(leaf.shape[d], dsize):
             spec[d] = ax
@@ -550,37 +600,51 @@ def _logical_tree(cfg: ModelConfig):
     return dict(_leaves(init_params(cfg, 0, device="meta")))
 
 
-def train_dims(cfg: ModelConfig, mesh) -> Dict[tuple, Tuple[int, int]]:
-    """Each leaf's (model dim, data dim) in the training layout: the dim
-    ``param_spec`` splits over model and the one ``opt_spec`` adds over
-    the data axes (-1: none), by path."""
+class Dims(NamedTuple):
+    """A leaf's training layout: the dim ``param_spec`` splits over the
+    model axis, the dim the data axes split (its moments', or with
+    ``data_split`` the param's own), each -1 for none."""
+    model: int
+    data: int
+    data_split: bool = False
+
+
+def train_dims(cfg: ModelConfig, mesh,
+               opts: Options = NO_OPTIONS) -> Dict[tuple, Dims]:
+    """Each leaf's ``Dims`` in the training layout, by path."""
+    _, _, ax = _data_size(mesh)
     out = {}
     for path, leaf in _logical_tree(cfg).items():
-        ps = param_spec(path, leaf, cfg, mesh)
+        ps = param_spec(path, leaf, cfg, mesh, opts.attn_fallback)
         os_ = opt_spec(ps, leaf, mesh)
         md = ps.index("model") if "model" in ps else -1
         dd = next((i for i, a in enumerate(os_)
                    if a is not None and a != "model"), -1)
-        out[path] = (md, dd)
+        out[path] = Dims(md, dd, ax in ps)
     return out
 
 
-def place_train(params, cfg: ModelConfig, mesh) -> list:
+def place_train(params, cfg: ModelConfig, mesh,
+                opts: Options = NO_OPTIONS) -> list:
     """The training layout over ``mesh`` (a ``DeviceMesh``, or a
     ``ServingMesh`` as one data replica): one placed tree per data
     replica, each its own copies.  A leaf ``param_spec`` splits over model
     is a tuple of its model shards, shard ``m`` on the replica's device
-    ``m``; a replicated leaf is one tensor on the replica's controller.
-    At a model axis of 1 every leaf is whole."""
-    check_mesh_family(cfg)
-    dims = train_dims(cfg, mesh)
+    ``m``; a replicated leaf is one tensor on the replica's controller; a
+    leaf the data axes split (``Options.attn_fallback``) is the replica's
+    slice of it, on its controller.  At a model axis of 1 every leaf is
+    whole."""
+    dims = train_dims(cfg, mesh, opts)
     tp = _axis_size(mesh, "model")
+    n = mesh.n_replicas
     out = []
-    for d in range(_axis_size(mesh, "data")):
+    for d in range(n):
         row = mesh.replica(d)
 
         def place(path, leaf):
-            md = dims[path][0]
+            md, dd, split = dims[path]
+            if split:
+                return _own(leaf.chunk(n, dd)[d], row.controller)
             if md < 0 or tp == 1:
                 return _own(leaf, row.controller)
             return tuple(_own(part, dev)
@@ -590,17 +654,75 @@ def place_train(params, cfg: ModelConfig, mesh) -> list:
     return out
 
 
-def gather_train(placed, cfg: ModelConfig, mesh, device="cpu"):
-    """One whole tree on ``device`` from a data replica's placed tree (or
-    ``place_train``'s list, whose first replica it takes): each split
-    leaf's shards concatenated along its model dim."""
-    if isinstance(placed, list):
-        placed = placed[0]
-    dims = train_dims(cfg, mesh)
+def gather_train(placed, cfg: ModelConfig, mesh, device="cpu",
+                 opts: Options = NO_OPTIONS):
+    """One whole tree on ``device`` from ``place_train``'s list (or one
+    data replica's placed tree, when no leaf is split over the data
+    axes): each split leaf's shards concatenated along its model dim, a
+    data-split leaf's slices along its data dim."""
+    reps = placed if isinstance(placed, list) else [placed]
+    dims = train_dims(cfg, mesh, opts)
 
     def whole(path, leaf):
+        md, dd, split = dims[path]
+        if split:
+            if len(reps) != mesh.n_replicas:
+                raise ValueError(f"{'/'.join(path)} is split over the data "
+                                 f"axes: pass every replica's tree")
+            return torch.cat([leaf_at(r, path).to(device) for r in reps], dd)
         if isinstance(leaf, tuple):
-            return torch.cat([p.to(device) for p in leaf], dims[path][0])
+            return torch.cat([p.to(device) for p in leaf], md)
         return leaf.to(device)
 
-    return _map(placed, whole)
+    return _map(reps[0], whole)
+
+
+def leaf_at(tree, path):
+    """The leaf of a nested dict at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def layout_notes(cfg: ModelConfig, mesh, opts: Options = NO_OPTIONS) -> list:
+    """Where the port's training layout departs from the reference's specs
+    (the compile analysis prints them beside the specs):  attention runs
+    on whole heads, so heads that do not tile the model axis are gathered
+    and attend on the controller (the reference splits the fused head
+    columns, and its cache's hd); the dense decode cache lies by whole KV
+    heads on the shards, or on the controller when the KV heads do not
+    split (the reference's ``cache_shardings`` splits hd over model and,
+    for a batch the data axes do not divide, the sequence over them);
+    a batch the data axes do not divide runs on replica 0 alone."""
+    tp = _axis_size(mesh, "model")
+    _, dsize, _ = _data_size(mesh)
+    out = []
+    if cfg.family != "ssm":
+        if kv_heads_shardable(cfg, tp):
+            out.append(f"attention on whole heads: {cfg.n_heads // tp} query "
+                       f"/ {cfg.n_kv_heads // tp} KV heads a shard; the "
+                       f"dense cache by whole KV heads on the shards (the "
+                       f"reference splits its hd over model)")
+        else:
+            out.append(f"attention on whole heads: {cfg.n_heads} query / "
+                       f"{cfg.n_kv_heads} KV heads do not split over model="
+                       f"{tp}, so q, k, v are gathered and attend on each "
+                       f"replica's controller, and the dense cache lies "
+                       f"there (the reference splits the fused head columns "
+                       f"and the cache's hd over model)")
+    if cfg.family in ("ssm", "hybrid"):
+        out.append("the recurrent scans run on each replica's controller "
+                   "over gathered columns (the reference lets GSPMD shard "
+                   "the state)")
+    if opts.seq_par:
+        out.append("seq-par: the prefill's query chunks dealt round-robin "
+                   "over model, each shard through the prefix kernel over "
+                   "the whole KV")
+    if opts.attn_fallback:
+        out.append("attn-fallback: a data-split attention weight's moments "
+                   "take its slice's spec (the reference adds the data axes "
+                   "a second time)")
+    out.append(f"a batch the data axes ({dsize}) do not divide runs on "
+               f"replica 0 alone (the reference replicates it; its decode "
+               f"cache then splits the sequence over data)")
+    return out

@@ -77,17 +77,28 @@ compute.  ``mlstm_chunkwise`` masks the chunk's upper triangle with a
 select where the reference multiplies by the causal mask: past ~128 steps
 a chunk's masked weights overflow to inf there, and inf x 0 made the
 reference's outputs NaN (ROADMAP.md Queue C); wherever the reference is
-finite the two agree.
+finite the two agree.  The mask is applied to the weights' exponent as
+well, so the backward does not meet that inf either.  On fake tensors (the compile analysis,
+``launch/op_analysis.py``) ``slstm_scan`` and ``mamba_scan`` run their
+step's ops once over every step together (``_slstm_shapes``,
+``_mamba_shapes``): the same products with the same FLOPs, the same
+output shapes, in a handful of ops rather than a few per step; no value
+exists there, so the recurrence's order is not needed.  ``row_slabs``
+makes its slabs' products one call there too, and ``flash_attention_bwd``
+runs one tile of each pass, counting the others' products
+(``op_analysis.note``).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.launch import op_analysis
 
 NEG_INF = -1e30
 # rows per call of the products run through row_slabs; 0 makes one call
@@ -111,6 +122,11 @@ def row_slabs(fn, x: torch.Tensor) -> torch.Tensor:
     n = rows.shape[0]
     if n % ROW_SLAB:
         rows = F.pad(rows, (0, 0, 0, ROW_SLAB - n % ROW_SLAB))
+    if op_analysis.is_fake(rows):
+        # the compile analysis: the slabs' FLOPs in one call (their
+        # weight counted once in the product bytes)
+        out = fn(rows)
+        return out[:n].reshape(*lead, out.shape[-1])
     parts = [fn(slab) for slab in rows.split(ROW_SLAB)]
     out = parts[0] if len(parts) == 1 else torch.cat(parts)
     return out[:n].reshape(*lead, out.shape[-1])
@@ -128,8 +144,10 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a factory, not torch.tensor: a fake-tensor run (the compile analysis)
+    # must see every tensor the step makes
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -239,6 +257,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _prefix_attention(q, k, v, q_offset, window, logit_cap, impl)
 
 
+SEQPAR_CHUNK = 512   # query chunk of the sequence-parallel prefill
+
+
+def flash_attention_seqpar(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, q_offset: int = 0,
+                           window: int = 0, logit_cap: float = 0.0,
+                           devices=None,
+                           impl: str | None = None) -> torch.Tensor:
+    """Forward-only prefill attention with the query chunks dealt over
+    ``devices`` (counterpart of ``repro.models.layers.
+    flash_attention_seqpar``, the compile analysis's ``seq-par``): chunk
+    j of SEQPAR_CHUNK rows runs on ``devices[j % len(devices)]`` through
+    the prefix-attention dispatch, over the keys ``[0, q_offset +
+    chunk end)`` with ``prefix_len = q_offset + chunk start``; the whole
+    KV is copied once to each device, and the outputs come back to q's
+    device in order.  q (B, Sq, H, hd); k/v (B, q_offset + Sq, KV, hd).
+    Chunk starts are multiples of the kernel's key tile, so on the card
+    each row's bits are the unsplit call's."""
+    devices = list(devices or [q.device])
+    Sq = q.shape[1]
+    kv = {d: (k.to(d), v.to(d)) for d in dict.fromkeys(devices)}
+    outs = []
+    for j, c0 in enumerate(range(0, Sq, SEQPAR_CHUNK)):
+        c1 = min(c0 + SEQPAR_CHUNK, Sq)
+        dev = devices[j % len(devices)]
+        kd, vd = kv[dev]
+        end = q_offset + c1
+        o = _prefix_attention(q[:, c0:c1].to(dev), kd[:, :end], vd[:, :end],
+                              q_offset + c0, window, logit_cap, impl)
+        outs.append(o.to(q.device))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
 def _prefix_attention(q, k, v, q_offset, window, logit_cap, impl):
     o = ops.prefix_attention(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), prefix_len=int(q_offset),
@@ -323,6 +374,23 @@ def flash_attention_bwd(q, k, v, o, do, *, q_offset: int = 0,
             kp1 = min(k0 + chunk, Skv) - 1
             return k0 <= qp1 and (window <= 0 or kp1 > qp0 - window)
 
+        # on fake tensors (the compile analysis) one visible tile of each
+        # pass runs; every other one is counted at its products' FLOPs and
+        # bytes (op_analysis.note): the same FLOPs, one tile's transients
+        fake = op_analysis.is_fake(q)
+        ran = set()
+
+        def stand_in(q0, k0, n_products, which):
+            if not fake or which not in ran:
+                ran.add(which)
+                return False
+            cq, ck = min(q0 + chunk, Sq) - q0, min(k0 + chunk, Skv) - k0
+            tile = B * H * cq * ck
+            op_analysis.note(q.device, n_products * 2 * tile * hd,
+                             4 * n_products * (tile + B * (cq * H + ck * KV)
+                                               * hd))
+            return True
+
         lse = []
         for q0 in q_chunks:
             qi = qg[:, q0:q0 + chunk]
@@ -330,7 +398,7 @@ def flash_attention_bwd(q, k, v, o, do, *, q_offset: int = 0,
             m = torch.full((B, KV, R, qi.shape[1]), NEG_INF, device=q.device)
             lsum = torch.zeros_like(m)
             for k0 in k_chunks:
-                if not visible(q0, k0):
+                if not visible(q0, k0) or stand_in(q0, k0, 1, "lse"):
                     continue
                 s, _ = _chunk_scores(qi, kf[:, k0:k0 + chunk], scale,
                                      logit_cap)
@@ -345,7 +413,7 @@ def flash_attention_bwd(q, k, v, o, do, *, q_offset: int = 0,
             ki, vi = kf[:, k0:k0 + chunk], vf[:, k0:k0 + chunk]
             kp = pos(k0, Skv)
             for qc, q0 in enumerate(q_chunks):
-                if not visible(q0, k0):
+                if not visible(q0, k0) or stand_in(q0, k0, 5, "grads"):
                     continue
                 sl = slice(q0, q0 + chunk)
                 qi, doi = qg[:, sl], dog[:, sl]
@@ -442,12 +510,17 @@ def moe_dense_with(x: torch.Tensor, routed, expert,
     return acc
 
 
-def capacity_slots(topi: torch.Tensor, n_experts: int, cap: int):
+def capacity_slots(topi: torch.Tensor, n_experts: int, cap: int,
+                   before=None):
     """Each (token, choice)'s slot in its expert's buffer, in token order,
     and whether it fits: topi (C, k) -> (one-hot (C, k, E) f32, slot
-    (C, k, E) f32, -1 off the chosen expert, keep (C, k, E) bool)."""
+    (C, k, E) f32, -1 off the chosen expert, keep (C, k, E) bool).
+    ``before(counts)``: the picks of each expert by tokens ahead of these
+    (E,) f32, given these tokens' own counts; their slots follow those."""
     oh = F.one_hot(topi, n_experts).float()
     pos = torch.cumsum(oh.reshape(-1, n_experts), dim=0).reshape(oh.shape)
+    if before is not None:
+        pos = pos + before(oh.sum(dim=(0, 1)))
     pos = pos * oh - 1.0
     return oh, pos, (pos < cap) & (oh > 0)
 
@@ -479,24 +552,45 @@ def moe_capacity(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
 
 def moe_capacity_with(x: torch.Tensor, route_fn, experts_fn, n_experts: int,
                       top_k: int, *, capacity_factor: float = 1.25,
-                      token_chunk: int = 4096) -> torch.Tensor:
+                      token_chunk: int = 4096, place=None) -> torch.Tensor:
     """``moe_capacity`` from ``route_fn(xc)``, a chunk's rows' (gates,
     expert ids) as ``route`` gives them, and ``experts_fn(xbuf)``,
     the experts' outputs (E, cap, D) over their buffers (E, cap, D): the
     form a tensor-parallel mesh computes with its shards' products.  The
-    dispatch and the combine run here."""
+    dispatch and the combine run here.
+
+    ``place``: (first, total, before) when ``x`` holds the tokens
+    ``[first, first + B S)`` of a batch of ``total`` tokens split over
+    data replicas (``models/model.py::CapacityDispatch``): the chunks are
+    the whole batch's, and each part of one here fills that chunk's
+    buffers at the slots ``before(chunk, counts)`` leaves it (the picks of
+    the chunk's earlier tokens); the buffer holds only this part's
+    rows."""
     B, S, D = x.shape
     E = n_experts
     T = B * S
-    token_chunk = min(token_chunk, T)
-    n_chunks = -(-T // token_chunk)
-    xt = F.pad(x.reshape(T, D), (0, 0, 0, n_chunks * token_chunk - T))
+    first, total, before = (0, T, None) if place is None else place
+    token_chunk = min(token_chunk, total)
     cap = max(int(capacity_factor * token_chunk * top_k / E), 1)
     slots = torch.arange(cap, device=x.device)
+    xt = x.reshape(T, D)
+    if place is None:
+        n_chunks = -(-T // token_chunk)
+        xt = F.pad(xt, (0, 0, 0, n_chunks * token_chunk - T))
+        parts = list(enumerate(xt.split(token_chunk)))
+    else:
+        parts, lo = [], first
+        while lo < first + T:
+            c = lo // token_chunk
+            hi = min((c + 1) * token_chunk, first + T)
+            parts.append((c, xt[lo - first:hi - first]))
+            lo = hi
     out = []
-    for xc in xt.split(token_chunk):
+    for c, xc in parts:
         gates, topi = route_fn(xc)
-        oh, pos, keep = capacity_slots(topi, E, cap)
+        oh, pos, keep = capacity_slots(
+            topi, E, cap, None if before is None
+            else functools.partial(before, c))
         pos_oh = (pos.long()[..., None] == slots).float()
         disp = oh[..., None] * keep[..., None] * pos_oh         # (C,k,E,cap)
         xbuf = torch.einsum("ceC,cd->eCd", disp.sum(dim=1),
@@ -617,8 +711,12 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, state=None, chunk: int = 256):
         in_scale = torch.exp(m_in[:, None] - Mt)           # (B, C, H)
         # intra-chunk scores A[t, s] = (q_t . k_s) exp(g_s - M_t), s <= t
         qk = torch.einsum("bthd,bshd->bhts", qi, ki)
-        wts = torch.exp(g.transpose(1, 2)[:, :, None, :]
-                        - Mt.transpose(1, 2)[:, :, :, None])
+        # the exponent is masked before exp: past ~128 steps the upper
+        # triangle's exp overflows to inf, and a select after it would pass
+        # its backward 0 x inf = NaN (the causal entries keep their bits)
+        wts = torch.exp(torch.where(
+            causal, g.transpose(1, 2)[:, :, None, :]
+            - Mt.transpose(1, 2)[:, :, :, None], NEG_INF))
         A = torch.where(causal, qk * wts, 0.0)
         Cq = torch.einsum("bhij,bthj->bthi", C_in, qi)
         num = in_scale[..., None] * Cq + torch.einsum("bhts,bshd->bthd",
@@ -655,6 +753,8 @@ def slstm_scan(zifo, r_w, state=None):
     B, S, H, hd4 = zifo.shape
     c, n, h, m = (state if state is not None
                   else slstm_init(B, H, hd4 // 4, zifo.device))
+    if op_analysis.is_fake(zifo):
+        return _slstm_shapes(zifo, r_w, (c, n, h, m))
     xs = zifo.float()
     rw = r_w.float()
     hs = []
@@ -675,6 +775,39 @@ def slstm_scan(zifo, r_w, state=None):
     return torch.stack(hs, dim=1).to(zifo.dtype), (c, n, h, m)
 
 
+def _slstm_shapes(zifo, r_w, state):
+    """``slstm_scan`` on fake tensors: the recurrent products of every step
+    at once, the gates over every step; the loop's output shapes and
+    dtypes.  The first step's product reads the given state and the
+    others a stand-in for the previous steps' outputs (derived from
+    ``zifo``, so autograd carries it as the loop's), so the products'
+    FLOPs forward and backward are the loop's."""
+    c, n, h, m = state
+    hd = h.shape[-1]
+    rw = r_w.float()
+    prev = torch.tanh(zifo[:, :-1, :, :hd].float())
+    rec = torch.cat([torch.einsum("bhi,hio->bho", h, rw)[:, None],
+                     torch.einsum("bshi,hio->bsho", prev, rw)], dim=1)
+    z, i, f, o = (zifo.float() + rec).chunk(4, dim=-1)
+    log_f = _log_sigmoid(f)
+    m_new = torch.maximum(log_f + m[:, None], i)
+    c = torch.exp(log_f - m_new) * c[:, None] + torch.exp(i - m_new) \
+        * torch.tanh(z)
+    n = torch.exp(log_f - m_new) * n[:, None] + torch.exp(i - m_new)
+    hs = torch.sigmoid(o) * c / torch.clamp(n, min=1.0)
+    last = (c[:, -1], n[:, -1], hs[:, -1], m_new[:, -1])
+    return hs.to(zifo.dtype), last
+
+
+def _mamba_shapes(decay, inp, Cs, D, xs, dtype):
+    """``mamba_scan``'s states on fake tensors: one elementwise op over
+    every step (the loop's ops are elementwise: no FLOPs are lost), then
+    the readout as the loop's."""
+    hs = decay * inp
+    y = torch.einsum("sbhdn,bsn->bshd", hs, Cs) + D.float() * xs
+    return y.to(dtype), hs[-1].clone()
+
+
 @full_f32()
 def mamba_scan(x, delta, A, Bm, Cm, D, state=None):
     """Selective SSM: h_t = exp(delta_t A) h_{t-1} + delta_t (B_t (x) x_t),
@@ -693,6 +826,8 @@ def mamba_scan(x, delta, A, Bm, Cm, D, state=None):
     decay = torch.exp(ds.transpose(0, 1)[..., None, None] * A.float())
     inp = (ds[..., None] * xs).transpose(0, 1)[..., None] \
         * Bs.transpose(0, 1)[:, :, None, None, :]
+    if op_analysis.is_fake(x):
+        return _mamba_shapes(decay, inp + h, Cs, D, xs, x.dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, delta, A, Bm, Cm, D, h)):
         # autograd records no ``out=`` product: the same steps, stacked

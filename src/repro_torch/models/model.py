@@ -52,18 +52,22 @@ it.  So every mesh of one column-slab group gives the same bits.  The
 dense steps keep their cache and attention on the first device too.  The
 MoE family's router columns and expert gate/up products run on the shards
 that hold them (``_moe_shards``), its down products and combine on the
-first device.  The recurrent and audio families run on trivial meshes
-only.
+first device.  The recurrent and audio families serve on trivial meshes
+only, as the reference's ``serve.py`` serves them.
 
 The training forward (``forward_hidden``/``forward``/``lm_logits``) runs
-one data replica's params over its mesh (``_Replica``): with ``mesh=``,
-the training layout (``launch/sharding.py::place_train``): column
-products per shard, row products (wo, wd, the expert wd) per shard with
-their partial sums added on the replica's controller, and attention per
-shard on whole heads (gathered onto the controller when the heads do not
-tile the model axis); without one, the whole tree as a one-shard replica.
-``training/train_lib.py::make_train_step(mesh=)`` runs it on each data
-replica.
+one data replica's params over its mesh (``_Replica``), every family:
+with ``mesh=``, the training layout (``launch/sharding.py::place_train``):
+column products per shard, row products (wo, wd, the expert wd, xLSTM's
+w_down, Hymba's ssm_out) per shard with their partial sums added on the
+replica's controller, attention per shard on whole heads (gathered onto
+the controller when the heads do not tile the model axis), a fused
+column output (xLSTM's [x ‖ z]) gathered before it is split, and the
+recurrent scans on the controller; without one, the whole tree as a
+one-shard replica.  ``training/train_lib.py::make_train_step(mesh=)``
+runs it on each data replica.  ``replica_prefill`` / ``replica_decode_step``
+run the reference's prefill and decode step in that layout (the compile
+analysis's), with the layout options of ``launch/sharding.py::Options``.
 
 The recurrent steps never write a state tensor they were given: they
 build new ones, and replace the cache dict's entries.  The sequential
@@ -82,10 +86,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import ServingMesh
-from repro_torch.launch.sharding import (check_mesh_family, expert_rule,
-                                         kv_heads_shardable, router_split,
-                                         trivial)
+from repro_torch.launch.sharding import (NO_OPTIONS, Options,
+                                         check_mesh_family, expert_rule,
+                                         kv_heads_shardable, leaf_at,
+                                         router_split, trivial)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -595,35 +601,46 @@ def _moe_shards(cfg: ModelConfig, sh: _Shards, ps, h):
 # recurrent blocks
 # ---------------------------------------------------------------------------
 
-def _mlstm_block(cfg: ModelConfig, p, x, state):
-    """state: (C, n, m, conv_buf).  Returns (x_out, new_state)."""
+def _mlstm_block(cfg: ModelConfig, rep: "_Replica", p, x, state):
+    """state: (C, n, m, conv_buf).  Returns (x_out, new_state).  Over a
+    replica's shards (``_Replica``) the column products' parts are
+    gathered before the split of ``w_up``'s output into [x ‖ z] and before
+    the head reshape, and ``w_down`` sums its row shards' parts."""
     B, S, D = x.shape
     Dp, hd, _, _, _, _ = _xlstm_dims(cfg)
     H = cfg.n_heads
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    xp, z = L.proj(h, p["w_up"]).chunk(2, dim=-1)         # (B, S, Dp) each
+    xp, z = rep.gather(rep.col(p["w_up"], h)).chunk(2, dim=-1)
     xc, conv_buf = L.causal_conv1d(xp, p["conv_w"], state[3])
     xc = F.silu(xc)
-    q = L.proj(xc, p["wq"]).reshape(B, S, H, hd)
-    k = L.proj(xc, p["wk"]).reshape(B, S, H, hd)
-    v = L.proj(xp, p["wv"]).reshape(B, S, H, hd)
+    q = rep.gather(rep.col(p["wq"], xc)).reshape(B, S, H, hd)
+    k = rep.gather(rep.col(p["wk"], xc)).reshape(B, S, H, hd)
+    v = rep.gather(rep.col(p["wv"], xp)).reshape(B, S, H, hd)
     i_g, f_g = L.proj(xc, p["w_if"], p["b_if"]).chunk(2, dim=-1)
     scan = L.mlstm_scan if S == 1 else L.mlstm_chunkwise
     hout, (C, n, m) = scan(q, k, v, i_g, f_g, state=state[:3])
     hout = L.rms_norm(hout.reshape(B, S, Dp), p["gn"], cfg.norm_eps)
     hout = hout * F.silu(z)
-    return x + L.proj(hout, p["w_down"]), (C, n, m, conv_buf)
+    return x + rep.row(p["w_down"], [hout]), (C, n, m, conv_buf)
 
 
-def _slstm_block(cfg: ModelConfig, p, x, state):
+def _slstm_block(cfg: ModelConfig, rep: "_Replica", p, x, state):
     B, S, D = x.shape
     H = cfg.n_heads
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    zifo = L.proj(h, p["w_x"], p["b_x"]).reshape(B, S, H, 4 * (D // H))
+    zifo = rep.gather(rep.col(p["w_x"], h, p["b_x"])).reshape(
+        B, S, H, 4 * (D // H))
     out, new_state = L.slstm_scan(zifo, p["r_w"], state)
     x = x + L.rms_norm(out.reshape(B, S, D), p["gn"], cfg.norm_eps)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(h2, p["wg"], p["wu"], p["wd"]), new_state
+    return x + _swiglu_rep(rep, p, h2), new_state
+
+
+def _swiglu_rep(rep: "_Replica", p, h):
+    """``layers.swiglu`` over a replica's shards: gate and up by columns,
+    the down product's row shards summed on the controller."""
+    gs, us = rep.col(p["wg"], h), rep.col(p["wu"], h)
+    return rep.row(p["wd"], [F.silu(g) * u for g, u in zip(gs, us)])
 
 
 def _xlstm_init_state(cfg: ModelConfig, batch: int, device="cpu"):
@@ -645,16 +662,18 @@ def _xlstm_init_state(cfg: ModelConfig, batch: int, device="cpu"):
 
 def _run_xlstm(cfg: ModelConfig, params, x, state):
     """The xLSTM blocks in order over ``state`` (the full stacked state;
-    ``_xlstm_init_state`` for a fresh one).  Returns (x, new_state): new
-    tensors, each block's state written into them; ``state`` is only
-    read."""
-    mblk = params["blocks"]["mlstm"]
+    ``_xlstm_init_state`` for a fresh one).  ``params``: the whole tree,
+    or a ``_Replica``.  Returns (x, new_state): new tensors, each block's
+    state written into them; ``state`` is only read."""
+    rep = params if isinstance(params, _Replica) else _solo(params, x.device)
+    mblk = rep.tree["blocks"]["mlstm"]
     new_m = tuple(torch.empty_like(t) for t in state["mlstm"])
     lead = new_m[0].shape[:new_m[0].dim() - 4]
 
     def m_layer(x, idx):
-        p = {k: w[idx] for k, w in mblk.items()}
-        x, st = _mlstm_block(cfg, p, x, tuple(t[idx] for t in state["mlstm"]))
+        p = _index(mblk, idx)
+        x, st = _mlstm_block(cfg, rep, p, x,
+                             tuple(t[idx] for t in state["mlstm"]))
         for dst, t in zip(new_m, st):
             dst[idx] = t
         return x
@@ -663,29 +682,32 @@ def _run_xlstm(cfg: ModelConfig, params, x, state):
         for li in range(lead[0]):
             x = m_layer(x, li)
         return x, {"mlstm": new_m, "slstm": None}
-    sblk = params["blocks"]["slstm"]
+    sblk = rep.tree["blocks"]["slstm"]
     new_s = tuple(torch.empty_like(t) for t in state["slstm"])
     for per in range(lead[0]):
         for j in range(lead[1]):
             x = m_layer(x, (per, j))
-        p = {k: w[per] for k, w in sblk.items()}
-        x, st = _slstm_block(cfg, p, x, tuple(t[per] for t in state["slstm"]))
+        x, st = _slstm_block(cfg, rep, _index(sblk, per), x,
+                             tuple(t[per] for t in state["slstm"]))
         for dst, t in zip(new_s, st):
             dst[per] = t
     return x, {"mlstm": new_m, "slstm": new_s}
 
 
-def _ssm_branch_seq(cfg: ModelConfig, p, x, state=None):
-    """Hymba's SSM heads over the residual ``x``: (out, new_state)."""
+def _ssm_branch_seq(cfg: ModelConfig, p, x, state=None, rep=None):
+    """Hymba's SSM heads over the residual ``x``: (out, new_state).
+    ``rep``: the replica whose shards hold ``p``'s ``ssm_in`` columns and
+    ``ssm_out`` rows (None: ``p`` is whole, on x's device)."""
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.hd
+    rep = rep or _solo({}, x.device)
     h = L.rms_norm(x, p["ssm_ln"], cfg.norm_eps)
-    xin = F.silu(L.proj(h, p["ssm_in"])).reshape(B, S, H, hd)
+    xin = F.silu(rep.gather(rep.col(p["ssm_in"], h))).reshape(B, S, H, hd)
     delta = F.softplus(L.proj(h, p["ssm_dt"]).float())
     y, new_state = L.mamba_scan(xin, delta, p["ssm_A"], L.proj(h, p["ssm_B"]),
                                 L.proj(h, p["ssm_C"]), p["ssm_D"],
                                 state=state)
-    return L.proj(y.reshape(B, S, H * hd), p["ssm_out"]), new_state
+    return rep.row(p["ssm_out"], [y.reshape(B, S, H * hd)]), new_state
 
 
 def _hybrid_ssm_init(cfg: ModelConfig, batch: int, device="cpu"):
@@ -694,7 +716,9 @@ def _hybrid_ssm_init(cfg: ModelConfig, batch: int, device="cpu"):
 
 
 def forward_hidden(cfg: ModelConfig, params, inputs, *, remat: bool = False,
-                   attn_impl: str | None = None, mesh=None) -> torch.Tensor:
+                   attn_impl: str | None = None, mesh=None,
+                   opts: Options = NO_OPTIONS, dispatch=None,
+                   replica: int = 0) -> torch.Tensor:
     """Training-path forward over whole sequences from position 0: the
     final hidden states (B, S, D) before the final norm (counterpart of
     ``repro.models.model.forward_hidden``).  ``inputs``: {"tokens" (B, S)
@@ -707,36 +731,40 @@ def forward_hidden(cfg: ModelConfig, params, inputs, *, remat: bool = False,
     ``mesh``: one data replica's ``(1, tp)`` mesh, ``params`` then that
     replica's tree of ``launch/sharding.py::place_train`` (the training
     layout; see ``_Replica``); without one, ``params`` is the whole tree on
-    one device.  The hidden states come back on the mesh's controller."""
+    one device.  ``opts``: the layout options of ``place_train``.
+    ``dispatch``/``replica``: a capacity MoE's dispatch across the mesh's
+    data replicas (``CapacityDispatch``) and this replica's index there.
+    The hidden states come back on the mesh's controller."""
     _check_family(cfg)
-    rep = _replica(cfg, params, mesh)
+    rep = _replica(cfg, params, mesh, opts, dispatch, replica)
+    x = _embed_seq(cfg, rep, inputs)
     if cfg.family == "ssm":
-        x = embed_inputs(cfg, params, inputs)
-        x, _ = _run_xlstm(cfg, params, x,
+        x, _ = _run_xlstm(cfg, rep, x,
                           _xlstm_init_state(cfg, x.shape[0], x.device))
         return x
-    x = _embed_seq(cfg, rep, inputs)
     windows = cfg.layer_windows()
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for li in range(cfg.n_layers):
         p = _rep_layer(rep, li)
         if remat:
             x = checkpoint(_attn_block_seq, cfg, rep, p, x, windows[li],
-                           positions, attn_impl, use_reentrant=False)
+                           positions, attn_impl, li, use_reentrant=False)
         else:
             x = _attn_block_seq(cfg, rep, p, x, windows[li], positions,
-                                attn_impl)
+                                attn_impl, li)
     return x
 
 
 def forward(cfg: ModelConfig, params, inputs, *, remat: bool = False,
-            attn_impl: str | None = None, mesh=None) -> torch.Tensor:
+            attn_impl: str | None = None, mesh=None,
+            opts: Options = NO_OPTIONS) -> torch.Tensor:
     """Full-sequence logits (B, S, V), or (B, S, K, V) with codebooks, f32.
-    ``mesh``: as for ``forward_hidden``."""
+    ``mesh``, ``opts``: as for ``forward_hidden``."""
     return lm_logits(cfg, params, forward_hidden(cfg, params, inputs,
                                                  remat=remat,
                                                  attn_impl=attn_impl,
-                                                 mesh=mesh), mesh=mesh)
+                                                 mesh=mesh, opts=opts),
+                     mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -745,25 +773,65 @@ def forward(cfg: ModelConfig, params, inputs, *, remat: bool = False,
 
 
 @dataclasses.dataclass
+class DataSlices:
+    """A leaf the data axes split (``Options.attn_fallback``) as one
+    replica's forward reads it: every replica's slice, each on its
+    owner's controller, and the dim of the stacked leaf they split."""
+    parts: tuple
+    dim: int
+
+
+torch.utils._pytree.register_dataclass(DataSlices,
+                                       field_names=["parts", "dim"])
+
+
+def with_slices(params: list, d: int, dims) -> Dict[str, Any]:
+    """Replica ``d``'s tree of ``place_train``'s list with every leaf the
+    data axes split (``dims``: ``launch/sharding.py::train_dims``) as a
+    ``DataSlices`` of all replicas' slices: what its prefill and decode
+    step read."""
+    def walk(node, path):
+        out = {}
+        for k, sub in node.items():
+            at = path + (k,)
+            if isinstance(sub, dict):
+                out[k] = walk(sub, at)
+            elif dims[at].data_split:
+                out[k] = DataSlices(tuple(leaf_at(p, at) for p in params),
+                                    dims[at].data)
+            else:
+                out[k] = sub
+        return out
+    return walk(params[d], ())
+
+
+@dataclasses.dataclass
 class _Replica:
     """One data replica's params in the training layout (``launch/
     sharding.py::place_train``) over its ``(1, tp)`` mesh: a leaf split
     over the model axis is a tuple of its shards, shard m on the mesh's
-    device m; a replicated leaf is one tensor on the controller.  The
-    one-device forward is the one-shard case: every leaf whole.
+    device m; a replicated leaf is one tensor on the controller; a leaf
+    split over the data axes a ``DataSlices``, gathered whole onto the
+    controller layer by layer.  The one-device forward is the one-shard
+    case: every leaf whole.
 
     A column product (``col``) runs on each shard over its columns, with
     its slice of a replicated bias; a row product (``row``: wo, wd, the
-    expert wd) runs on each shard over its rows, and the shards' partial
-    sums, each rounded to the activation dtype as ``layers.dense`` rounds
-    a product, are added on the controller in shard order in that dtype:
-    the reduction the reference's all-reduce makes in the operands' dtype.
-    Everything else (norms, RoPE, residual adds, the loss) runs on the
+    expert wd, xLSTM's w_down, Hymba's ssm_out) runs on each shard over
+    its rows, and the shards' partial sums, each rounded to the activation
+    dtype as ``layers.dense`` rounds a product, are added on the
+    controller in shard order in that dtype: the reduction the reference's
+    all-reduce makes in the operands' dtype.  Everything else (norms,
+    RoPE, residual adds, the recurrent scans, the loss) runs on the
     controller.  Autograd carries the gradients back through the copies;
     a replicated leaf is one tensor, so it gets its summed gradient
-    once."""
+    once.  ``opts``: the layout options; ``dispatch``/``index``: the
+    capacity MoE's dispatch across data replicas and this one's index."""
     tree: Dict[str, Any]
     mesh: ServingMesh
+    opts: Options = NO_OPTIONS
+    dispatch: Any = None
+    index: int = 0
 
     @property
     def devices(self) -> List[torch.device]:
@@ -774,9 +842,11 @@ class _Replica:
         return self.mesh.controller
 
     def gather(self, parts, dim: int = -1) -> torch.Tensor:
+        ctl = self.controller
         if len(parts) == 1:
-            return parts[0].to(self.controller)
-        return torch.cat([t.to(self.controller) for t in parts], dim=dim)
+            return op_analysis.to(parts[0], ctl, "all-gather")
+        return torch.cat([op_analysis.to(t, ctl, "all-gather")
+                          for t in parts], dim=dim)
 
     def col(self, w, x, b=None) -> List[torch.Tensor]:
         """x @ w (+ b) by columns: one part per shard of a split ``w``, on
@@ -801,39 +871,68 @@ class _Replica:
             xs = self.gather(xs).split([wm.shape[-2] for wm in w], dim=-1)
         total = None
         for xm, wm, d in zip(xs, w, self.devices):
-            part = L.proj(xm.to(d), wm).to(self.controller)
+            part = op_analysis.to(L.proj(xm.to(d), wm), self.controller,
+                                  "all-reduce")
             total = part if total is None else total + part
         return total
 
 
-def _replica(cfg: ModelConfig, params, mesh) -> _Replica:
+def _solo(params, device) -> _Replica:
+    """``params`` (whole) as a one-shard replica on ``device``."""
+    return _Replica(params, ServingMesh((torch.device(device),)))
+
+
+def _replica(cfg: ModelConfig, params, mesh, opts: Options = NO_OPTIONS,
+             dispatch=None, index: int = 0) -> _Replica:
     """The ``_Replica`` of a training-layout tree over ``mesh``, or of a
     whole tree over a one-shard mesh of its device when ``mesh`` is
     None."""
     if mesh is None:
-        return _Replica(params, ServingMesh((params["embed"].device,)))
-    check_mesh_family(cfg)
-    if mesh.shape["data"] != 1:
+        return _Replica(params, ServingMesh((params["embed"].device,)),
+                        opts, dispatch, index)
+    if mesh.n_replicas != 1:
         raise ValueError("the training forward runs one data replica: pass "
                          "its (1, tp) mesh (DeviceMesh.replica(d))")
-    return _Replica(params, mesh.replica(0))
+    return _Replica(params, mesh.replica(0), opts, dispatch, index)
+
+
+def _index(blocks, idx) -> Dict[str, Any]:
+    """Layer ``idx`` (an index, or a (period, block) pair) of a stacked
+    block tree in the training layout."""
+    return {k: tuple(t[idx] for t in w) if isinstance(w, tuple) else w[idx]
+            for k, w in blocks.items()}
 
 
 def _rep_layer(rep: _Replica, li: int) -> Dict[str, Any]:
-    return {k: tuple(t[li] for t in w) if isinstance(w, tuple) else w[li]
-            for k, w in rep.tree["blocks"].items()}
+    """Layer ``li``'s leaves: a data-split leaf's slices gathered whole on
+    the controller (in replica order)."""
+    blocks = rep.tree["blocks"]
+    out = _index({k: w for k, w in blocks.items()
+                  if not isinstance(w, DataSlices)}, li)
+    for k, w in blocks.items():
+        if isinstance(w, DataSlices):
+            out[k] = rep.gather([t[li] for t in w.parts], dim=w.dim - 1)
+    return out
 
 
 def _embed_seq(cfg: ModelConfig, rep: _Replica, inputs) -> torch.Tensor:
     """``embed_inputs`` over the shards: each token's row from the shard
-    whose vocab slice holds it; the VLM's patches through the column
-    parts of ``vision_proj``."""
+    whose vocab slice holds it (codebook by codebook, summed in codebook
+    order); the VLM's patches through the column parts of
+    ``vision_proj``."""
     tokens, patches = inputs, None
     if isinstance(inputs, Mapping):
         tokens, patches = inputs["tokens"], inputs.get("patch_embeds")
     emb = rep.tree["embed"]
-    if isinstance(emb, tuple):
-        x = _vocab_rows(emb, rep.devices, tokens)
+    if isinstance(emb, tuple) and cfg.n_codebooks:
+        tokens = tokens.to(rep.controller)
+        x = torch.zeros(tokens.shape[:1] + tokens.shape[2:] + (cfg.d_model,),
+                        dtype=emb[0].dtype, device=rep.controller)
+        for kk in range(cfg.n_codebooks):
+            x = x + _vocab_rows([e[kk] for e in emb], rep.devices,
+                                tokens[:, kk])
+    elif isinstance(emb, tuple):
+        x = _vocab_rows(emb, rep.devices, tokens.to(rep.controller))
     else:
         x = embed_inputs(cfg, {"embed": emb}, tokens.to(rep.controller))
     if cfg.family == "vlm" and patches is not None:
@@ -843,49 +942,116 @@ def _embed_seq(cfg: ModelConfig, rep: _Replica, inputs) -> torch.Tensor:
     return x
 
 
-def _attn_block_seq(cfg: ModelConfig, rep: _Replica, p, x, window: int,
-                    positions, attn_impl):
-    """One attention-family block over a whole sequence from position 0
-    (the training forward): attention through ``L.flash_attention``, then
-    Hymba's SSM branch from a zero state, then the FFN.  When the model
-    axis splits the heads whole (``kv_heads_shardable``), each shard runs
-    attention on its own heads; else the fused head columns the
-    reference's ``param_spec`` still splits tear heads apart, so q, k and
-    v are gathered and attention runs once on the controller over whole
-    heads."""
-    B, S, _ = x.shape
+def heads_split(cfg: ModelConfig, rep: _Replica, p) -> bool:
+    """Whether layer ``p``'s attention runs per shard on its whole heads:
+    wq and wk split over every shard and the model axis splitting the
+    heads whole (``kv_heads_shardable``); else q, k and v are gathered and
+    attend on the controller (the fused head columns the reference's
+    ``param_spec`` splits tear heads apart there)."""
+    tp = len(rep.devices)
+    return (isinstance(p["wq"], tuple) and len(p["wq"]) == tp
+            and isinstance(p["wk"], tuple) and len(p["wk"]) == tp
+            and kv_heads_shardable(cfg, tp))
+
+
+def _qkv_parts(cfg: ModelConfig, rep: _Replica, p, h, positions,
+               whole: bool = False):
+    """Layer ``p``'s (q, k, v), each (B, S, heads, hd), q and k roped at
+    ``positions``: one triple per shard on its device when
+    ``heads_split``, else one gathered on the controller (and always so
+    with ``whole``)."""
+    B, S, _ = h.shape
     hd = cfg.hd
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     qs, ks, vs = (rep.col(p[w], h, p.get(b))
                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
-    tp = len(rep.devices)
-    if not (len(qs) == len(ks) == tp and kv_heads_shardable(cfg, tp)):
+    if whole or not heads_split(cfg, rep, p):
         qs, ks, vs = ([rep.gather(t)] for t in (qs, ks, vs))
-    outs = []
+    out = []
     for q, k, v in zip(qs, ks, vs):
         pos = positions.to(q.device)
         q = L.apply_rope(q.reshape(B, S, -1, hd), pos, cfg.rope_theta)
         k = L.apply_rope(k.reshape(B, S, -1, hd), pos, cfg.rope_theta)
-        o = L.flash_attention(q, k, v.reshape(B, S, -1, hd), window=window,
-                              logit_cap=cfg.attn_logit_softcap,
-                              impl=attn_impl)
-        outs.append(o.reshape(B, S, -1))
+        out.append((q, k, v.reshape(B, S, -1, hd)))
+    return out
+
+
+def _attend(cfg: ModelConfig, rep: _Replica, q, k, v, window: int,
+            attn_impl):
+    """``layers.flash_attention`` of one head group; with
+    ``Options.flat_gqa`` K/V repeated to every query head first."""
+    if rep.opts.flat_gqa and q.shape[2] != k.shape[2]:
+        r = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(r, dim=2), v.repeat_interleave(r, dim=2)
+    return L.flash_attention(q, k, v, window=window,
+                             logit_cap=cfg.attn_logit_softcap,
+                             impl=attn_impl)
+
+
+def _attn_block_seq(cfg: ModelConfig, rep: _Replica, p, x, window: int,
+                    positions, attn_impl, li: int = 0):
+    """One attention-family block over a whole sequence from position 0
+    (the training forward): attention through ``L.flash_attention`` on
+    whole heads (``_qkv_parts``), then Hymba's SSM branch from a zero
+    state, then the FFN (layer ``li``'s, for the capacity dispatch)."""
+    B, S, _ = x.shape
+    outs = [_attend(cfg, rep, q, k, v, window, attn_impl).reshape(B, S, -1)
+            for q, k, v in _qkv_parts(cfg, rep, p,
+                                      L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                                      positions)]
     x = x + rep.row(p["wo"], outs)
-    if cfg.family == "hybrid":              # whole leaves: never on a mesh
-        x = x + _ssm_branch_seq(cfg, p, x)[0]
+    if cfg.family == "hybrid":
+        x = x + _ssm_branch_seq(cfg, p, x, rep=rep)[0]
+    return x + _ffn_seq(cfg, rep, p, x, li)
+
+
+def _ffn_seq(cfg: ModelConfig, rep: _Replica, p, x, li: int):
+    """One layer's FFN (MoE or SwiGLU) of norm(x) over the shards."""
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe_experts:
-        return x + _moe_seq(cfg, rep, p, h2)
-    gs, us = rep.col(p["wg"], h2), rep.col(p["wu"], h2)
-    return x + rep.row(p["wd"], [F.silu(g) * u for g, u in zip(gs, us)])
+        return _moe_seq(cfg, rep, p, h2, li)
+    return _swiglu_rep(rep, p, h2)
 
 
-def _moe_seq(cfg: ModelConfig, rep: _Replica, p, h):
+class CapacityDispatch:
+    """The capacity MoE's dispatch across a mesh's data replicas.  The
+    reference fills each expert's buffer from the whole batch's tokens in
+    order, chunk by chunk (``layers.moe_capacity``); data replica ``d`` of
+    ``n`` holds the global tokens ``[d * T, (d + 1) * T)``, T the tokens a
+    replica holds.  Each replica
+    dispatches its part of each chunk into the chunk's global slots: the
+    slot of a token is its replica's count of earlier picks of the
+    expert plus the earlier replicas' counts in that chunk, which this
+    object keeps by (layer, chunk, replica) and hands on (a gather of E
+    counts from each earlier replica that holds tokens of the chunk).
+    The replicas run in order, so replica d's forward (and its
+    checkpoint's recompute) finds every earlier replica's counts."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self._counts: Dict[tuple, Dict[int, torch.Tensor]] = {}
+
+    def place(self, layer: int, d: int, tokens: int):
+        """``layers.moe_capacity_with``'s ``place`` for replica ``d``'s
+        ``tokens`` at ``layer``."""
+        def before(chunk: int, counts: torch.Tensor) -> torch.Tensor:
+            got = self._counts.setdefault((layer, chunk), {})
+            got[d] = counts.detach()
+            off = torch.zeros_like(counts)
+            for r in sorted(got):
+                if r < d:
+                    off = off + op_analysis.to(got[r], off.device,
+                                               "all-gather")
+            return off
+        return d * tokens, self.n * tokens, before
+
+
+def _moe_seq(cfg: ModelConfig, rep: _Replica, p, h, li: int = 0):
     """The MoE FFN over the shards in the training layout: the router's
     columns gathered; whole experts a shard (E split) run their gate, up
     and down products there, or (d_ff split) each shard's columns and
     rows of every expert, summed as a row product; the combine on the
-    controller in expert order."""
+    controller in expert order.  Under a ``CapacityDispatch`` the
+    capacity dispatch fills the global slots of this replica's tokens."""
     E, k = cfg.moe_experts, cfg.moe_top_k
     wg, wu, wd = p["wg"], p["wu"], p["wd"]
     tp, devs, ctl = len(rep.devices), rep.devices, rep.controller
@@ -913,7 +1079,9 @@ def _moe_seq(cfg: ModelConfig, rep: _Replica, p, h):
             return torch.einsum("eCf,efd->eCd", L.glu_buffers(xbuf, wg, wu),
                                 wd)
 
-        return L.moe_capacity_with(h, routed, experts, E, k)
+        place = (None if rep.dispatch is None else rep.dispatch.place(
+            li, rep.index, h.shape[0] * h.shape[1]))
+        return L.moe_capacity_with(h, routed, experts, E, k, place=place)
 
     on = {d: h.to(d) for d in dict.fromkeys(devs)}
 
@@ -935,13 +1103,16 @@ def _logits_seq(cfg: ModelConfig, rep: _Replica, x) -> torch.Tensor:
     """``lm_logits`` over the shards: each shard's vocab columns (the tied
     embedding's rows), gathered on the controller."""
     x = L.rms_norm(x, rep.tree["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings and cfg.n_codebooks:   # whole: never on a mesh
-        logits = torch.einsum("bsd,kvd->bskv", x, rep.tree["embed"])
-    elif cfg.tie_embeddings:
+    if cfg.tie_embeddings:
         emb = rep.tree["embed"]
         parts = emb if isinstance(emb, tuple) else (emb,)
-        logits = rep.gather([torch.matmul(x.to(e.device), e.t())
-                             for e in parts])
+        if cfg.n_codebooks:
+            logits = rep.gather([torch.einsum("bsd,kvd->bskv",
+                                              x.to(e.device), e)
+                                 for e in parts])
+        else:
+            logits = rep.gather([torch.matmul(x.to(e.device), e.t())
+                                 for e in parts])
     else:
         logits = rep.gather(rep.col(rep.tree["lm_head"], x))
         if cfg.n_codebooks:
@@ -950,6 +1121,148 @@ def _logits_seq(cfg: ModelConfig, rep: _Replica, x) -> torch.Tensor:
     if cfg.final_logit_softcap:
         logits = L.softcap(logits.float(), cfg.final_logit_softcap)
     return logits.float()
+
+
+# ---------------------------------------------------------------------------
+# the reference's prefill and decode step over a data replica's shards
+# ---------------------------------------------------------------------------
+
+
+def replica_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                         params=None, mesh=None,
+                         opts: Options = NO_OPTIONS, device=None):
+    """The dense decode cache in the training layout of one data replica
+    (``replica_decode_step``'s): {"k", "v"} each a tuple of one (L, B,
+    max_len, KV / tp, hd) part a shard when its attention runs on its
+    whole heads (``heads_split`` of ``params``' layer 0), else one (L, B,
+    max_len, KV, hd) tensor on the controller; Hymba's "ssm" on the
+    controller; xLSTM's state there.  Zeros in ``cfg.tdtype``."""
+    rep = _replica(cfg, params, mesh, opts)
+    ctl = rep.controller if device is None else device
+    if cfg.family == "ssm":
+        return _xlstm_init_state(cfg, batch, ctl)
+    p = _rep_layer(rep, 0)
+    tp = len(rep.devices)
+    if heads_split(cfg, rep, p):
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads // tp, cfg.hd)
+        k = tuple(torch.zeros(shape, dtype=cfg.tdtype, device=d)
+                  for d in rep.devices)
+        v = tuple(torch.zeros(shape, dtype=cfg.tdtype, device=d)
+                  for d in rep.devices)
+    else:
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        k = torch.zeros(shape, dtype=cfg.tdtype, device=ctl)
+        v = torch.zeros(shape, dtype=cfg.tdtype, device=ctl)
+    cache = {"k": k, "v": v}
+    if cfg.family == "hybrid":
+        cache["ssm"] = _hybrid_ssm_init(cfg, batch, ctl)
+    return cache
+
+
+def _parts(t) -> tuple:
+    return t if isinstance(t, tuple) else (t,)
+
+
+def replica_prefill(cfg: ModelConfig, params, inputs, *, mesh=None,
+                    opts: Options = NO_OPTIONS,
+                    attn_impl: str | None = None):
+    """The reference's ``prefill`` from position 0 over one data
+    replica's training layout (``place_train``; the compile analysis's
+    prefill): (logits_last (B, 1, [K,] V) f32, cache).  The cache holds
+    the full sequence in ``replica_decode_cache``'s layout (xLSTM: the
+    state after it; Hymba adds "ssm").  With ``opts.seq_par`` q, k and v
+    are gathered and the attention runs through
+    ``layers.flash_attention_seqpar`` over the replica's devices, and the
+    cache lies on the controller."""
+    _check_family(cfg)
+    rep = _replica(cfg, params, mesh, opts)
+    x = _embed_seq(cfg, rep, inputs)
+    B, S = x.shape[:2]
+    if cfg.family == "ssm":
+        x, state = _run_xlstm(cfg, rep, x,
+                              _xlstm_init_state(cfg, B, x.device))
+        return _logits_seq(cfg, rep, x[:, -1:]), state
+    windows = cfg.layer_windows()
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    cache, new_ssm = None, []
+    for li in range(cfg.n_layers):
+        p = _rep_layer(rep, li)
+        parts = _qkv_parts(cfg, rep, p, L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                           positions, whole=opts.seq_par)
+        if cache is None:
+            shapes = [(cfg.n_layers,) + k.shape for _, k, _ in parts]
+            cache = {n: tuple(torch.empty(sh, dtype=k.dtype, device=k.device)
+                              for sh, (_, k, _) in zip(shapes, parts))
+                     for n in ("k", "v")}
+        outs = []
+        for j, (q, k, v) in enumerate(parts):
+            cache["k"][j][li] = k
+            cache["v"][j][li] = v
+            if opts.seq_par:
+                o = L.flash_attention_seqpar(
+                    q, k, v, window=windows[li],
+                    logit_cap=cfg.attn_logit_softcap, devices=rep.devices,
+                    impl=attn_impl)
+            else:
+                o = _attend(cfg, rep, q, k, v, windows[li], attn_impl)
+            outs.append(o.reshape(B, S, -1))
+        x = x + rep.row(p["wo"], outs)
+        if cfg.family == "hybrid":
+            y, st = _ssm_branch_seq(cfg, p, x, rep=rep)
+            x = x + y
+            new_ssm.append(st)
+        x = x + _ffn_seq(cfg, rep, p, x, li)
+    cache = {n: t if len(t) > 1 else t[0] for n, t in cache.items()}
+    if new_ssm:
+        cache["ssm"] = torch.stack(new_ssm)
+    return _logits_seq(cfg, rep, x[:, -1:]), cache
+
+
+def replica_decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
+                        mesh=None, opts: Options = NO_OPTIONS):
+    """The reference's ``decode_step`` over one data replica's training
+    layout: one token (B, 1) or (B, K, 1) over ``replica_decode_cache``'s
+    cache, written in place at ``pos - 1`` (the recurrent state replaced
+    by new tensors), attention through the plain
+    ``layers.decode_attention`` as the reference's; returns the (B, 1,
+    [K,] V) f32 logits on the controller."""
+    _check_family(cfg)
+    rep = _replica(cfg, params, mesh, opts)
+    x = _embed_seq(cfg, rep, tokens)
+    if cfg.family == "ssm":
+        x, new_state = _run_xlstm(cfg, rep, x, cache)
+        cache.update(new_state)
+        return _logits_seq(cfg, rep, x)
+    B = x.shape[0]
+    windows = cfg.layer_windows()
+    pos = pos.to(rep.controller)
+    rope_pos = (pos - 1)[:, None]
+    new_ssm = []
+    for li in range(cfg.n_layers):
+        p = _rep_layer(rep, li)
+        parts = _qkv_parts(cfg, rep, p, L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                           rope_pos)
+        outs = []
+        for (q, k, v), kc, vc in zip(parts, _parts(cache["k"]),
+                                     _parts(cache["v"])):
+            dev = kc.device
+            bidx = torch.arange(B, device=dev)
+            at = (pos - 1).long().to(dev)
+            kc[li][bidx, at] = k[:, 0].to(dev, kc.dtype)
+            vc[li][bidx, at] = v[:, 0].to(dev, vc.dtype)
+            o = L.decode_attention(q.to(dev), kc[li], vc[li], pos=pos.to(dev),
+                                   window=windows[li],
+                                   logit_cap=cfg.attn_logit_softcap)
+            outs.append(o.reshape(B, 1, -1))
+        x = x + rep.row(p["wo"], outs)
+        if cfg.family == "hybrid":
+            y, st = _ssm_branch_seq(cfg, p, x, cache["ssm"][li], rep=rep)
+            x = x + y
+            new_ssm.append(st)
+        x = x + _ffn_seq(cfg, rep, p, x, li)
+    if new_ssm:
+        cache["ssm"] = torch.stack(new_ssm)
+    return _logits_seq(cfg, rep, x)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,

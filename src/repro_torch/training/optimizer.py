@@ -17,7 +17,11 @@ replica.  ``apply_updates_zero`` sums each shard's gradient over the data
 replicas onto the owner of each slice (a reduce-scatter), takes the norm
 of the whole gradient from those slices (each piece once), updates each
 slice where it lives, and gathers the slices into every replica's copy,
-so every replica holds the same param bits.
+so every replica holds the same param bits.  A leaf the data axes split
+(``launch/sharding.py::Options.attn_fallback``) is its replica's slice
+already: its moments take the slice's shape, each replica's gradient of
+it comes as one part per owner's slice (on the owner's controller), and
+the updated slice stays where it is.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ import math
 from typing import Any, Callable, List, Mapping, NamedTuple
 
 import torch
+
+from repro_torch.launch import op_analysis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,25 +180,30 @@ def _put(tree, path, value) -> None:
 
 def _slice(t: torch.Tensor, dd: int, n: int, d: int) -> torch.Tensor:
     """Replica ``d``'s ZeRO-1 slice of ``t`` along ``dd`` (all of it when
-    the moments have no data dim)."""
-    return t if dd < 0 else t.chunk(n, dd)[d]
+    the moments have no data dim; ``opt_spec`` picks only dims that ``n``
+    divides)."""
+    if dd < 0:
+        return t
+    size = t.shape[dd] // n
+    return t.narrow(dd, d * size, size)
 
 
 def init_state_zero(dims, params: list, mesh) -> AdamWState:
     """f32 zero moments in ZeRO-1 slices for ``place_train``'s list over
     ``mesh``: replica d's trees hold, for each shard of each leaf, the
-    slice ``opt_spec`` gives it (the whole shard when no dim divides),
-    on the shard's device.  ``dims``: ``launch/sharding.py::train_dims``
-    of the model over ``mesh``.  The step counter lives on replica 0's
-    controller."""
-    n = mesh.shape["data"]
+    slice ``opt_spec`` gives it (the whole shard when no dim divides; a
+    data-split leaf's own slice), on the shard's device.  ``dims``:
+    ``launch/sharding.py::train_dims`` of the model over ``mesh``.  The
+    step counter lives on replica 0's controller."""
+    n = mesh.n_replicas
 
     def zeros(d):
         out = {}
         for path in _paths(params[d]):
-            leaf, dd = _get(params[d], path), dims[path][1]
+            leaf, (_, dd, split) = _get(params[d], path), dims[path]
+            cut = -1 if split else dd
             _put(out, path, _placed(
-                [torch.zeros(_slice(t, dd, n, d).shape, dtype=torch.float32,
+                [torch.zeros(_slice(t, cut, n, d).shape, dtype=torch.float32,
                              device=t.device) for t in _parts(leaf)], leaf))
         return out
 
@@ -205,14 +216,22 @@ def init_state_zero(dims, params: list, mesh) -> AdamWState:
 
 @torch.no_grad()
 def apply_updates_zero(cfg: AdamWConfig, dims, mesh, params: list,
-                       grads: list, state: AdamWState):
+                       grads: list, state: AdamWState, traced=None):
     """One AdamW step over ZeRO-1 slices.  ``params``: ``place_train``'s
     list (one placed tree a data replica); ``grads``: the replicas' grads
     in the same layout (one tree per replica that computed a share of the
-    loss); ``state``: ``init_state_zero``'s; ``dims``: as there.  Returns
-    (new params, new state, grad norm on replica 0's controller): new
-    tensors."""
-    n = mesh.shape["data"]
+    loss; a data-split leaf's as a tuple of one part per replica's
+    slice); ``state``: ``init_state_zero``'s; ``dims``: as there.
+    Returns (new params, new state, grad norm on replica 0's controller):
+    new tensors.
+
+    ``traced``: the compile analysis's count of replicas it traces (the
+    first ones); every other replica's own sums and updates stand in as
+    empty tensors of their shapes, and only the copies to and from the
+    traced replicas are made, so the traced cards see the whole mesh's
+    transfers and memory in O(replicas) ops a slice, not O(replicas^2)."""
+    n = mesh.n_replicas
+    traced = n if traced is None else traced
     ctl = mesh.replica(0).controller
     step = state.step + 1
     lr = schedule(cfg, step)
@@ -224,14 +243,18 @@ def apply_updates_zero(cfg: AdamWConfig, dims, mesh, params: list,
     # replica order, on the device that owns the slice
     reduced, pieces = {}, []
     for path in paths:
-        dd = dims[path][1]
+        _, dd, split = dims[path]
+        kind = "all-reduce" if dd < 0 else "reduce-scatter"
         for i in range(len(_parts(_get(params[0], path)))):
             sums = []
             for d in range(n):
                 dev = _parts(_get(params[d], path))[i].device
                 total = None
-                for g in grads:
-                    s = _slice(_parts(_get(g, path))[i], dd, n, d).to(dev)
+                for g in (grads if d < traced else grads[:traced]):
+                    s = op_analysis.to(
+                        _get(g, path)[d] if split else
+                        _slice(_parts(_get(g, path))[i], dd, n, d), dev,
+                        kind)
                     total = s if total is None else total + s
                 sums.append(total)
             reduced[path, i] = sums
@@ -242,7 +265,7 @@ def apply_updates_zero(cfg: AdamWConfig, dims, mesh, params: list,
     new_m = [{} for _ in range(n)]
     new_v = [{} for _ in range(n)]
     for path in paths:
-        dd = dims[path][1]
+        _, dd, split = dims[path]
         like = _get(params[0], path)
         shards = [[] for _ in range(n)]
         moments = [([], []) for _ in range(n)]
@@ -250,20 +273,27 @@ def apply_updates_zero(cfg: AdamWConfig, dims, mesh, params: list,
             slices = []
             for d in range(n):
                 p = _parts(_get(params[d], path))[i]
-                dev = p.device
-                scal = [t.to(dev) for t in (lr, clip, bc1, bc2)]
-                ps, m, v = _adamw(
-                    cfg, _slice(p, dd, n, d), reduced[path, i][d],
-                    _parts(_get(state.m[d], path))[i],
-                    _parts(_get(state.v[d], path))[i], *scal, p.dim())
-                slices.append(ps)
+                scal = [t.to(p.device) for t in (lr, clip, bc1, bc2)]
+                m = _parts(_get(state.m[d], path))[i]
+                v = _parts(_get(state.v[d], path))[i]
+                mine = p if split else _slice(p, dd, n, d)
+                if d < traced:
+                    mine, m, v = _adamw(cfg, mine, reduced[path, i][d], m, v,
+                                        *scal, p.dim())
+                else:
+                    mine, m, v = (torch.empty_like(t) for t in (mine, m, v))
+                slices.append(mine)
                 moments[d][0].append(m)
                 moments[d][1].append(v)
             for d in range(n):
-                dev = _parts(_get(params[d], path))[i].device
-                shards[d].append(
-                    slices[d] if dd < 0
-                    else torch.cat([t.to(dev) for t in slices], dim=dd))
+                p = _parts(_get(params[d], path))[i]
+                if dd < 0 or split:
+                    shards[d].append(slices[d])
+                    continue
+                got = [op_analysis.to(t, p.device, "all-gather")
+                       for t in (slices if d < traced else slices[:traced])]
+                shards[d].append(torch.cat(got, dim=dd) if d < traced
+                                 else torch.empty_like(p))
         for d in range(n):
             _put(new_p[d], path, _placed(shards[d], like))
             _put(new_m[d], path, _placed(moments[d][0], like))
@@ -276,10 +306,10 @@ def gather_moments(dims, mesh, moments: list, device="cpu"):
     slices (``init_state_zero``'s ``m`` or ``v``): the slices concatenated
     along their data dim, then the shards along their model dim
     (``dims``: as for ``init_state_zero``)."""
-    n = mesh.shape["data"]
+    n = mesh.n_replicas
     out = {}
     for path in _paths(moments[0]):
-        md, dd = dims[path]
+        md, dd, _ = dims[path]
         parts = []
         for i in range(len(_parts(_get(moments[0], path)))):
             sl = [_parts(_get(moments[d], path))[i].to(device)

@@ -15,8 +15,17 @@ as ``batch_spec`` says, each replica runs the forward over its model
 shards (``models/model.py::_Replica``), the loss is the global masked mean
 (every replica's NLL sum over the global token count), and the grads are
 summed over the replicas into ZeRO-1 slices
-(``optimizer.apply_updates_zero``).  A capacity-dispatch MoE trains on a
-data axis of 1 only (``_check_dispatch``).
+(``optimizer.apply_updates_zero``).  A capacity-dispatch MoE fills its
+experts' buffers in the whole batch's token order across the replicas
+(``models/model.py::CapacityDispatch``).  ``opts``: the layout options of
+``launch/sharding.py::place_train``.
+
+The compile analysis (``launch/dryrun.py``) runs the step with
+``computed=1``: replica 0 computes its rows, and every other replica's
+grads stand in as tensors of replica 0's shapes on its own devices, so
+the update's transfers and memory are the whole mesh's while one
+replica's work is traced (data replicas do the same work on their own
+rows).
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ from typing import Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.sharding import batch_spec, train_dims
+from repro_torch.launch.sharding import (NO_OPTIONS, Options, batch_spec,
+                                         leaf_at, train_dims)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
@@ -53,12 +63,15 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
 
 def nll_sums(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-             seq_chunk: int = 512, attn_impl: str | None = None, mesh=None):
+             seq_chunk: int = 512, attn_impl: str | None = None, mesh=None,
+             opts: Options = NO_OPTIONS, dispatch=None, replica: int = 0):
     """(masked NLL sum, mask sum) of a batch, each summed chunk by chunk.
     ``mesh``: one data replica's mesh, ``params`` its training layout
-    (``models/model.py::forward_hidden``)."""
+    (``models/model.py::forward_hidden``, with ``opts``, ``dispatch`` and
+    ``replica``)."""
     x = M.forward_hidden(cfg, params, batch, remat=True,
-                         attn_impl=attn_impl, mesh=mesh)  # (B, S, D)
+                         attn_impl=attn_impl, mesh=mesh, opts=opts,
+                         dispatch=dispatch, replica=replica)  # (B, S, D)
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if cfg.n_codebooks:
@@ -93,16 +106,36 @@ def loss_and_grads(cfg: ModelConfig, params, batch, seq_chunk: int = 512,
 
 
 def _live(tree):
-    """``tree`` (a placed tree: a leaf may be a tuple of shards) with every
-    tensor detached and requiring grad, and the list of those tensors in
+    """``tree`` (a placed tree, ``models/model.py::with_slices``'s: a leaf
+    may be a tuple of shards or a ``DataSlices``) with every tensor
+    detached and requiring grad, and the list of those tensors in
     ``tree_leaves`` order."""
-    live = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
-    return _refill(tree, iter(live)), live
+    live = []
+
+    def one(t):
+        t = t.detach().requires_grad_(True)
+        live.append(t)
+        return t
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, M.DataSlices):
+            return M.DataSlices(tuple(one(t) for t in node.parts), node.dim)
+        if isinstance(node, tuple):
+            return tuple(one(t) for t in node)
+        return one(node)
+
+    return walk(tree), live
 
 
 def _refill(tree, it):
+    """``tree``'s structure (a ``_live`` tree) filled from ``it``: a
+    data-split leaf as a tuple, one part per replica's slice."""
     if isinstance(tree, dict):
         return {k: _refill(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, M.DataSlices):
+        return tuple(next(it) for _ in tree.parts)
     if isinstance(tree, tuple):
         return tuple(next(it) for _ in tree)
     return next(it)
@@ -113,7 +146,9 @@ def _split_batch(cfg: ModelConfig, batch, mesh):
     when it divides the batch), on its controller.  A batch the axis does
     not divide is replicated by the reference, every replica computing
     the same grads: it goes whole to replica 0 alone, which computes them
-    once."""
+    once.  A list is taken as the replicas' rows, placed already."""
+    if isinstance(batch, list):
+        return batch
     B = batch["tokens"].shape[0]
     bax, n = batch_spec(cfg, B, mesh)
     if bax is None:
@@ -122,69 +157,111 @@ def _split_batch(cfg: ModelConfig, batch, mesh):
              for k, v in batch.items()} for d in range(n)]
 
 
-def _check_dispatch(cfg: ModelConfig, mesh) -> None:
-    """The reference's capacity dispatch fills each expert's buffer from
-    the whole batch's tokens in order, so replicas that dispatched their
-    own rows would keep other tokens; a data axis over 1 needs the
-    dispatch run across replicas, which comes with the compile analysis
-    (ROADMAP.md Queue A)."""
-    if (cfg.moe_experts and cfg.moe_impl == "capacity"
-            and mesh.shape["data"] > 1):
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl='capacity' on a data axis of "
-            f"{mesh.shape['data']} needs the dispatch run across the data "
-            f"replicas, which is not ported yet (ROADMAP.md Queue A: the "
-            f"compile analysis); use a (1, tp) mesh or moe_impl='dense'")
+def _count(parts, ctl) -> torch.Tensor:
+    """The whole batch's mask sum (its label count without a mask), on
+    ``ctl``, at least 1."""
+    total = None
+    for part in parts:
+        mask = part.get("loss_mask")
+        c = (torch.full((), float(part["labels"].numel()), device=ctl)
+             if mask is None else mask.float().sum().to(ctl))
+        total = c if total is None else total + c
+    return torch.clamp(total, min=1.0)
+
+
+def _stand_in(grads, params: list, d: int, dims, mesh, path=()):
+    """Replica ``d``'s grads as empty tensors of ``grads``' shapes (replica
+    0's) on replica ``d``'s devices: the compile analysis's stand-in for a
+    replica it does not trace.  A data-split leaf's parts lie on their
+    owners', each arriving as the traced step's would: every owner's slice
+    copied to replica ``d``'s controller layer by layer (the forward's
+    gathers) and its grad copied back (the backward's)."""
+    out = {}
+    for k in sorted(grads):
+        g, at = grads[k], path + (k,)
+        if isinstance(g, dict):
+            out[k] = _stand_in(g, params, d, dims, mesh, at)
+        elif dims[at].data_split:
+            ctl = mesh.replica(d).controller
+            parts = []
+            for p in params:
+                sl = leaf_at(p, at)
+                part = torch.zeros_like(sl)
+                for li in range(sl.shape[0]):
+                    sl[li].to(ctl)
+                    part[li] = torch.empty_like(sl[li], device=ctl).to(
+                        sl.device)
+                parts.append(part)
+            out[k] = tuple(parts)
+        elif isinstance(g, tuple):
+            out[k] = tuple(torch.empty_like(t) for t in leaf_at(params[d], at))
+        else:
+            out[k] = torch.empty_like(leaf_at(params[d], at))
+    return out
 
 
 def sharded_loss_and_grads(cfg: ModelConfig, params: list, batch, mesh,
                            seq_chunk: int = 512,
-                           attn_impl: str | None = None):
+                           attn_impl: str | None = None,
+                           opts: Options = NO_OPTIONS, computed=None):
     """(loss, grads) on a ``(data, model)`` mesh: the global masked mean
     (the replicas' NLL sums over the whole batch's mask sum) on replica 0's
     controller, and each computing replica's grads of its share in its
-    layout (a leaf's shards, a replicated leaf once), unsummed."""
-    _check_dispatch(cfg, mesh)
+    layout (a leaf's shards, a replicated leaf once, a data-split leaf one
+    part per owner's slice), unsummed.  ``batch``: the whole batch, or
+    the replicas' rows placed (a list).  ``computed``: how many replicas
+    compute (the compile analysis's 1; the others' grads and shares stand
+    in, ``_stand_in``)."""
+    dims = train_dims(cfg, mesh, opts)
     parts = _split_batch(cfg, batch, mesh)
     ctl = mesh.replica(0).controller
-    mask = batch.get("loss_mask")
-    count = (torch.tensor(float(batch["labels"].numel()), device=ctl)
-             if mask is None else mask.float().sum().to(ctl))
-    count = torch.clamp(count, min=1.0)
+    count = _count(parts, ctl)
+    dispatch = (M.CapacityDispatch(len(parts)) if cfg.moe_experts
+                and cfg.moe_impl == "capacity" and len(parts) > 1 else None)
+    n_run = len(parts) if computed is None else computed
     loss, grads = None, []
     for d, part in enumerate(parts):
         row = mesh.replica(d)
-        tree, live = _live(params[d])
-        nll, _ = nll_sums(cfg, tree, part, seq_chunk, attn_impl, mesh=row)
-        share = nll / count.to(nll.device)
-        got = torch.autograd.grad(share, live, allow_unused=True)
-        got = [torch.zeros_like(t) if g is None else g
-               for g, t in zip(got, live)]
-        grads.append(_refill(params[d], iter(got)))
+        if d >= n_run:
+            share = torch.zeros((), device=row.controller) \
+                * count.to(row.controller)
+            grads.append(_stand_in(grads[0], params, d, dims, mesh))
+        else:
+            tree, live = _live(M.with_slices(params, d, dims))
+            nll, _ = nll_sums(cfg, tree, part, seq_chunk, attn_impl,
+                              mesh=row, opts=opts, dispatch=dispatch,
+                              replica=d)
+            share = nll / count.to(nll.device)
+            got = torch.autograd.grad(share, live, allow_unused=True)
+            got = [torch.zeros_like(t) if g is None else g
+                   for g, t in zip(got, live)]
+            grads.append(_refill(tree, iter(got)))
         share = share.detach().to(ctl)
         loss = share if loss is None else loss + share
     return loss, grads
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
-                    attn_impl: str | None = None, mesh=None):
+                    attn_impl: str | None = None, mesh=None,
+                    opts: Options = NO_OPTIONS, computed=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``: ``loss_and_grads``, then ``apply_updates``.
     Returns new params; the given ones are only read.
 
     ``mesh``: a ``(data, model)`` mesh; ``params`` is then
-    ``launch/sharding.py::place_train``'s list and ``opt_state``
-    ``optimizer.init_state_zero``'s, and the step is
-    ``sharded_loss_and_grads``, then ``apply_updates_zero``."""
+    ``launch/sharding.py::place_train``'s list (with ``opts``) and
+    ``opt_state`` ``optimizer.init_state_zero``'s, and the step is
+    ``sharded_loss_and_grads`` (``computed`` as there), then
+    ``apply_updates_zero``."""
     if mesh is not None:
-        _check_dispatch(cfg, mesh)
-        dims = train_dims(cfg, mesh)
+        dims = train_dims(cfg, mesh, opts)
 
         def sharded_step(params, opt_state: AdamWState, batch):
-            loss, grads = sharded_loss_and_grads(cfg, params, batch, mesh,
-                                                 attn_impl=attn_impl)
+            loss, grads = sharded_loss_and_grads(
+                cfg, params, batch, mesh, attn_impl=attn_impl, opts=opts,
+                computed=computed)
             params, opt_state, gnorm = apply_updates_zero(
-                opt, dims, mesh, params, grads, opt_state)
+                opt, dims, mesh, params, grads, opt_state, traced=computed)
             return params, opt_state, {"loss": loss, "grad_norm": gnorm}
         return sharded_step
 

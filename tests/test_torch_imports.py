@@ -127,6 +127,10 @@ SLICE_MODULES = [
     "repro_torch.launch.train",
     "repro_torch.launch.mesh",
     "repro_torch.launch.sharding",
+    "repro_torch.launch.op_analysis",
+    "repro_torch.launch.specs",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.perf_probe",
 ]
 
 

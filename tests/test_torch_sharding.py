@@ -561,6 +561,14 @@ def test_place_train_splits_by_param_spec_and_gathers_back(arch):
     back = sh.gather_train(placed, cfg, mesh)
     for path, leaf in sh._leaves(params):
         assert torch.equal(dict(sh._leaves(back))[path], leaf), path
-    with pytest.raises(NotImplementedError, match="under a mesh"):
-        sh.place_train(M.init_params(get_reduced("hymba-1.5b"), 0),
-                       get_reduced("hymba-1.5b"), mesh)
+    # every family takes the training layout; Hymba's SSM columns and rows
+    # split as param_spec says and gather back bit for bit
+    hy = get_reduced("hymba-1.5b")
+    hp = M.init_params(hy, 0)
+    hplaced = sh.place_train(hp, hy, mesh)
+    for name in ("ssm_in", "ssm_out"):
+        got = dict(sh._leaves(hplaced[1]))[("blocks", name)]
+        assert isinstance(got, tuple) and len(got) == 2, name
+    for path, leaf in sh._leaves(hp):
+        assert torch.equal(dict(sh._leaves(sh.gather_train(
+            hplaced, hy, mesh)))[path], leaf), path

@@ -242,8 +242,9 @@ def test_unsplit_batch_runs_on_replica_0():
 def test_capacity_dispatch_trains_on_one_data_replica():
     """A capacity-dispatch MoE, whose reference dispatch fills the
     experts' buffers from the whole batch, trains on a (1, 2) mesh as JAX
-    does; on a data axis over 1 the step refuses rather than dispatch each
-    replica's rows apart."""
+    does; on a data axis over 1 the replicas dispatch their rows into the
+    whole batch's slots (models/model.py::CapacityDispatch), and the
+    step, built for such a mesh, matches JAX too."""
     cfg, params, batch, jl, jg = _setup("mixtral-8x7b",
                                         {"moe_impl": "capacity"})
     mesh = make_debug_mesh(1, 2, device="cpu")
@@ -255,11 +256,19 @@ def test_capacity_dispatch_trains_on_one_data_replica():
         assert float(np.max(np.abs(tg[key] - g_ref))) <= grad_tol(g_ref), key
     for shape in ((2, 1), (2, 2)):
         wide = make_debug_mesh(*shape, device="cpu")
-        with pytest.raises(NotImplementedError, match="capacity"):
-            TL.sharded_loss_and_grads(cfg, sh.place_train(params, cfg, wide),
-                                      _torch(batch), wide)
-        with pytest.raises(NotImplementedError, match="capacity"):
-            TL.make_train_step(cfg, O.AdamWConfig(), mesh=wide)
+        loss, grads = TL.sharded_loss_and_grads(
+            cfg, sh.place_train(params, cfg, wide), _torch(batch), wide,
+            seq_chunk=SEQ_CHUNK)
+        assert abs(float(loss) - jl) <= LOSS_RTOL * abs(jl), shape
+        tg = _summed(cfg, wide, grads)
+        for key, g_ref in jg.items():
+            assert float(np.max(np.abs(tg[key] - g_ref))) <= \
+                grad_tol(g_ref), (shape, key)
+        placed = sh.place_train(params, cfg, wide)
+        state = O.init_state_zero(sh.train_dims(cfg, wide), placed, wide)
+        _, _, m = TL.make_train_step(cfg, O.AdamWConfig(), mesh=wide)(
+            placed, state, _torch(batch))
+        assert float(m["loss"]) == float(loss)
 
 
 def test_global_norm_counts_a_shared_leaf_once():
@@ -272,7 +281,34 @@ def test_global_norm_counts_a_shared_leaf_once():
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "hymba-1.5b",
                                   "musicgen-large"])
 def test_recurrent_and_audio_families_under_a_mesh_raise(arch):
-    cfg = get_reduced(arch)
-    mesh = make_debug_mesh(1, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="recurrent and audio"):
-        M.forward_hidden(cfg, {}, {"tokens": None}, mesh=mesh)
+    """The recurrent and audio families no longer raise under a mesh: on a
+    (2, 2) mesh their loss and every grad leaf match JAX's (the one-shard
+    forward's tree as the reference), and one step keeps every data
+    replica's params identical (tests/test_torch_mesh_families.py holds
+    them on every mesh shape)."""
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    jcfg = dataclasses.replace(jax_reduced(arch), dtype="float32")
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(3))
+    params = M.params_from_numpy(_flat(jp), cfg)
+    rng = np.random.default_rng(5)
+    shape = (4, cfg.n_codebooks, 32) if cfg.n_codebooks else (4, 32)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape, dtype=np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, shape, dtype=np.int32)}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p: jax_loss_fn(jcfg, p, jb, seq_chunk=SEQ_CHUNK)))(jp)
+    mesh = make_debug_mesh(2, 2, device="cpu")
+    placed = sh.place_train(params, cfg, mesh)
+    loss, grads = TL.sharded_loss_and_grads(cfg, placed, _torch(batch), mesh,
+                                            seq_chunk=SEQ_CHUNK)
+    assert abs(float(loss) - float(jl)) <= LOSS_RTOL * abs(float(jl))
+    tg = _summed(cfg, mesh, grads)
+    for key, g_ref in _flat(jg).items():
+        err = float(np.max(np.abs(tg[key] - g_ref)))
+        assert err <= grad_tol(g_ref), (key, err)
+    state = O.init_state_zero(sh.train_dims(cfg, mesh), placed, mesh)
+    new, _, _ = TL.make_train_step(cfg, O.AdamWConfig(), mesh=mesh)(
+        placed, state, _torch(batch))
+    for (path, a), (_, b) in zip(sh._leaves(new[0]), sh._leaves(new[1])):
+        assert all(torch.equal(x, y) for x, y in
+                   zip(_shards(a), _shards(b))), path
