@@ -144,6 +144,13 @@ Phases, each fatal on failure:
                dispatch: a (2, 1) mesh step whose 4096-token dispatch
                chunk straddles both data replicas, against the one-device
                step;
+ mesh_decode — the reference's decode cache layout with every shard on
+               the one card, a batch of 1: Qwen2-0.5B at full depth on a
+               (2, 4) mesh and Gemma3-12B (4 layers) on (2, 16), the
+               cache's 16,384 positions split over the 2 data replicas
+               and hd over model; a 12,000-token prefill and 4 decode
+               steps against the one-device steps in f32 and bf16, each
+               step's ms and the peak memory printed;
  dryrun_cal — the compile analysis against the card: phase 24's
                one-device step and phase 24b's mesh step dry-run on fake
                cards in processes started at the beginning (their
@@ -445,6 +452,18 @@ MESH_FAMILY_BATCH = (4, 256)
 # phase capacity_data2: Mixtral-8x7B's 1 layer at full width, 2 rows of
 # 2048 tokens: one 4096-token dispatch chunk over both data replicas
 CAPACITY_BATCH = (2, 2048)
+# phase mesh_decode: the reference's decode cache layout on a (data, model)
+# mesh of shards on the one card, a batch of 1 (the sequence over data, hd
+# over model): arch -> (mesh, layers; None: full depth); a prefill of
+# MESH_DECODE_PREFILL tokens into a cache of MESH_DECODE_LEN positions (so
+# both data slices hold keys), then MESH_DECODE_STEPS decode steps against
+# the one-device step: f32 logits within MESH_DECODE_RTOL x max |logit|,
+# bf16 first-step L-inf within paper_eps
+MESH_DECODE = {"qwen2-0.5b": ((2, 4), None), "gemma3-12b": ((2, 16), 4)}
+MESH_DECODE_LEN = 16384
+MESH_DECODE_PREFILL = 12000
+MESH_DECODE_STEPS = 4
+MESH_DECODE_RTOL = 1e-4
 # where each kernel came from: (wrapper, source, TPU kernel it replaces)
 KERNELS = (
     ("paged_decode_attention", "src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -4481,11 +4500,11 @@ def phase_seqpar(torch):
                     f"{plain}")
     (la, ca), (lb, cb), (lf, _) = (runs[k] for k in ("unsplit", "seq-par",
                                                      "flat-gqa"))
-    ka = torch.cat(ca["k"], dim=3) if isinstance(ca["k"], tuple) else ca["k"]
-    va = torch.cat(ca["v"], dim=3) if isinstance(ca["v"], tuple) else ca["v"]
+    def whole(t):
+        return torch.cat(t, dim=3) if isinstance(t, tuple) else t
     bits = {"logits": bool(torch.equal(la, lb)),
-            "k": bool(torch.equal(ka, cb["k"])),
-            "v": bool(torch.equal(va, cb["v"]))}
+            "k": bool(torch.equal(whole(ca["k"]), whole(cb["k"]))),
+            "v": bool(torch.equal(whole(ca["v"]), whole(cb["v"])))}
     dl = float((la - lb).abs().max())
     flat_d = float((lf - la).abs().max())
     # flat-gqa's kernel call at R 1 against the plain version on layer 0
@@ -4663,6 +4682,123 @@ def phase_capacity_data2(torch):
                 launches=two[2])
 
 
+def mesh_decode_run(torch, cfg, params, toks, mesh):
+    """A prefill of MESH_DECODE_PREFILL tokens into a cache of
+    MESH_DECODE_LEN positions, then MESH_DECODE_STEPS decode steps, on
+    ``mesh`` (None: one device): (logits by step, the prefill's first,
+    ms by decode step, peak bytes above what was held, prefix launches)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as M
+    tree = params
+    if mesh is not None:
+        tree = M.with_slices(sh.place_train(params, cfg, mesh), 0,
+                             sh.train_dims(cfg, mesh))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    P = MESH_DECODE_PREFILL
+    with torch.no_grad():
+        reset_counts()
+        first, cache = M.replica_prefill(cfg, tree, {"tokens": toks[:, :P]},
+                                         mesh=mesh, max_len=MESH_DECODE_LEN)
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        if plain or launches["prefix_flash_attention"] <= 0:
+            die(f"[mesh decode] {cfg.name}: prefill launches {launches}, "
+                f"plain {plain}")
+        if mesh is not None and not isinstance(cache["k"], M.SeqSlices):
+            die(f"[mesh decode] {cfg.name}: the cache's sequence is not "
+                f"split over {mesh.n_replicas} replicas")
+        out, ms = [first], []
+        for i in range(MESH_DECODE_STEPS):
+            pos = torch.full((1,), P + 1 + i, dtype=torch.int32,
+                             device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(M.replica_decode_step(cfg, tree, toks[:, P + i:P + i
+                                                              + 1], cache,
+                                             pos, mesh=mesh))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - held
+    del cache, tree
+    return out, ms, peak, launches["prefix_flash_attention"]
+
+
+def phase_mesh_decode(torch, np):
+    """Phase mesh_decode: the reference's decode cache layout
+    (launch/sharding.py::cache_layout) on a (data, model) mesh with every
+    shard on the one card, a batch of 1: the cache's sequence split over
+    the data replicas (each attends to its slice, replica 0 merges the
+    partials) and hd over model (the shards' partial scores added on the
+    controller).  For each of MESH_DECODE, in f32 and bf16, a prefill
+    then MESH_DECODE_STEPS decode steps on the mesh against the same on
+    one device (models/model.py::replica_prefill / replica_decode_step):
+    every f32 logit within MESH_DECODE_RTOL x max |logit|, the bf16 first
+    step's L-inf within paper_eps; each decode step's ms and the peak
+    memory printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, (shape, layers) in MESH_DECODE.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        cfg, params = cut_params(torch, full, layers or full.n_layers)
+        mesh = make_debug_mesh(*shape, devices=["cuda:0"] * math.prod(shape))
+        lay = sh.cache_layout(cfg, mesh, 1, MESH_DECODE_LEN)
+        if lay != sh.CacheLayout(1, shape[0], "hd"):
+            die(f"[mesh decode] {arch}: layout {lay}")
+        gen = torch.Generator(device="cuda").manual_seed(47)
+        toks = torch.randint(0, cfg.vocab_size, (1, MESH_DECODE_PREFILL
+                                                 + MESH_DECODE_STEPS),
+                             generator=gen, device="cuda", dtype=torch.int32)
+        res = {}
+        for dt in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, dtype=dt)
+            p = f32_params(params) if dt == "float32" else params
+            res[dt] = {"one": mesh_decode_run(torch, c, p, toks, None),
+                       "mesh": mesh_decode_run(torch, c, p, toks, mesh)}
+            del p
+        f32 = res["float32"]
+        rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(f32["mesh"][0], f32["one"][0]))
+        a, b = (res["bfloat16"][k][0][1] for k in ("mesh", "one"))
+        linf = float((a - b).abs().max())
+        eps = paper_eps(float(b.abs().max()))
+        for dt, r in res.items():
+            print(f"[mesh decode] {arch} {dt}: full width, {cfg.n_layers} of "
+                  f"{full.n_layers} layers, {lay}, a {MESH_DECODE_PREFILL}-"
+                  f"token prefill into {MESH_DECODE_LEN} positions; decode "
+                  f"ms by step on the {shape} mesh "
+                  f"{[round(t, 3) for t in r['mesh'][1]]}, one device "
+                  f"{[round(t, 3) for t in r['one'][1]]}; peak "
+                  f"{r['mesh'][2]} B (one device {r['one'][2]} B) above "
+                  f"what was held; prefill prefix launches {r['mesh'][3]} "
+                  f"(one device {r['one'][3]}); {card_line(torch)}",
+                  flush=True)
+        print(f"[mesh decode] {arch}: f32 logits of the prefill and every "
+              f"step within {rel:.3e} x max |logit| of one device's (tol "
+              f"{MESH_DECODE_RTOL:g}); bf16 first step L-inf {linf:.4e} "
+              f"(paper_eps {eps:g})", flush=True)
+        if not rel <= MESH_DECODE_RTOL:
+            die(f"[mesh decode] {arch}: f32 relative {rel}")
+        if not linf <= eps:
+            die(f"[mesh decode] {arch}: bf16 first step {linf} > {eps}")
+        out[arch] = dict(rel=rel, linf=linf, eps=eps, launches={
+            dt: r["mesh"][3] for dt, r in res.items()}, ms={
+            dt: r["mesh"][1] for dt, r in res.items()}, peak={
+            dt: r["mesh"][2] for dt, r in res.items()}, shape=shape)
+        del params, res, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[mesh decode] phase wall {wall:.1f}s", flush=True)
+    return dict(runs=out, wall=wall)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -4711,6 +4847,7 @@ def main() -> None:
     seqpar = phase_seqpar(torch)
     families = phase_train_mesh_families(torch)
     cap2 = phase_capacity_data2(torch)
+    mdec = phase_mesh_decode(torch, np)
     cal = phase_dryrun_cal(torch, dry_procs, dry_t0, train, train_tp,
                            card_peak)
     for arch, o in paper.items():
@@ -4753,6 +4890,10 @@ def main() -> None:
                 f"{arch} train step, (2, 2) mesh"] = o["mesh"][2]
     by_path["prefix_flash_attention"][
         f"{MOE_ARCH} capacity train step, (2, 1) mesh"] = cap2["launches"]
+    for arch, o in mdec["runs"].items():
+        for dt, n in o["launches"].items():
+            by_path["prefix_flash_attention"][
+                f"{arch} {dt} prefill, {o['shape']} mesh decode"] = n
     for name in ("paged_decode_attention", "paged_prefill_attention"):
         by_path[name]["fault serve"] = fault["launches"][name]
         by_path[name]["hops serve"] = hops["launches"][name]
@@ -4881,6 +5022,12 @@ def main() -> None:
           f"[train mesh] phase wall {families['wall']:.1f}s; [capacity "
           f"data2] |d loss| {cap2['loss']:.3e}, grad norm {cap2['gnorm']:.3e}"
           f", phase wall {cap2['wall']:.1f}s", flush=True)
+    for arch, o in mdec["runs"].items():
+        print(f"[mesh decode] {arch} on {o['shape']}: f32 relative "
+              f"{o['rel']:.3e}, bf16 first step {o['linf']:.4e} (eps "
+              f"{o['eps']:g}); decode ms {o['ms']}; peak {o['peak']} B; "
+              f"phase wall {mdec['wall']:.1f}s; {card_line(torch)}",
+              flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f}s wall in all",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

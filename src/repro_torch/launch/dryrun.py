@@ -29,9 +29,18 @@ moments there, and its grads stand in as tensors of replica 0's shapes
 update (``optimizer.apply_updates_zero``) then runs over every replica,
 so replica 0's cards see the whole mesh's ZeRO-1 transfers and memory.
 ``tests/test_torch_dryrun_whole.py`` holds this to the whole mesh traced
-on a (4, 8) fake mesh.  Prefill and decode run one replica's step (replicas
-exchange nothing there).  Figures are per card, of replica 0's cards:
-the busiest in each term, and the controller beside shard 1.
+on a (4, 8) fake mesh.  Prefill runs replica 0's step (replicas exchange
+nothing there).  Decode runs over the whole mesh, its cache laid out by
+``launch/sharding.py::cache_layout``: a batch the data axes divide is
+replica 0's rows (replicas exchange nothing); otherwise the sequence
+splits over the replicas, the other replicas' slices lie on the peer
+cards, replica 0 sends them the step's q, k and v pieces, and their
+partial attention stands in (``computed=1``) before replica 0 merges it;
+``tests/test_torch_dryrun_decode.py`` holds that to the whole (4, 8)
+mesh too.  Figures are per card, of replica 0's cards: the busiest in
+each term, and the controller beside shard 1.  A decode record's
+``memory`` adds the cache's bytes on the busiest of those cards
+(``cache_figures``).
 
 Records keep the reference's keys where the port has the quantity
 (``memory``, ``roofline`` with ``t_compute_s``, ``t_memory_s``,
@@ -121,6 +130,27 @@ def analyze_case(cfg, shape, mesh, opts: SH.Options = SH.NO_OPTIONS,
         out, tally = op_analysis.analyze(fn, *args)
         del out, args
     return tally, time.perf_counter() - t0
+
+
+def cache_figures(cfg, shape, mesh) -> dict:
+    """The decode cache of ``shape`` on replica 0's cards as the decode
+    step lays it out (``models/model.py::replica_decode_cache``): the
+    busiest card's bytes of the whole cache and of its K/V."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_flatten
+    info = specs._info(shape)
+    with FakeTensorMode():
+        cache = M.replica_decode_cache(cfg, info["batch"], info["seq"],
+                                       mesh=mesh)
+    kv = tree_flatten([cache[n] for n in ("k", "v") if n in cache])[0]
+    every = tree_flatten(cache)[0]
+    row = mesh.replica(0).devices
+
+    def on(dev, ts):
+        return sum(t.nbytes for t in ts if t.device == dev)
+    card = max(row, key=lambda d: (on(d, every), -row.index(d)))
+    return {"cache_card": str(card), "cache_bytes": on(card, every),
+            "kv_cache_bytes": on(card, kv)}
 
 
 def _n_tokens(info) -> int:
@@ -216,6 +246,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
         peak_dev = max(row, key=lambda d: _card_figures(tally, d)
                        ["peak_bytes"])
         mem = _card_figures(tally, peak_dev)
+        if specs._info(shape_name)["kind"] == "decode":
+            mem.update(cache_figures(cfg, shape_name, mesh))
         rec.update(
             status="ok",
             n_chips=mesh.n_replicas * mesh.shape["model"],
@@ -225,7 +257,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
                     "argument_bytes": mem["argument_bytes"],
                     "output_bytes": mem["output_bytes"],
                     "temp_bytes": mem["peak_bytes"] - mem["argument_bytes"],
-                    "peak_bytes": mem["peak_bytes"]},
+                    "peak_bytes": mem["peak_bytes"],
+                    **{k: mem[k] for k in ("cache_card", "cache_bytes",
+                                           "kv_cache_bytes") if k in mem}},
             roofline=roofline(tally, mesh, cfg, shape_name),
             controller=_card_figures(tally, row[0]),
             shard=_card_figures(tally, row[1 % len(row)]),
@@ -269,12 +303,14 @@ def main(argv=None) -> None:
                               opts=tuple(args.opt))
                 status = rec["status"]
                 if status == "ok":
-                    rl = rec["roofline"]
+                    rl, mem = rec["roofline"], rec["memory"]
+                    kv = (f"cache={_gb(mem['cache_bytes'])} "
+                          if "cache_bytes" in mem else "")
                     extra = (f"dom={rl['dominant']} "
                              f"tc={rl['t_compute_s']:.3e} "
                              f"tm={rl['t_memory_s']:.3e} "
                              f"tx={rl['t_collective_s']:.3e} "
-                             f"peak={_gb(rec['memory']['peak_bytes'])} "
+                             f"peak={_gb(mem['peak_bytes'])} {kv}"
                              f"({rec['run_s']}s)")
                 elif status == "error":
                     failures += 1

@@ -59,7 +59,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.mesh import DeviceMesh, data_axes
 from repro_torch.models.config import ModelConfig
 
 # param-name kinds: "col" shards the output dim, "row" the contracting dim
@@ -594,6 +594,49 @@ def cache_shardings(cfg: ModelConfig, cache, mesh, batch: int):
     return tree_shardings(cache, spec, mesh)
 
 
+class CacheLayout(NamedTuple):
+    """Where a dense decode cache's K and V (L, B, S, KV, hd) lie
+    (``cache_layout``): ``rows`` the batch rows one data replica's cache
+    holds, ``seq_parts`` the data replicas its sequence splits over (1:
+    none), ``model`` its split over the model axis: ``"heads"`` (whole KV
+    heads a shard), ``"hd"`` (an hd slice a shard) or ``"none"`` (whole on
+    the controller)."""
+    rows: int
+    seq_parts: int
+    model: str
+
+
+def cache_layout(cfg: ModelConfig, mesh, batch: int,
+                 max_len: int) -> CacheLayout:
+    """The decode cache's layout that ``models/model.py``'s
+    ``replica_decode_cache``, ``replica_prefill`` and
+    ``replica_decode_step`` place and read, for a global ``batch``.
+
+    Over a ``DeviceMesh`` it is ``cache_shardings``' spec of the K/V leaf:
+    the batch over the data axes when they divide it (each replica its
+    rows), else the sequence over them when they divide it
+    (distributed-context decode), else neither (the reference replicates
+    the cache over data; the port keeps it on replica 0); hd over model.
+    One substitution: KV heads that split whole over the model axis
+    (``kv_heads_shardable``) lie by whole heads, which holds the same
+    bytes a card as hd over model and needs no reduce of scores (each
+    shard attends on its own heads).  A ``ServingMesh`` (one serving
+    replica's row) keeps the paged pool's rule (``pool_kv_spec``): whole
+    KV heads a shard, else the whole cache on the controller."""
+    tp = 1 if mesh is None else _axis_size(mesh, "model")
+    heads = tp > 1 and kv_heads_shardable(cfg, tp)
+    if not isinstance(mesh, DeviceMesh):
+        return CacheLayout(batch, 1, "heads" if heads else "none")
+    leaf = torch.empty((cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+                        cfg.hd), device="meta")
+    spec = cache_shardings(cfg, {"k": leaf}, mesh, batch)["k"]
+    _, dsize, ax = _data_size(mesh)
+    model = ("heads" if heads else
+             "hd" if tp > 1 and spec[4] == "model" else "none")
+    return CacheLayout(batch // dsize if spec[1] == ax else batch,
+                       dsize if spec[2] == ax else 1, model)
+
+
 @functools.lru_cache(maxsize=None)
 def _logical_tree(cfg: ModelConfig):
     from repro_torch.models.model import init_params
@@ -686,34 +729,29 @@ def leaf_at(tree, path):
 
 def layout_notes(cfg: ModelConfig, mesh, opts: Options = NO_OPTIONS) -> list:
     """Where the port's training layout departs from the reference's specs
-    (the compile analysis prints them beside the specs):  attention runs
-    on whole heads, so heads that do not tile the model axis are gathered
-    and attend on the controller (the reference splits the fused head
-    columns, and its cache's hd); the dense decode cache lies by whole KV
-    heads on the shards, or on the controller when the KV heads do not
-    split (the reference's ``cache_shardings`` splits hd over model and,
-    for a batch the data axes do not divide, the sequence over them);
-    a batch the data axes do not divide runs on replica 0 alone."""
+    (the compile analysis prints them beside the specs): the training and
+    prefill attention runs on whole heads, so heads that do not tile the
+    model axis are gathered and attend on the controller (the reference
+    splits the fused head columns); the recurrent scans run on the
+    controller.  The decode cache follows ``cache_layout``."""
     tp = _axis_size(mesh, "model")
-    _, dsize, _ = _data_size(mesh)
     out = []
     if cfg.family != "ssm":
         if kv_heads_shardable(cfg, tp):
             out.append(f"attention on whole heads: {cfg.n_heads // tp} query "
-                       f"/ {cfg.n_kv_heads // tp} KV heads a shard; the "
-                       f"dense cache by whole KV heads on the shards (the "
-                       f"reference splits its hd over model)")
+                       f"/ {cfg.n_kv_heads // tp} KV heads a shard, the "
+                       f"decode cache by whole KV heads (as many bytes a "
+                       f"card as the reference's hd over model)")
         else:
             out.append(f"attention on whole heads: {cfg.n_heads} query / "
                        f"{cfg.n_kv_heads} KV heads do not split over model="
-                       f"{tp}, so q, k, v are gathered and attend on each "
-                       f"replica's controller, and the dense cache lies "
-                       f"there (the reference splits the fused head columns "
-                       f"and the cache's hd over model)")
+                       f"{tp}, so the training and prefill q, k, v are "
+                       f"gathered and attend on each replica's controller "
+                       f"(the reference splits the fused head columns)")
     if cfg.family in ("ssm", "hybrid"):
         out.append("the recurrent scans run on each replica's controller "
-                   "over gathered columns (the reference lets GSPMD shard "
-                   "the state)")
+                   "over gathered columns, their state there (the reference "
+                   "lets GSPMD shard the state)")
     if opts.seq_par:
         out.append("seq-par: the prefill's query chunks dealt round-robin "
                    "over model, each shard through the prefix kernel over "
@@ -722,7 +760,4 @@ def layout_notes(cfg: ModelConfig, mesh, opts: Options = NO_OPTIONS) -> list:
         out.append("attn-fallback: a data-split attention weight's moments "
                    "take its slice's spec (the reference adds the data axes "
                    "a second time)")
-    out.append(f"a batch the data axes ({dsize}) do not divide runs on "
-               f"replica 0 alone (the reference replicates it; its decode "
-               f"cache then splits the sequence over data)")
     return out

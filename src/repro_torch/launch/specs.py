@@ -13,13 +13,16 @@ global shape, dtype and spec in the reference's trees, the figures its
 ``ShapeDtypeStruct``s carry.
 
 The kinds run the reference's steps in the training layout: ``train``
-``train_lib.make_train_step(mesh=)``; ``prefill`` and ``decode``
-``models/model.py::replica_prefill`` / ``replica_decode_step`` over one
-data replica's shards (replica 0's: the data replicas of a divisible
-batch do the same work, and an indivisible one runs on replica 0
-alone).  ``computed=1`` makes the train step trace replica 0 only, the
-others' grads standing in (``train_lib.sharded_loss_and_grads``);
-``None`` runs every replica.
+``train_lib.make_train_step(mesh=)``; ``prefill``
+``models/model.py::replica_prefill`` over replica 0's shards (the data
+replicas of a divisible batch do the same work, and an indivisible one
+runs on replica 0 alone); ``decode`` ``replica_decode_step`` over the
+whole mesh, its cache laid out by ``launch/sharding.py::cache_layout``
+(replica 0's rows of a divisible batch; else the sequence split over the
+data replicas, each attending to its slice).  ``computed=1`` traces
+replica 0 only, the others standing in: their grads in the train step
+(``train_lib.sharded_loss_and_grads``), their slices' partial attention
+in the decode step; ``None`` runs every replica.
 """
 from __future__ import annotations
 
@@ -200,16 +203,15 @@ def input_specs(cfg: ModelConfig, shape, mesh,
                 "logits on replica 0's controller; the cache as "
                 "replica_decode_cache lays it out")
 
-    shapes = _decode_shapes(cfg, batch)
-    part = _parts(cfg, shapes, mesh)[0]
-    rows = part["tokens"].shape[0]
-    cache = M.replica_decode_cache(cfg, rows, seq, params=tree, mesh=row,
+    part = _parts(cfg, _decode_shapes(cfg, batch), mesh)[0]
+    cache = M.replica_decode_cache(cfg, batch, seq, params=tree, mesh=mesh,
                                    opts=opts)
 
     def serve_step(params, tokens, cache, pos):
         with torch.no_grad():
             return M.replica_decode_step(cfg, params, tokens, cache, pos,
-                                         mesh=row, opts=opts)
+                                         mesh=mesh, opts=opts,
+                                         computed=computed)
     return (serve_step, (tree, part["tokens"], cache, part["pos"]),
             (2,), "logits on replica 0's controller; the cache written in "
-            "place")
+            "place, laid out by sharding.cache_layout")

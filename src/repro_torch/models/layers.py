@@ -441,20 +441,62 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     k/v_cache: (B, Smax, KV, hd); pos: (B,) cache length including the new
     token.  Scores are (B, H, Smax), linear in the context."""
     B, _, H, hd = q.shape
-    Smax, KV = k_cache.shape[1], k_cache.shape[2]
-    R = H // KV
-    qg = q.reshape(B, KV, R, hd).float()
-    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float()) * hd ** -0.5
-    if logit_cap:
-        s = softcap(s, logit_cap)
-    k_pos = torch.arange(Smax, device=q.device)[None]
-    mask = k_pos < pos[:, None]
-    if window > 0:
-        mask &= k_pos > pos[:, None] - 1 - window
-    s = torch.where(mask[:, None, None], s, NEG_INF)
+    KV = k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd).float()
+    s = decode_scores(torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float()),
+                      pos, hd, window=window, logit_cap=logit_cap)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrk,bkgd->bgrd", p, v_cache.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_scores(s: torch.Tensor, pos: torch.Tensor, hd: int, *,
+                  offset: int = 0, window: int = 0,
+                  logit_cap: float = 0.0) -> torch.Tensor:
+    """``decode_attention``'s scores from the raw products q . k (B, KV,
+    R, S) f32 of the cache positions ``[offset, offset + S)``: scaled,
+    softcapped, and NEG_INF where a key is at or past ``pos`` or before
+    the window, in that order."""
+    s = s * hd ** -0.5
+    if logit_cap:
+        s = softcap(s, logit_cap)
+    k_pos = torch.arange(s.shape[-1], device=s.device)[None]
+    if offset:
+        k_pos = k_pos + offset
+    mask = k_pos < pos[:, None]
+    if window > 0:
+        mask &= k_pos > pos[:, None] - 1 - window
+    return torch.where(mask[:, None, None], s, NEG_INF)
+
+
+def decode_partial(s: torch.Tensor):
+    """One slice's softmax statistics of ``decode_scores``' ``s``: (m, e,
+    l), each row's largest score, exp(s - m) and its sum.  A slice with no
+    visible key gives m = NEG_INF, which ``merge_partials`` weighs by
+    exactly 0 beside a slice that has one."""
+    m = s.amax(-1)
+    e = torch.exp(s - m[..., None])
+    return m, e, e.sum(-1)
+
+
+def merge_partials(parts, device) -> torch.Tensor:
+    """The attention output (B, KV, R, hd) f32 of the slices' partials
+    ``(m, l, o)`` (o = e . V unnormalised), merged on ``device`` in the
+    given order from m = NEG_INF, l = o = 0; each partial's copy there is
+    tallied as an all-reduce."""
+    m = l = o = None
+    for pm, pl, po in parts:
+        pm, pl, po = (op_analysis.to(t, device, "all-reduce")
+                      for t in (pm, pl, po))
+        if m is None:
+            m = torch.full_like(pm, NEG_INF)
+            l, o = torch.zeros_like(pl), torch.zeros_like(po)
+        new = torch.maximum(m, pm)
+        a, b = torch.exp(m - new), torch.exp(pm - new)
+        l = l * a + pl * b
+        o = o * a[..., None] + po * b[..., None]
+        m = new
+    return o / l[..., None]
 
 
 def stable_top_k(logits: torch.Tensor, k: int):

@@ -67,7 +67,11 @@ recurrent scans on the controller; without one, the whole tree as a
 one-shard replica.  ``training/train_lib.py::make_train_step(mesh=)``
 runs it on each data replica.  ``replica_prefill`` / ``replica_decode_step``
 run the reference's prefill and decode step in that layout (the compile
-analysis's), with the layout options of ``launch/sharding.py::Options``.
+analysis's), with the layout options of ``launch/sharding.py::Options``;
+over a ``DeviceMesh`` their dense cache lies as the reference's
+``cache_shardings`` lays it (``launch/sharding.py::cache_layout``: hd
+over model, and a batch the data axes do not divide splits the sequence
+over them, each data replica attending to its slice).
 
 The recurrent steps never write a state tensor they were given: they
 build new ones, and replace the cache dict's entries.  The sequential
@@ -89,7 +93,8 @@ from repro_torch.kernels import ops
 from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import ServingMesh
 from repro_torch.launch.sharding import (NO_OPTIONS, Options,
-                                         check_mesh_family, expert_rule,
+                                         cache_layout, check_mesh_family,
+                                         expert_rule,
                                          kv_heads_shardable, leaf_at,
                                          router_split, trivial)
 from repro_torch.models import layers as L
@@ -1128,76 +1133,166 @@ def _logits_seq(cfg: ModelConfig, rep: _Replica, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def replica_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                         params=None, mesh=None,
-                         opts: Options = NO_OPTIONS, device=None):
-    """The dense decode cache in the training layout of one data replica
-    (``replica_decode_step``'s): {"k", "v"} each a tuple of one (L, B,
-    max_len, KV / tp, hd) part a shard when its attention runs on its
-    whole heads (``heads_split`` of ``params``' layer 0), else one (L, B,
-    max_len, KV, hd) tensor on the controller; Hymba's "ssm" on the
-    controller; xLSTM's state there.  Zeros in ``cfg.tdtype``."""
-    rep = _replica(cfg, params, mesh, opts)
-    ctl = rep.controller if device is None else device
-    if cfg.family == "ssm":
-        return _xlstm_init_state(cfg, batch, ctl)
-    p = _rep_layer(rep, 0)
-    tp = len(rep.devices)
-    if heads_split(cfg, rep, p):
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads // tp, cfg.hd)
-        k = tuple(torch.zeros(shape, dtype=cfg.tdtype, device=d)
-                  for d in rep.devices)
-        v = tuple(torch.zeros(shape, dtype=cfg.tdtype, device=d)
-                  for d in rep.devices)
-    else:
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        k = torch.zeros(shape, dtype=cfg.tdtype, device=ctl)
-        v = torch.zeros(shape, dtype=cfg.tdtype, device=ctl)
-    cache = {"k": k, "v": v}
-    if cfg.family == "hybrid":
-        cache["ssm"] = _hybrid_ssm_init(cfg, batch, ctl)
-    return cache
+@dataclasses.dataclass
+class SeqSlices:
+    """A decode cache's K or V with its sequence split over a
+    ``DeviceMesh``'s data replicas (distributed-context decode,
+    ``launch/sharding.py::cache_layout``): replica d's slice of positions
+    ``[d S / n, (d + 1) S / n)`` on its devices, as one tensor on its
+    controller or a tuple of one part a model shard."""
+    parts: tuple
+
+
+torch.utils._pytree.register_dataclass(SeqSlices, field_names=["parts"])
 
 
 def _parts(t) -> tuple:
     return t if isinstance(t, tuple) else (t,)
 
 
+def _slices(kv) -> tuple:
+    """A cache K or V as its slices (one unless the sequence is split),
+    each a tuple of its parts (one a model shard, or the whole)."""
+    return tuple(_parts(p) for p in
+                 (kv.parts if isinstance(kv, SeqSlices) else (kv,)))
+
+
+def _split(cfg: ModelConfig, parts: tuple) -> str:
+    """The model split of one slice's parts: ``cache_layout``'s model."""
+    if len(parts) == 1:
+        return "none"
+    return "heads" if parts[0].shape[-1] == cfg.hd else "hd"
+
+
+def _piece(parts, model: str, m: int, tp: int) -> torch.Tensor:
+    """Shard ``m``'s piece of a (B, S, heads, hd) tensor in the cache's
+    model split: its own part when ``parts`` has one a shard, else a cut
+    of the whole one (its heads, or its hd slice)."""
+    if len(parts) == tp:
+        return parts[m]
+    whole = parts[0]
+    if model == "none":
+        return whole
+    dim = 2 if model == "heads" else 3
+    n = whole.shape[dim] // tp
+    return whole.narrow(dim, m * n, n)
+
+
+def _row0(mesh):
+    """Replica 0's mesh of a ``DeviceMesh`` or ``ServingMesh`` (None stays
+    None)."""
+    return None if mesh is None else mesh.replica(0)
+
+
+def _cache_kv(cfg: ModelConfig, lay, mesh, max_len: int, ctl, make):
+    """One of K or V in ``lay`` (a ``CacheLayout``), made by ``make``
+    (``torch.zeros``/``torch.empty``)."""
+    S = max_len // lay.seq_parts
+
+    def one(row, device):
+        dims = (cfg.n_layers, lay.rows, S)
+        if lay.model == "none":
+            return make(dims + (cfg.n_kv_heads, cfg.hd), dtype=cfg.tdtype,
+                        device=device)
+        tp = len(row.devices)
+        shape = dims + ((cfg.n_kv_heads // tp, cfg.hd) if lay.model == "heads"
+                        else (cfg.n_kv_heads, cfg.hd // tp))
+        return tuple(make(shape, dtype=cfg.tdtype, device=d)
+                     for d in row.devices)
+
+    if lay.seq_parts == 1:
+        return one(_row0(mesh), ctl)
+    rows = [mesh.replica(d) for d in range(lay.seq_parts)]
+    return SeqSlices(tuple(one(r, r.controller) for r in rows))
+
+
+def replica_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                         params=None, mesh=None,
+                         opts: Options = NO_OPTIONS):
+    """The dense decode cache of ``replica_decode_step`` for a global
+    ``batch``, laid out by ``launch/sharding.py::cache_layout``: {"k",
+    "v"} each replica 0's rows (``batch`` / data when the data axes divide
+    it) as a tuple of one (L, B, max_len, KV / tp, hd) (whole heads) or
+    (L, B, max_len, KV, hd / tp) (hd over model) part a shard, or one (L,
+    B, max_len, KV, hd) tensor on the controller; or, when the sequence
+    splits over a ``DeviceMesh``'s data replicas, a ``SeqSlices`` of each
+    replica's max_len / data positions so laid out on its devices.
+    Hymba's "ssm" and xLSTM's state lie on replica 0's controller.  Zeros
+    in ``cfg.tdtype``.  ``mesh``: a ``DeviceMesh``, one replica's
+    ``ServingMesh``, or None (a one-shard mesh of ``params``' device)."""
+    rep = _replica(cfg, params, _row0(mesh), opts)
+    ctl = rep.controller
+    lay = cache_layout(cfg, mesh, batch, max_len)
+    if cfg.family == "ssm":
+        return _xlstm_init_state(cfg, lay.rows, ctl)
+    cache = {n: _cache_kv(cfg, lay, mesh, max_len, ctl, torch.zeros)
+             for n in ("k", "v")}
+    if cfg.family == "hybrid":
+        cache["ssm"] = _hybrid_ssm_init(cfg, lay.rows, ctl)
+    return cache
+
+
+def _write_prefix(cfg: ModelConfig, kv, li: int, parts) -> None:
+    """Write a prefill's K or V (``parts``: one (B, S, heads, hd) a shard,
+    or the whole) into layer ``li`` of the cache ``kv`` from position 0,
+    each slice its positions, each shard its piece."""
+    S = parts[0].shape[1]
+    for d, sl in enumerate(_slices(kv)):
+        size = sl[0].shape[2]
+        off = d * size
+        n = min(size, S - off)
+        if n <= 0:
+            break
+        model = _split(cfg, sl)
+        for m, dst in enumerate(sl):
+            dst[li][:, :n] = _piece(parts, model, m, len(sl))[:, off:off + n]
+
+
 def replica_prefill(cfg: ModelConfig, params, inputs, *, mesh=None,
                     opts: Options = NO_OPTIONS,
-                    attn_impl: str | None = None):
-    """The reference's ``prefill`` from position 0 over one data
-    replica's training layout (``place_train``; the compile analysis's
-    prefill): (logits_last (B, 1, [K,] V) f32, cache).  The cache holds
-    the full sequence in ``replica_decode_cache``'s layout (xLSTM: the
-    state after it; Hymba adds "ssm").  With ``opts.seq_par`` q, k and v
-    are gathered and the attention runs through
-    ``layers.flash_attention_seqpar`` over the replica's devices, and the
-    cache lies on the controller."""
+                    attn_impl: str | None = None, max_len: int | None = None):
+    """The reference's ``prefill`` from position 0 over replica 0's
+    training layout (``place_train``; the compile analysis's prefill):
+    (logits_last (B, 1, [K,] V) f32, cache).  The cache holds ``max_len``
+    positions (default: the sequence's), the sequence's written from 0,
+    in ``replica_decode_cache``'s layout, so ``replica_decode_step``
+    continues from it (xLSTM: the state after it; Hymba adds "ssm").
+    ``mesh``: as for ``replica_decode_cache``; a ``DeviceMesh`` whose data
+    axes divide the batch prefills replica 0's rows of ``inputs`` (the
+    others do the same work on theirs).  The attention runs on replica
+    0's shards on whole heads, or on its controller when the heads do not
+    split; with ``opts.seq_par`` q, k and v are gathered and it runs
+    through ``layers.flash_attention_seqpar`` over the replica's
+    devices."""
     _check_family(cfg)
-    rep = _replica(cfg, params, mesh, opts)
+    rep = _replica(cfg, params, _row0(mesh), opts)
+    tokens = inputs["tokens"] if isinstance(inputs, Mapping) else inputs
+    rows = cache_layout(cfg, mesh, tokens.shape[0], 1).rows
+    if rows != tokens.shape[0]:
+        inputs = ({k: t[:rows] for k, t in inputs.items()}
+                  if isinstance(inputs, Mapping) else inputs[:rows])
     x = _embed_seq(cfg, rep, inputs)
     B, S = x.shape[:2]
     if cfg.family == "ssm":
         x, state = _run_xlstm(cfg, rep, x,
                               _xlstm_init_state(cfg, B, x.device))
         return _logits_seq(cfg, rep, x[:, -1:]), state
+    max_len = S if max_len is None else max_len
+    lay = cache_layout(cfg, mesh, tokens.shape[0], max_len)
+    make = torch.empty if max_len == S else torch.zeros
+    cache = {n: _cache_kv(cfg, lay, mesh, max_len, rep.controller, make)
+             for n in ("k", "v")}
     windows = cfg.layer_windows()
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    cache, new_ssm = None, []
+    new_ssm = []
     for li in range(cfg.n_layers):
         p = _rep_layer(rep, li)
         parts = _qkv_parts(cfg, rep, p, L.rms_norm(x, p["ln1"], cfg.norm_eps),
                            positions, whole=opts.seq_par)
-        if cache is None:
-            shapes = [(cfg.n_layers,) + k.shape for _, k, _ in parts]
-            cache = {n: tuple(torch.empty(sh, dtype=k.dtype, device=k.device)
-                              for sh, (_, k, _) in zip(shapes, parts))
-                     for n in ("k", "v")}
+        _write_prefix(cfg, cache["k"], li, [k for _, k, _ in parts])
+        _write_prefix(cfg, cache["v"], li, [v for _, _, v in parts])
         outs = []
-        for j, (q, k, v) in enumerate(parts):
-            cache["k"][j][li] = k
-            cache["v"][j][li] = v
+        for q, k, v in parts:
             if opts.seq_par:
                 o = L.flash_attention_seqpar(
                     q, k, v, window=windows[li],
@@ -1212,49 +1307,170 @@ def replica_prefill(cfg: ModelConfig, params, inputs, *, mesh=None,
             x = x + y
             new_ssm.append(st)
         x = x + _ffn_seq(cfg, rep, p, x, li)
-    cache = {n: t if len(t) > 1 else t[0] for n, t in cache.items()}
     if new_ssm:
         cache["ssm"] = torch.stack(new_ssm)
     return _logits_seq(cfg, rep, x[:, -1:]), cache
 
 
+def _write_token(c, t, pos, off: int, seq: bool) -> None:
+    """Write the new token's (B, heads, hd) ``t`` in place at position
+    ``pos - 1`` of the cache layer ``c`` (B, S, heads, hd), which holds
+    positions ``[off, off + S)``; with ``seq`` (one slice of a split
+    sequence) a row whose position lies in another slice keeps its own."""
+    bidx = torch.arange(c.shape[0], device=c.device)
+    at = (pos - 1).long() - off
+    t = t.to(c.dtype)
+    if seq:
+        own = (at >= 0) & (at < c.shape[1])
+        at = at.clamp(0, c.shape[1] - 1)
+        t = torch.where(own[:, None, None], t, c[bidx, at])
+    c[bidx, at] = t
+
+
+def _partial_attend(cfg: ModelConfig, q, kc, vc, pos, off: int,
+                    window: int):
+    """One slice's (m, l, o) over its whole heads (``layers.
+    decode_partial``; o = e . V unnormalised, f32)."""
+    B, _, H, hd = q.shape
+    KV = kc.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd).float()
+    s = L.decode_scores(torch.einsum("bgrd,bkgd->bgrk", qg, kc.float()),
+                        pos, hd, offset=off, window=window,
+                        logit_cap=cfg.attn_logit_softcap)
+    m, e, l = L.decode_partial(s)
+    return m, l, torch.einsum("bgrk,bkgd->bgrd", e, vc.float())
+
+
+def _slice_attend(cfg: ModelConfig, row, model: str, sent, kd, vd, li: int,
+                  off: int, window: int, partial: bool) -> list:
+    """Layer ``li``'s attention over one slice (``kd``/``vd``, positions
+    from ``off``) on its replica's devices ``row``, the new token written
+    first; ``sent``: each part's (q, k, v, pos) pieces on its device.
+    Whole heads, or no split: one result a part, on its device, through
+    ``layers.decode_attention`` (or ``_partial_attend``).  hd over model:
+    each shard's partial scores q_m . K_m in f32 are added on the
+    controller in shard order (the reference's all-reduce), the scale,
+    softcap, masks and softmax run there, and each shard's P . V_m slice
+    is gathered along hd: one result, on the controller.  ``partial``:
+    results (m, l, o) for ``layers.merge_partials``, else the outputs (B,
+    1, heads * hd) in q's dtype."""
+    seq = partial
+    for (_, k, v, p), kc, vc in zip(sent, kd, vd):
+        _write_token(kc[li], k[:, 0], p, off, seq)
+        _write_token(vc[li], v[:, 0], p, off, seq)
+    cap = cfg.attn_logit_softcap
+    if model != "hd":
+        out = []
+        for (q, _, _, p), kc, vc in zip(sent, kd, vd):
+            if partial:
+                out.append(_partial_attend(cfg, q, kc[li], vc[li], p, off,
+                                           window))
+            else:
+                out.append(L.decode_attention(
+                    q, kc[li], vc[li], pos=p, window=window,
+                    logit_cap=cap).reshape(q.shape[0], 1, -1))
+        return out
+    ctl = row.controller
+    raw = None
+    for (q, _, _, _), kc in zip(sent, kd):
+        B, _, H, n = q.shape
+        KV = kc.shape[3]
+        qg = q.reshape(B, KV, H // KV, n).float()
+        s = op_analysis.to(torch.einsum("bgrd,bkgd->bgrk", qg,
+                                        kc[li].float()), ctl, "all-reduce")
+        raw = s if raw is None else raw + s
+    s = L.decode_scores(raw, sent[0][3], cfg.hd, offset=off, window=window,
+                        logit_cap=cap)
+    if partial:
+        m, p, l = L.decode_partial(s)
+    else:
+        p = torch.softmax(s, dim=-1)
+    o = torch.cat([op_analysis.to(torch.einsum(
+        "bgrk,bkgd->bgrd", p.to(vc.device), vc[li].float()), ctl,
+        "all-gather") for vc in vd], dim=-1)
+    if partial:
+        return [(m, l, o)]
+    return [o.reshape(B, 1, -1).to(sent[0][0].dtype)]
+
+
+def _stand_in(cfg: ModelConfig, row, model: str, kd, B: int) -> list:
+    """The partials of a slice the step does not compute (the compile
+    analysis's stand-ins): neutral ones of the computed slices' shapes,
+    on the devices that would hold them."""
+    R = cfg.n_heads // cfg.n_kv_heads
+    where = ([(row.controller, cfg.n_kv_heads)] if model == "hd" else
+             [(kc.device, kc.shape[3]) for kc in kd])
+    return [(torch.full((B, kv, R), L.NEG_INF, device=dev),
+             torch.zeros((B, kv, R), device=dev),
+             torch.zeros((B, kv, R, cfg.hd), device=dev))
+            for dev, kv in where]
+
+
+def _decode_attend(cfg: ModelConfig, rep: _Replica, rows, parts, cache,
+                   li: int, pos, window: int, computed) -> list:
+    """Layer ``li``'s decode attention of this step's (q, k, v) ``parts``
+    over the cache: the outputs (B, 1, heads * hd), one a shard of
+    replica 0 (whole heads) or one on its controller.  Each slice's
+    devices get their pieces of q, k, v and pos from replica 0 and attend
+    to it (``_slice_attend``); over a split sequence each slice gives its
+    partial (m, l, o), merged in replica order where replica 0 holds the
+    result (distributed-context decode).  Slices from index ``computed``
+    on get their pieces but stand in (``_stand_in``)."""
+    ks, vs = _slices(cache["k"]), _slices(cache["v"])
+    model, tp = _split(cfg, ks[0]), len(ks[0])
+    partial = len(ks) > 1
+    B = pos.shape[0]
+    results = []
+    for d, (row, kd, vd) in enumerate(zip(rows, ks, vs)):
+        sent = [tuple(_piece([t[j] for t in parts], model, m, tp).to(kc.device)
+                      for j in range(3)) + (pos.to(kc.device),)
+                for m, kc in enumerate(kd)]
+        if computed is not None and d >= computed:
+            results.append(_stand_in(cfg, row, model, kd, B))
+        else:
+            results.append(_slice_attend(cfg, row, model, sent, kd, vd, li,
+                                         d * kd[0].shape[2], window, partial))
+    if not partial:
+        return results[0]
+    dtype = parts[0][0].dtype
+    where = rep.devices[:tp] if model == "heads" else [rep.controller]
+    return [L.merge_partials([r[j] for r in results], dev)
+            .reshape(B, 1, -1).to(dtype) for j, dev in enumerate(where)]
+
+
 def replica_decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
-                        mesh=None, opts: Options = NO_OPTIONS):
-    """The reference's ``decode_step`` over one data replica's training
-    layout: one token (B, 1) or (B, K, 1) over ``replica_decode_cache``'s
-    cache, written in place at ``pos - 1`` (the recurrent state replaced
-    by new tensors), attention through the plain
-    ``layers.decode_attention`` as the reference's; returns the (B, 1,
-    [K,] V) f32 logits on the controller."""
+                        mesh=None, opts: Options = NO_OPTIONS,
+                        computed: int | None = None):
+    """The reference's ``decode_step`` over replica 0's training layout:
+    one token (B, 1) or (B, K, 1) over ``replica_decode_cache``'s cache,
+    written in place at ``pos - 1`` (the recurrent state replaced by new
+    tensors), attention as the reference's plain
+    ``layers.decode_attention`` computes it (``_decode_attend``); returns
+    the (B, 1, [K,] V) f32 logits on replica 0's controller.  Everything
+    but the attention runs on replica 0; over a ``DeviceMesh`` whose data
+    replicas split the cache's sequence, each replica attends to its
+    slice.  ``computed``: the slices that attend (the compile analysis
+    traces replica 0 alone, 1; None: all)."""
     _check_family(cfg)
-    rep = _replica(cfg, params, mesh, opts)
+    rep = _replica(cfg, params, _row0(mesh), opts)
     x = _embed_seq(cfg, rep, tokens)
     if cfg.family == "ssm":
         x, new_state = _run_xlstm(cfg, rep, x, cache)
         cache.update(new_state)
         return _logits_seq(cfg, rep, x)
-    B = x.shape[0]
     windows = cfg.layer_windows()
     pos = pos.to(rep.controller)
     rope_pos = (pos - 1)[:, None]
+    rows = ([mesh.replica(d) for d in range(len(cache["k"].parts))]
+            if isinstance(cache["k"], SeqSlices) else [rep.mesh])
     new_ssm = []
     for li in range(cfg.n_layers):
         p = _rep_layer(rep, li)
         parts = _qkv_parts(cfg, rep, p, L.rms_norm(x, p["ln1"], cfg.norm_eps),
                            rope_pos)
-        outs = []
-        for (q, k, v), kc, vc in zip(parts, _parts(cache["k"]),
-                                     _parts(cache["v"])):
-            dev = kc.device
-            bidx = torch.arange(B, device=dev)
-            at = (pos - 1).long().to(dev)
-            kc[li][bidx, at] = k[:, 0].to(dev, kc.dtype)
-            vc[li][bidx, at] = v[:, 0].to(dev, vc.dtype)
-            o = L.decode_attention(q.to(dev), kc[li], vc[li], pos=pos.to(dev),
-                                   window=windows[li],
-                                   logit_cap=cfg.attn_logit_softcap)
-            outs.append(o.reshape(B, 1, -1))
-        x = x + rep.row(p["wo"], outs)
+        x = x + rep.row(p["wo"], _decode_attend(cfg, rep, rows, parts, cache,
+                                                li, pos, windows[li],
+                                                computed))
         if cfg.family == "hybrid":
             y, st = _ssm_branch_seq(cfg, p, x, cache["ssm"][li], rep=rep)
             x = x + y
