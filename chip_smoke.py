@@ -150,7 +150,11 @@ Phases, each fatal on failure:
                cache's 16,384 positions split over the 2 data replicas
                and hd over model; a 12,000-token prefill and 4 decode
                steps against the one-device steps in f32 and bf16, each
-               step's ms and the peak memory printed;
+               step's ms and the peak memory printed; then xLSTM-1.3B (16
+               blocks) and Hymba-1.5B (8 layers) on (2, 4) meshes, a
+               1024-token prefill, their recurrent state split over model
+               as the reference lays it out (each shard stepping its
+               part), Hymba's K/V over 2048 positions;
  dryrun_cal — the compile analysis against the card: phase 24's
                one-device step and phase 24b's mesh step dry-run on fake
                cards in processes started at the beginning (their
@@ -458,10 +462,23 @@ CAPACITY_BATCH = (2, 2048)
 # MESH_DECODE_PREFILL tokens into a cache of MESH_DECODE_LEN positions (so
 # both data slices hold keys), then MESH_DECODE_STEPS decode steps against
 # the one-device step: f32 logits within MESH_DECODE_RTOL x max |logit|,
-# bf16 first-step L-inf within paper_eps
-MESH_DECODE = {"qwen2-0.5b": ((2, 4), None), "gemma3-12b": ((2, 16), 4)}
+# bf16 first-step L-inf within paper_eps.  The recurrent families lay their
+# state out as the reference does too (launch/sharding.py::state_layout:
+# xLSTM's leaves and Hymba's ssm split over model, each shard stepping its
+# part), at RECURRENT_LAYERS' depth and lengths of their own
+# (MESH_DECODE_RECURRENT: the state has no sequence to split, and Hymba's
+# per-token scan is launch-bound; Hymba's K/V still splits its positions
+# over both data slices); their bf16 first step is held to phase 19's
+# rule, max(paper_eps, 2 x the one-device bf16 step's L-inf from the f32
+# one)
+MESH_DECODE = {"qwen2-0.5b": ((2, 4), None), "gemma3-12b": ((2, 16), 4),
+               "xlstm-1.3b": ((2, 4), RECURRENT_LAYERS["xlstm-1.3b"]),
+               "hymba-1.5b": ((2, 4), RECURRENT_LAYERS["hymba-1.5b"])}
 MESH_DECODE_LEN = 16384
 MESH_DECODE_PREFILL = 12000
+# arch -> (prefill tokens, cache positions)
+MESH_DECODE_RECURRENT = {"xlstm-1.3b": (1024, 1024),
+                         "hymba-1.5b": (1024, 2048)}
 MESH_DECODE_STEPS = 4
 MESH_DECODE_RTOL = 1e-4
 # where each kernel came from: (wrapper, source, TPU kernel it replaces)
@@ -4682,11 +4699,51 @@ def phase_capacity_data2(torch):
                 launches=two[2])
 
 
-def mesh_decode_run(torch, cfg, params, toks, mesh):
-    """A prefill of MESH_DECODE_PREFILL tokens into a cache of
-    MESH_DECODE_LEN positions, then MESH_DECODE_STEPS decode steps, on
-    ``mesh`` (None: one device): (logits by step, the prefill's first,
-    ms by decode step, peak bytes above what was held, prefix launches)."""
+def mesh_decode_lengths(name):
+    """(prefill tokens, cache positions) of ``name``'s mesh decode."""
+    return MESH_DECODE_RECURRENT.get(name, (MESH_DECODE_PREFILL,
+                                            MESH_DECODE_LEN))
+
+
+def check_state_split(cfg, cache, mesh, when):
+    """Die unless every recurrent state leaf that ``state_layout`` splits
+    over ``mesh``'s model axis is one part a shard, on the shard's device,
+    its split dim cut by the axis, and every other leaf one tensor on the
+    controller."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import model as M
+    lay = sh.state_layout(cfg, mesh, 1)
+    whole = M.init_decode_cache(cfg, 1, 0, device="meta")
+    tree = {"ssm": whole["ssm"]} if cfg.family == "hybrid" else whole
+    got = {"ssm": cache["ssm"]} if cfg.family == "hybrid" else cache
+    row = mesh.replica(0).devices
+    for path, d in lay.dims.items():
+        want, leaf = leaf_of(tree, path), leaf_of(got, path)
+        if d < 0:
+            ok = (not isinstance(leaf, tuple) and leaf.shape == want.shape
+                  and leaf.device == row[0])
+        else:
+            shape = list(want.shape)
+            shape[d] //= len(row)
+            ok = (isinstance(leaf, tuple) and len(leaf) == len(row)
+                  and all(list(t.shape) == shape and t.device == dev
+                          for t, dev in zip(leaf, row)))
+        if not ok:
+            die(f"[mesh decode] {cfg.name} {when}: state leaf {path} not in "
+                f"its layout (split dim {d})")
+
+
+def leaf_of(tree, path):
+    for key in path:
+        tree = tree[int(key)] if isinstance(tree, tuple) else tree[key]
+    return tree
+
+
+def mesh_decode_run(torch, cfg, params, toks, mesh, P, max_len):
+    """A prefill of ``P`` tokens into a cache of ``max_len`` positions,
+    then MESH_DECODE_STEPS decode steps, on ``mesh`` (None: one device):
+    (logits by step, the prefill's first, ms by decode step, peak bytes
+    above what was held, prefix launches)."""
     from repro_torch.launch import sharding as sh
     from repro_torch.models import model as M
     tree = params
@@ -4696,19 +4753,23 @@ def mesh_decode_run(torch, cfg, params, toks, mesh):
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    P = MESH_DECODE_PREFILL
+    recurrent = mesh is not None and cfg.family in ("ssm", "hybrid")
     with torch.no_grad():
         reset_counts()
         first, cache = M.replica_prefill(cfg, tree, {"tokens": toks[:, :P]},
-                                         mesh=mesh, max_len=MESH_DECODE_LEN)
+                                         mesh=mesh, max_len=max_len)
         torch.cuda.synchronize()
         launches, plain = read_counts()
-        if plain or launches["prefix_flash_attention"] <= 0:
+        if plain or (cfg.family != "ssm"
+                     and launches["prefix_flash_attention"] <= 0):
             die(f"[mesh decode] {cfg.name}: prefill launches {launches}, "
                 f"plain {plain}")
-        if mesh is not None and not isinstance(cache["k"], M.SeqSlices):
+        if (mesh is not None and cfg.family != "ssm"
+                and not isinstance(cache["k"], M.SeqSlices)):
             die(f"[mesh decode] {cfg.name}: the cache's sequence is not "
                 f"split over {mesh.n_replicas} replicas")
+        if recurrent:
+            check_state_split(cfg, cache, mesh, "after the prefill")
         out, ms = [first], []
         for i in range(MESH_DECODE_STEPS):
             pos = torch.full((1,), P + 1 + i, dtype=torch.int32,
@@ -4720,6 +4781,8 @@ def mesh_decode_run(torch, cfg, params, toks, mesh):
                                              pos, mesh=mesh))
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
+        if recurrent:
+            check_state_split(cfg, cache, mesh, "after the decode steps")
     peak = torch.cuda.max_memory_allocated() - held
     del cache, tree
     return out, ms, peak, launches["prefix_flash_attention"]
@@ -4731,12 +4794,16 @@ def phase_mesh_decode(torch, np):
     shard on the one card, a batch of 1: the cache's sequence split over
     the data replicas (each attends to its slice, replica 0 merges the
     partials) and hd over model (the shards' partial scores added on the
-    controller).  For each of MESH_DECODE, in f32 and bf16, a prefill
-    then MESH_DECODE_STEPS decode steps on the mesh against the same on
-    one device (models/model.py::replica_prefill / replica_decode_step):
+    controller); for xLSTM and Hymba also the recurrent state split over
+    model (launch/sharding.py::state_layout), each shard stepping its
+    part.  For each of MESH_DECODE, in f32 and bf16, a prefill then
+    MESH_DECODE_STEPS decode steps on the mesh against the same on one
+    device (models/model.py::replica_prefill / replica_decode_step):
     every f32 logit within MESH_DECODE_RTOL x max |logit|, the bf16 first
-    step's L-inf within paper_eps; each decode step's ms and the peak
-    memory printed."""
+    step's L-inf within paper_eps (the recurrent families: within
+    max(paper_eps, 2 x the one-device bf16 step's L-inf from the f32
+    one), phase 19's rule); each decode step's ms and the peak memory
+    printed."""
     from repro_torch.configs import get_config
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import make_debug_mesh
@@ -4748,19 +4815,31 @@ def phase_mesh_decode(torch, np):
         full = get_config(arch)
         cfg, params = cut_params(torch, full, layers or full.n_layers)
         mesh = make_debug_mesh(*shape, devices=["cuda:0"] * math.prod(shape))
-        lay = sh.cache_layout(cfg, mesh, 1, MESH_DECODE_LEN)
-        if lay != sh.CacheLayout(1, shape[0], "hd"):
+        P, max_len = mesh_decode_lengths(arch)
+        lay = (None if cfg.family == "ssm" else
+               sh.cache_layout(cfg, mesh, 1, max_len))
+        if cfg.family != "ssm" and lay != sh.CacheLayout(1, shape[0], "hd"):
             die(f"[mesh decode] {arch}: layout {lay}")
+        if cfg.family in ("ssm", "hybrid"):
+            slay = sh.state_layout(cfg, mesh, 1)
+            split = sorted(p for p, d in slay.dims.items() if d >= 0)
+            want = ([("ssm",)] if cfg.family == "hybrid" else
+                    sorted(p for p in slay.dims if p != ("mlstm", "2")))
+            if split != want:
+                die(f"[mesh decode] {arch}: state layout {slay}")
+            lay = ", ".join(([str(lay)] if lay else [])
+                            + [f"state split {slay.dims}"])
         gen = torch.Generator(device="cuda").manual_seed(47)
-        toks = torch.randint(0, cfg.vocab_size, (1, MESH_DECODE_PREFILL
-                                                 + MESH_DECODE_STEPS),
+        toks = torch.randint(0, cfg.vocab_size, (1, P + MESH_DECODE_STEPS),
                              generator=gen, device="cuda", dtype=torch.int32)
         res = {}
         for dt in ("float32", "bfloat16"):
             c = dataclasses.replace(cfg, dtype=dt)
             p = f32_params(params) if dt == "float32" else params
-            res[dt] = {"one": mesh_decode_run(torch, c, p, toks, None),
-                       "mesh": mesh_decode_run(torch, c, p, toks, mesh)}
+            res[dt] = {"one": mesh_decode_run(torch, c, p, toks, None, P,
+                                              max_len),
+                       "mesh": mesh_decode_run(torch, c, p, toks, mesh, P,
+                                               max_len)}
             del p
         f32 = res["float32"]
         rel = max(float((a - b).abs().max()) / float(b.abs().max())
@@ -4768,10 +4847,16 @@ def phase_mesh_decode(torch, np):
         a, b = (res["bfloat16"][k][0][1] for k in ("mesh", "one"))
         linf = float((a - b).abs().max())
         eps = paper_eps(float(b.abs().max()))
+        if cfg.family in ("ssm", "hybrid"):
+            floor = float((b - f32["one"][0][1]).abs().max())
+            print(f"[mesh decode] {arch}: one device's bf16 first step "
+                  f"L-inf {floor:.4e} from its f32 one; eps = max(paper_eps "
+                  f"{eps:g}, 2 x {floor:.4e})", flush=True)
+            eps = max(eps, 2 * floor)
         for dt, r in res.items():
             print(f"[mesh decode] {arch} {dt}: full width, {cfg.n_layers} of "
-                  f"{full.n_layers} layers, {lay}, a {MESH_DECODE_PREFILL}-"
-                  f"token prefill into {MESH_DECODE_LEN} positions; decode "
+                  f"{full.n_layers} layers, {lay}, a {P}-"
+                  f"token prefill into {max_len} positions; decode "
                   f"ms by step on the {shape} mesh "
                   f"{[round(t, 3) for t in r['mesh'][1]]}, one device "
                   f"{[round(t, 3) for t in r['one'][1]]}; peak "
@@ -4782,7 +4867,7 @@ def phase_mesh_decode(torch, np):
         print(f"[mesh decode] {arch}: f32 logits of the prefill and every "
               f"step within {rel:.3e} x max |logit| of one device's (tol "
               f"{MESH_DECODE_RTOL:g}); bf16 first step L-inf {linf:.4e} "
-              f"(paper_eps {eps:g})", flush=True)
+              f"(eps {eps:g})", flush=True)
         if not rel <= MESH_DECODE_RTOL:
             die(f"[mesh decode] {arch}: f32 relative {rel}")
         if not linf <= eps:
@@ -4892,8 +4977,9 @@ def main() -> None:
         f"{MOE_ARCH} capacity train step, (2, 1) mesh"] = cap2["launches"]
     for arch, o in mdec["runs"].items():
         for dt, n in o["launches"].items():
-            by_path["prefix_flash_attention"][
-                f"{arch} {dt} prefill, {o['shape']} mesh decode"] = n
+            if n:
+                by_path["prefix_flash_attention"][
+                    f"{arch} {dt} prefill, {o['shape']} mesh decode"] = n
     for name in ("paged_decode_attention", "paged_prefill_attention"):
         by_path[name]["fault serve"] = fault["launches"][name]
         by_path[name]["hops serve"] = hops["launches"][name]

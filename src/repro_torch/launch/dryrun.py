@@ -135,7 +135,8 @@ def analyze_case(cfg, shape, mesh, opts: SH.Options = SH.NO_OPTIONS,
 def cache_figures(cfg, shape, mesh) -> dict:
     """The decode cache of ``shape`` on replica 0's cards as the decode
     step lays it out (``models/model.py::replica_decode_cache``): the
-    busiest card's bytes of the whole cache and of its K/V."""
+    busiest card's bytes of the whole cache, of its K/V and of its
+    recurrent state (the rest)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils._pytree import tree_flatten
     info = specs._info(shape)
@@ -150,7 +151,8 @@ def cache_figures(cfg, shape, mesh) -> dict:
         return sum(t.nbytes for t in ts if t.device == dev)
     card = max(row, key=lambda d: (on(d, every), -row.index(d)))
     return {"cache_card": str(card), "cache_bytes": on(card, every),
-            "kv_cache_bytes": on(card, kv)}
+            "kv_cache_bytes": on(card, kv),
+            "state_bytes": on(card, every) - on(card, kv)}
 
 
 def _n_tokens(info) -> int:
@@ -259,7 +261,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
                     "temp_bytes": mem["peak_bytes"] - mem["argument_bytes"],
                     "peak_bytes": mem["peak_bytes"],
                     **{k: mem[k] for k in ("cache_card", "cache_bytes",
-                                           "kv_cache_bytes") if k in mem}},
+                                           "kv_cache_bytes", "state_bytes")
+                       if k in mem}},
             roofline=roofline(tally, mesh, cfg, shape_name),
             controller=_card_figures(tally, row[0]),
             shard=_card_figures(tally, row[1 % len(row)]),

@@ -637,6 +637,90 @@ def cache_layout(cfg: ModelConfig, mesh, batch: int,
                        dsize if spec[2] == ax else 1, model)
 
 
+class StateLayout(NamedTuple):
+    """Where a decode cache's recurrent state lies (``state_layout``):
+    ``rows`` the batch rows replica 0's state holds, ``dims`` the dim
+    each leaf splits over the model axis (-1: whole on the controller),
+    by the leaf's path in the state tree as ``tree_shardings`` keys it:
+    ``("ssm",)``, or ``("mlstm", "0")`` .. ``("slstm", "3")``."""
+    rows: int
+    dims: Dict[tuple, int]
+
+
+# each state leaf's batch dim and the dim the decode steps it on when it
+# splits over model, both from the end: Hymba's ssm (L, B, H, hd, N) on hd;
+# mLSTM's C (.., B, H, hd, hd) on its rows (C[i, j] = v_i k_j), n (.., B,
+# H, hd) on hd, the conv buffer (.., B, K - 1, Dp) on Dp, m (.., B, H)
+# never; sLSTM's c, n, h, m (.., B, H, hd) on hd
+_STATE_DIMS = {("ssm",): (-4, -2),
+               ("mlstm", "0"): (-4, -2), ("mlstm", "1"): (-3, -1),
+               ("mlstm", "2"): (-2, None), ("mlstm", "3"): (-3, -1),
+               **{("slstm", str(i)): (-3, -1) for i in range(4)}}
+
+
+def state_layout(cfg: ModelConfig, mesh, batch: int) -> StateLayout:
+    """The recurrent state's layout that ``models/model.py``'s
+    ``replica_decode_cache``, ``replica_prefill`` and
+    ``replica_decode_step`` place and step, for a global ``batch``.
+
+    Over a ``DeviceMesh`` it is ``cache_shardings``' spec of each leaf:
+    the batch over the data axes when they divide it (each replica its
+    rows); Hymba's ssm hd over model; an xLSTM leaf's largest dim that
+    divides and is at least 4 x model over model (mLSTM's per-head m stays
+    whole).  A model axis of 1, a ``ServingMesh`` and no mesh keep every
+    leaf whole on the controller.  The step splits a leaf on the dim of
+    ``_STATE_DIMS`` only, so a spec that puts the data axes (over 1) off
+    the batch dim, or the model axis on another dim, is refused."""
+    from repro_torch.models.model import init_decode_cache
+    cache = init_decode_cache(cfg, batch, 0, device="meta")
+    tree = ({"ssm": cache["ssm"]} if cfg.family == "hybrid" else
+            cache if cfg.family == "ssm" else {})
+    leaves = []
+    _map_nested(tree, lambda p, t: leaves.append((p, t)))
+    tp = 1 if mesh is None else _axis_size(mesh, "model")
+    if not isinstance(mesh, DeviceMesh):
+        return StateLayout(batch, {p: -1 for p, _ in leaves})
+    _, dsize, ax = _data_size(mesh)
+    rows, dims = batch, {}
+    for path, leaf in leaves:
+        spec = cache_shardings(cfg, {path[-1]: leaf}, mesh,
+                               batch)[path[-1]]
+        bdim, mdim = (d if d is None else d % leaf.ndim
+                      for d in _STATE_DIMS[path])
+        if dsize > 1 and ax in spec:
+            if spec.index(ax) != bdim:
+                raise ValueError(
+                    f"{cfg.name}: cache_shardings puts the data axes on dim "
+                    f"{spec.index(ax)} of the state leaf {path} "
+                    f"{tuple(leaf.shape)}, not on its batch dim {bdim} (a "
+                    f"lead dim equals the batch {batch}); the decode steps "
+                    f"a replica's batch rows")
+            rows = batch // dsize
+        split = spec.index("model") if "model" in spec and tp > 1 else -1
+        if split not in (-1, mdim):
+            raise ValueError(
+                f"{cfg.name}: cache_shardings splits dim {split} of the "
+                f"state leaf {path} {tuple(leaf.shape)} over model; the "
+                f"decode steps it split on dim {mdim} only")
+        dims[path] = split
+    return StateLayout(rows, dims)
+
+
+def place_state(state, lay: StateLayout, devices) -> Any:
+    """A whole recurrent state (a dict of leaves or of tuples of leaves,
+    keyed as ``state_layout`` keys them) in ``lay``: each leaf split over
+    model as a tuple of its parts, part j a copy on ``devices[j]``; the
+    others as they are."""
+    def place(path, t):
+        d = lay.dims[path]
+        if d < 0:
+            return t
+        return tuple(_own(part, dev)
+                     for part, dev in zip(t.chunk(len(devices), d), devices))
+
+    return _map_nested(state, place)
+
+
 @functools.lru_cache(maxsize=None)
 def _logical_tree(cfg: ModelConfig):
     from repro_torch.models.model import init_params
@@ -728,12 +812,13 @@ def leaf_at(tree, path):
 
 
 def layout_notes(cfg: ModelConfig, mesh, opts: Options = NO_OPTIONS) -> list:
-    """Where the port's training layout departs from the reference's specs
-    (the compile analysis prints them beside the specs): the training and
+    """Where the port's layout departs from the reference's specs (the
+    compile analysis prints them beside the specs): the training and
     prefill attention runs on whole heads, so heads that do not tile the
     model axis are gathered and attend on the controller (the reference
-    splits the fused head columns); the recurrent scans run on the
-    controller.  The decode cache follows ``cache_layout``."""
+    sets no spec there and leaves the layout to GSPMD); the prefill's and
+    the training forward's recurrent scans run on the controller.  The
+    decode cache follows ``cache_layout`` and ``state_layout``."""
     tp = _axis_size(mesh, "model")
     out = []
     if cfg.family != "ssm":
@@ -747,11 +832,13 @@ def layout_notes(cfg: ModelConfig, mesh, opts: Options = NO_OPTIONS) -> list:
                        f"{cfg.n_kv_heads} KV heads do not split over model="
                        f"{tp}, so the training and prefill q, k, v are "
                        f"gathered and attend on each replica's controller "
-                       f"(the reference splits the fused head columns)")
+                       f"(the reference sets no spec for these activations: "
+                       f"GSPMD gathers q and k or all-reduces the scores)")
     if cfg.family in ("ssm", "hybrid"):
-        out.append("the recurrent scans run on each replica's controller "
-                   "over gathered columns, their state there (the reference "
-                   "lets GSPMD shard the state)")
+        out.append("the prefill's and the training forward's recurrent "
+                   "scans run on each replica's controller over gathered "
+                   "columns; the prefill's final state is then written into "
+                   "the decode layout, where each shard steps its part")
     if opts.seq_par:
         out.append("seq-par: the prefill's query chunks dealt round-robin "
                    "over model, each shard through the prefix kernel over "

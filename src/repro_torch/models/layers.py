@@ -702,20 +702,38 @@ def mlstm_scan(q, k, v, i_gate, f_gate, state=None):
     igs, fgs = i_gate.float(), f_gate.float()
     hs = []
     for t in range(S):
-        qt, kt, vt, ig = qs[:, t], ks[:, t], vs[:, t], igs[:, t]
-        log_f = _log_sigmoid(fgs[:, t])
-        m_new = torch.maximum(log_f + m, ig)
-        i_sc = torch.exp(ig - m_new)
-        f_sc = torch.exp(log_f + m - m_new)
-        C = f_sc[..., None, None] * C + i_sc[..., None, None] * (
-            vt[..., :, None] * kt[..., None, :])
-        n = f_sc[..., None] * n + i_sc[..., None] * kt
+        qt, kt, vt = qs[:, t], ks[:, t], vs[:, t]
+        i_sc, f_sc, m_new = mlstm_gates(igs[:, t], fgs[:, t], m)
+        C, n = mlstm_write(C, n, vt, kt, kt, i_sc, f_sc)
         num = torch.einsum("bhij,bhj->bhi", C, qt)
         den = torch.abs(torch.einsum("bhj,bhj->bh", n, qt))
-        floor = torch.exp(torch.clamp(-m_new, max=30.0))
-        hs.append(num / torch.maximum(den, floor)[..., None])
+        hs.append(num / mlstm_divisor(den, m_new)[..., None])
         m = m_new
     return torch.stack(hs, dim=1).to(q.dtype), (C, n, m)
+
+
+def mlstm_gates(ig, fg, m):
+    """One mLSTM step's stabilised gates from its f32 input and forget
+    pre-activations (B, H) and the state's m: (i_sc, f_sc, m_new)."""
+    log_f = _log_sigmoid(fg)
+    m_new = torch.maximum(log_f + m, ig)
+    return torch.exp(ig - m_new), torch.exp(log_f + m - m_new), m_new
+
+
+def mlstm_write(C, n, v, k, k_n, i_sc, f_sc):
+    """One mLSTM step's state update: f C + i v k^T (C's rows are v's:
+    ``v`` the whole (B, H, hd) or the slice a shard's rows hold, ``k``
+    whole) and f n + i ``k_n`` (k, or the slice of it n's part holds)."""
+    C = f_sc[..., None, None] * C + i_sc[..., None, None] * (
+        v[..., :, None] * k[..., None, :])
+    n = f_sc[..., None] * n + i_sc[..., None] * k_n
+    return C, n
+
+
+def mlstm_divisor(den, m):
+    """h's divisor from |n . q| and the step's m: max(den, exp(-m)), the
+    floor's exponent clamped at 30."""
+    return torch.maximum(den, torch.exp(torch.clamp(-m, max=30.0)))
 
 
 @full_f32()
@@ -802,19 +820,24 @@ def slstm_scan(zifo, r_w, state=None):
     hs = []
     for t in range(S):
         rec = torch.einsum("bhi,hio->bho", h, rw)
-        z, i, f, o = (xs[:, t] + rec).chunk(4, dim=-1)
-        z = torch.tanh(z)
-        o = torch.sigmoid(o)
-        log_f = _log_sigmoid(f)
-        m_new = torch.maximum(log_f + m, i)
-        i_sc = torch.exp(i - m_new)
-        f_sc = torch.exp(log_f + m - m_new)
-        c = f_sc * c + i_sc * z
-        n = f_sc * n + i_sc
-        h = o * c / torch.clamp(n, min=1.0)
-        m = m_new
+        c, n, h, m = slstm_cell(*(xs[:, t] + rec).chunk(4, dim=-1), c, n, m)
         hs.append(h)
     return torch.stack(hs, dim=1).to(zifo.dtype), (c, n, h, m)
+
+
+def slstm_cell(z, i, f, o, c, n, m):
+    """One sLSTM step, elementwise: the f32 pre-activations (the input's
+    and the recurrence's summed) and the state's c, n, m give the new (c,
+    n, h, m)."""
+    z = torch.tanh(z)
+    o = torch.sigmoid(o)
+    log_f = _log_sigmoid(f)
+    m_new = torch.maximum(log_f + m, i)
+    i_sc = torch.exp(i - m_new)
+    f_sc = torch.exp(log_f + m - m_new)
+    c = f_sc * c + i_sc * z
+    n = f_sc * n + i_sc
+    return c, n, o * c / torch.clamp(n, min=1.0), m_new
 
 
 def _slstm_shapes(zifo, r_w, state):

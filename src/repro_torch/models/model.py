@@ -96,7 +96,8 @@ from repro_torch.launch.sharding import (NO_OPTIONS, Options,
                                          cache_layout, check_mesh_family,
                                          expert_rule,
                                          kv_heads_shardable, leaf_at,
-                                         router_split, trivial)
+                                         place_state, router_split,
+                                         state_layout, trivial)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -607,8 +608,10 @@ def _moe_shards(cfg: ModelConfig, sh: _Shards, ps, h):
 # ---------------------------------------------------------------------------
 
 def _mlstm_block(cfg: ModelConfig, rep: "_Replica", p, x, state):
-    """state: (C, n, m, conv_buf).  Returns (x_out, new_state).  Over a
-    replica's shards (``_Replica``) the column products' parts are
+    """state: (C, n, m, conv_buf), each whole or, at decode, a tuple of
+    its parts over the replica's shards (``launch/sharding.py::
+    state_layout``).  Returns (x_out, new_state) in the same layout.  Over
+    a replica's shards (``_Replica``) the column products' parts are
     gathered before the split of ``w_up``'s output into [x ‖ z] and before
     the head reshape, and ``w_down`` sums its row shards' parts."""
     B, S, D = x.shape
@@ -616,29 +619,117 @@ def _mlstm_block(cfg: ModelConfig, rep: "_Replica", p, x, state):
     H = cfg.n_heads
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     xp, z = rep.gather(rep.col(p["w_up"], h)).chunk(2, dim=-1)
-    xc, conv_buf = L.causal_conv1d(xp, p["conv_w"], state[3])
+    if isinstance(state[3], tuple):
+        xc, conv_buf = _conv_parts(rep, xp, p["conv_w"], state[3])
+    else:
+        xc, conv_buf = L.causal_conv1d(xp, p["conv_w"], state[3])
     xc = F.silu(xc)
-    q = rep.gather(rep.col(p["wq"], xc)).reshape(B, S, H, hd)
-    k = rep.gather(rep.col(p["wk"], xc)).reshape(B, S, H, hd)
+    qs, ks = rep.col(p["wq"], xc), rep.col(p["wk"], xc)
     v = rep.gather(rep.col(p["wv"], xp)).reshape(B, S, H, hd)
     i_g, f_g = L.proj(xc, p["w_if"], p["b_if"]).chunk(2, dim=-1)
-    scan = L.mlstm_scan if S == 1 else L.mlstm_chunkwise
-    hout, (C, n, m) = scan(q, k, v, i_g, f_g, state=state[:3])
+    if isinstance(state[0], tuple):
+        hout, (C, n, m) = _mlstm_parts(rep, qs, ks, v, i_g, f_g, state[:3])
+    else:
+        q = rep.gather(qs).reshape(B, S, H, hd)
+        k = rep.gather(ks).reshape(B, S, H, hd)
+        scan = L.mlstm_scan if S == 1 else L.mlstm_chunkwise
+        hout, (C, n, m) = scan(q, k, v, i_g, f_g, state=state[:3])
     hout = L.rms_norm(hout.reshape(B, S, Dp), p["gn"], cfg.norm_eps)
     hout = hout * F.silu(z)
     return x + rep.row(p["w_down"], [hout]), (C, n, m, conv_buf)
 
 
+def _conv_parts(rep: "_Replica", xp, w, bufs):
+    """``layers.causal_conv1d`` over a conv buffer split along its
+    channels (Dp), one part a shard: each shard convolves its channels of
+    ``xp`` with its slice of ``w`` over its part, and the outputs are
+    gathered along Dp on the controller.  Returns (y, the new parts)."""
+    out = [L.causal_conv1d(xm.to(b.device), wm.to(b.device), b)
+           for xm, wm, b in zip(xp.chunk(len(bufs), -1),
+                                w.chunk(len(bufs), -1), bufs)]
+    return rep.gather([y for y, _ in out]), tuple(b for _, b in out)
+
+
+def _mlstm_parts(rep: "_Replica", qs, ks, v, i_g, f_g, state):
+    """``layers.mlstm_scan`` at S == 1 over a state whose C and n split
+    over the replica's shards: shard j holds C's rows j (v's slice j) and
+    n's slice j; m (per head) lies whole on the controller, which computes
+    the gates.  Each shard all-gathers q and k whole from their column
+    parts ``qs``/``ks`` (``_Replica.col``'s), takes its slice of v and
+    the gates, updates C_j and n_j and computes C_j q and its partial
+    n_j . q_j; the partials are added on the controller in shard order
+    (the all-reduce), the divisor max(|sum|, floor) goes back, and the
+    shards' h slices are gathered along hd.  Returns (h (B, 1, H, hd) in
+    v's dtype, (C's parts, n's parts, m))."""
+    C, n, m = state
+    ctl = rep.controller
+    B, _, H, hd = v.shape
+    w = hd // len(C)
+
+    def whole(parts, dev):
+        return torch.cat([op_analysis.to(t, dev, "all-gather")
+                          for t in parts], -1).reshape(B, H, hd).float()
+
+    with L.full_f32():
+        vs = v.float()[:, 0]
+        i_sc, f_sc, m_new = L.mlstm_gates(i_g.float()[:, 0],
+                                          f_g.float()[:, 0], m)
+        new, nums, den = [], [], None
+        for j, (cj, nj) in enumerate(zip(C, n)):
+            dev, sl = cj.device, slice(j * w, (j + 1) * w)
+            qd, kd = whole(qs, dev), whole(ks, dev) * hd ** -0.5
+            cj, nj = L.mlstm_write(cj, nj, vs[..., sl].to(dev), kd,
+                                   kd[..., sl], i_sc.to(dev), f_sc.to(dev))
+            nums.append(torch.einsum("bhij,bhj->bhi", cj, qd))
+            part = op_analysis.to(torch.einsum("bhj,bhj->bh", nj,
+                                               qd[..., sl]), ctl,
+                                  "all-reduce")
+            den = part if den is None else den + part
+            new.append((cj, nj))
+        div = L.mlstm_divisor(torch.abs(den), m_new)
+        hs = [num / op_analysis.to(div, num.device, "all-reduce")[..., None]
+              for num in nums]
+    h = rep.gather(hs)[:, None].to(v.dtype)
+    return h, (tuple(c for c, _ in new), tuple(x for _, x in new), m_new)
+
+
 def _slstm_block(cfg: ModelConfig, rep: "_Replica", p, x, state):
+    """state: (c, n, h, m), each whole or, at decode, a tuple of its
+    parts over the replica's shards (split along hd)."""
     B, S, D = x.shape
     H = cfg.n_heads
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     zifo = rep.gather(rep.col(p["w_x"], h, p["b_x"])).reshape(
         B, S, H, 4 * (D // H))
-    out, new_state = L.slstm_scan(zifo, p["r_w"], state)
+    if isinstance(state[0], tuple):
+        out, new_state = _slstm_parts(rep, zifo, p["r_w"], state)
+    else:
+        out, new_state = L.slstm_scan(zifo, p["r_w"], state)
     x = x + L.rms_norm(out.reshape(B, S, D), p["gn"], cfg.norm_eps)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _swiglu_rep(rep, p, h2), new_state
+
+
+def _slstm_parts(rep: "_Replica", zifo, r_w, state):
+    """``layers.slstm_scan`` at S == 1 over a state split along hd over
+    the replica's shards: h's parts are gathered on the controller for
+    the recurrence (h @ r_w needs each head's whole h), each shard gets
+    its hd columns of z, i, f and o and steps its c, n, h, m
+    (``layers.slstm_cell``), and the new h parts are gathered for the
+    block's output.  Returns (h (B, 1, H, hd) in zifo's dtype, the new
+    state's parts)."""
+    with L.full_f32():
+        rec = torch.einsum("bhi,hio->bho", rep.gather(list(state[2])),
+                           r_w.float())
+        gates = (zifo.float()[:, 0] + rec).chunk(4, dim=-1)
+        w = gates[0].shape[-1] // len(state[0])
+        new = []
+        for j, (c, n, m) in enumerate(zip(state[0], state[1], state[3])):
+            sl = slice(j * w, (j + 1) * w)
+            new.append(L.slstm_cell(*(g[..., sl].to(c.device)
+                                      for g in gates), c, n, m))
+    out = rep.gather([s[2] for s in new])[:, None].to(zifo.dtype)
+    return out, tuple(tuple(s[i] for s in new) for i in range(4))
 
 
 def _swiglu_rep(rep: "_Replica", p, h):
@@ -665,38 +756,55 @@ def _xlstm_init_state(cfg: ModelConfig, batch: int, device="cpu"):
             "slstm": (z, torch.ones_like(z), z.clone(), z.clone())}
 
 
-def _run_xlstm(cfg: ModelConfig, params, x, state):
+def _at(leaf, idx):
+    """Layer ``idx`` of a state leaf: whole, or a tuple of its parts."""
+    return tuple(t[idx] for t in leaf) if isinstance(leaf, tuple) \
+        else leaf[idx]
+
+
+def _put(leaf, idx, new) -> None:
+    """Write layer ``idx``'s new state (whole, or parts as ``leaf``'s)
+    into ``leaf`` in place."""
+    for dst, t in (zip(leaf, new) if isinstance(leaf, tuple)
+                   else [(leaf, new)]):
+        dst[idx] = t
+
+
+def _run_xlstm(cfg: ModelConfig, params, x, state, inplace: bool = False):
     """The xLSTM blocks in order over ``state`` (the full stacked state;
-    ``_xlstm_init_state`` for a fresh one).  ``params``: the whole tree,
-    or a ``_Replica``.  Returns (x, new_state): new tensors, each block's
-    state written into them; ``state`` is only read."""
+    ``_xlstm_init_state`` for a fresh one, or the decode cache's, whose
+    split leaves are tuples of parts: ``replica_decode_cache``).
+    ``params``: the whole tree, or a ``_Replica``.  Returns (x,
+    new_state): each block's state written into new tensors (``state``
+    only read), or with ``inplace`` into ``state`` itself."""
     rep = params if isinstance(params, _Replica) else _solo(params, x.device)
     mblk = rep.tree["blocks"]["mlstm"]
-    new_m = tuple(torch.empty_like(t) for t in state["mlstm"])
-    lead = new_m[0].shape[:new_m[0].dim() - 4]
+    new = state if inplace else {
+        k: None if v is None else tuple(torch.empty_like(t) for t in v)
+        for k, v in state.items()}
+    lead = new["mlstm"][2].shape[:-2]          # m (.., B, H), never split
 
     def m_layer(x, idx):
         p = _index(mblk, idx)
         x, st = _mlstm_block(cfg, rep, p, x,
-                             tuple(t[idx] for t in state["mlstm"]))
-        for dst, t in zip(new_m, st):
-            dst[idx] = t
+                             tuple(_at(t, idx) for t in state["mlstm"]))
+        for dst, t in zip(new["mlstm"], st):
+            _put(dst, idx, t)
         return x
 
     if cfg.slstm_every <= 0:
         for li in range(lead[0]):
             x = m_layer(x, li)
-        return x, {"mlstm": new_m, "slstm": None}
+        return x, new
     sblk = rep.tree["blocks"]["slstm"]
-    new_s = tuple(torch.empty_like(t) for t in state["slstm"])
     for per in range(lead[0]):
         for j in range(lead[1]):
             x = m_layer(x, (per, j))
         x, st = _slstm_block(cfg, rep, _index(sblk, per), x,
-                             tuple(t[per] for t in state["slstm"]))
-        for dst, t in zip(new_s, st):
-            dst[per] = t
-    return x, {"mlstm": new_m, "slstm": new_s}
+                             tuple(_at(t, per) for t in state["slstm"]))
+        for dst, t in zip(new["slstm"], st):
+            _put(dst, per, t)
+    return x, new
 
 
 def _ssm_branch_seq(cfg: ModelConfig, p, x, state=None, rep=None):
@@ -709,10 +817,30 @@ def _ssm_branch_seq(cfg: ModelConfig, p, x, state=None, rep=None):
     h = L.rms_norm(x, p["ssm_ln"], cfg.norm_eps)
     xin = F.silu(rep.gather(rep.col(p["ssm_in"], h))).reshape(B, S, H, hd)
     delta = F.softplus(L.proj(h, p["ssm_dt"]).float())
-    y, new_state = L.mamba_scan(xin, delta, p["ssm_A"], L.proj(h, p["ssm_B"]),
-                                L.proj(h, p["ssm_C"]), p["ssm_D"],
-                                state=state)
+    args = (xin, delta, p["ssm_A"], L.proj(h, p["ssm_B"]),
+            L.proj(h, p["ssm_C"]), p["ssm_D"])
+    if isinstance(state, tuple):
+        y, new_state = _ssm_parts(rep, *args, state)
+    else:
+        y, new_state = L.mamba_scan(*args, state=state)
     return rep.row(p["ssm_out"], [y.reshape(B, S, H * hd)]), new_state
+
+
+def _ssm_parts(rep: "_Replica", xin, delta, A, Bm, Cm, D, state):
+    """``layers.mamba_scan`` over a state split along hd over the
+    replica's shards (Hymba's ssm at decode): each shard takes its hd
+    slice of ``xin``, A and D and the whole delta, B and C, and steps its
+    part; the y slices are gathered along hd on the controller (no
+    reduction).  Returns (y, the new parts)."""
+    w = xin.shape[-1] // len(state)
+    ys, new = [], []
+    for j, h in enumerate(state):
+        sl = slice(j * w, (j + 1) * w)
+        y, st = L.mamba_scan(*(t.to(h.device) for t in (
+            xin[..., sl], delta, A[:, sl], Bm, Cm, D[:, sl])), state=h)
+        ys.append(y)
+        new.append(st)
+    return rep.gather(ys), tuple(new)
 
 
 def _hybrid_ssm_init(cfg: ModelConfig, batch: int, device="cpu"):
@@ -1216,19 +1344,28 @@ def replica_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     (L, B, max_len, KV, hd / tp) (hd over model) part a shard, or one (L,
     B, max_len, KV, hd) tensor on the controller; or, when the sequence
     splits over a ``DeviceMesh``'s data replicas, a ``SeqSlices`` of each
-    replica's max_len / data positions so laid out on its devices.
-    Hymba's "ssm" and xLSTM's state lie on replica 0's controller.  Zeros
-    in ``cfg.tdtype``.  ``mesh``: a ``DeviceMesh``, one replica's
-    ``ServingMesh``, or None (a one-shard mesh of ``params``' device)."""
+    replica's max_len / data positions so laid out on its devices.  Zeros
+    in ``cfg.tdtype``.  The recurrent state (Hymba's "ssm", xLSTM's
+    state) is replica 0's rows laid out by ``launch/sharding.py::
+    state_layout``: a leaf split over model a tuple of one part a shard
+    on its device, any other leaf whole on the controller.  ``mesh``: a
+    ``DeviceMesh``, one replica's ``ServingMesh``, or None (a one-shard
+    mesh of ``params``' device)."""
     rep = _replica(cfg, params, _row0(mesh), opts)
     ctl = rep.controller
+    if cfg.family in ("ssm", "hybrid"):
+        slay = state_layout(cfg, mesh, batch)
+        state = (_xlstm_init_state(cfg, slay.rows, ctl)
+                 if cfg.family == "ssm" else
+                 {"ssm": _hybrid_ssm_init(cfg, slay.rows, ctl)})
+        state = place_state(state, slay, rep.devices)
+        if cfg.family == "ssm":
+            return state
     lay = cache_layout(cfg, mesh, batch, max_len)
-    if cfg.family == "ssm":
-        return _xlstm_init_state(cfg, lay.rows, ctl)
     cache = {n: _cache_kv(cfg, lay, mesh, max_len, ctl, torch.zeros)
              for n in ("k", "v")}
     if cfg.family == "hybrid":
-        cache["ssm"] = _hybrid_ssm_init(cfg, lay.rows, ctl)
+        cache.update(state)
     return cache
 
 
@@ -1256,7 +1393,9 @@ def replica_prefill(cfg: ModelConfig, params, inputs, *, mesh=None,
     (logits_last (B, 1, [K,] V) f32, cache).  The cache holds ``max_len``
     positions (default: the sequence's), the sequence's written from 0,
     in ``replica_decode_cache``'s layout, so ``replica_decode_step``
-    continues from it (xLSTM: the state after it; Hymba adds "ssm").
+    continues from it (xLSTM: the state after it; Hymba adds "ssm"): the
+    scans run whole on the controller, and their final state is then
+    split into ``state_layout``, each shard taking its piece.
     ``mesh``: as for ``replica_decode_cache``; a ``DeviceMesh`` whose data
     axes divide the batch prefills replica 0's rows of ``inputs`` (the
     others do the same work on theirs).  The attention runs on replica
@@ -1273,10 +1412,12 @@ def replica_prefill(cfg: ModelConfig, params, inputs, *, mesh=None,
                   if isinstance(inputs, Mapping) else inputs[:rows])
     x = _embed_seq(cfg, rep, inputs)
     B, S = x.shape[:2]
+    slay = state_layout(cfg, mesh, tokens.shape[0])
     if cfg.family == "ssm":
         x, state = _run_xlstm(cfg, rep, x,
                               _xlstm_init_state(cfg, B, x.device))
-        return _logits_seq(cfg, rep, x[:, -1:]), state
+        return (_logits_seq(cfg, rep, x[:, -1:]),
+                place_state(state, slay, rep.devices))
     max_len = S if max_len is None else max_len
     lay = cache_layout(cfg, mesh, tokens.shape[0], max_len)
     make = torch.empty if max_len == S else torch.zeros
@@ -1308,7 +1449,8 @@ def replica_prefill(cfg: ModelConfig, params, inputs, *, mesh=None,
             new_ssm.append(st)
         x = x + _ffn_seq(cfg, rep, p, x, li)
     if new_ssm:
-        cache["ssm"] = torch.stack(new_ssm)
+        cache.update(place_state({"ssm": torch.stack(new_ssm)}, slay,
+                                 rep.devices))
     return _logits_seq(cfg, rep, x[:, -1:]), cache
 
 
@@ -1443,27 +1585,28 @@ def replica_decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
                         computed: int | None = None):
     """The reference's ``decode_step`` over replica 0's training layout:
     one token (B, 1) or (B, K, 1) over ``replica_decode_cache``'s cache,
-    written in place at ``pos - 1`` (the recurrent state replaced by new
-    tensors), attention as the reference's plain
-    ``layers.decode_attention`` computes it (``_decode_attend``); returns
-    the (B, 1, [K,] V) f32 logits on replica 0's controller.  Everything
-    but the attention runs on replica 0; over a ``DeviceMesh`` whose data
-    replicas split the cache's sequence, each replica attends to its
-    slice.  ``computed``: the slices that attend (the compile analysis
-    traces replica 0 alone, 1; None: all)."""
+    written in place at ``pos - 1`` (the recurrent state too, in place),
+    attention as the reference's plain ``layers.decode_attention``
+    computes it (``_decode_attend``); returns the (B, 1, [K,] V) f32
+    logits on replica 0's controller.  Everything but the attention and
+    the split recurrent state runs on replica 0's controller; over a
+    ``DeviceMesh`` whose data replicas split the cache's sequence, each
+    replica attends to its slice; each shard steps its part of a state
+    leaf split over model (``_mlstm_parts``, ``_slstm_parts``,
+    ``_conv_parts``, ``_ssm_parts``).  ``computed``: the slices that
+    attend (the compile analysis traces replica 0 alone, 1; None:
+    all)."""
     _check_family(cfg)
     rep = _replica(cfg, params, _row0(mesh), opts)
     x = _embed_seq(cfg, rep, tokens)
     if cfg.family == "ssm":
-        x, new_state = _run_xlstm(cfg, rep, x, cache)
-        cache.update(new_state)
+        x, _ = _run_xlstm(cfg, rep, x, cache, inplace=True)
         return _logits_seq(cfg, rep, x)
     windows = cfg.layer_windows()
     pos = pos.to(rep.controller)
     rope_pos = (pos - 1)[:, None]
     rows = ([mesh.replica(d) for d in range(len(cache["k"].parts))]
             if isinstance(cache["k"], SeqSlices) else [rep.mesh])
-    new_ssm = []
     for li in range(cfg.n_layers):
         p = _rep_layer(rep, li)
         parts = _qkv_parts(cfg, rep, p, L.rms_norm(x, p["ln1"], cfg.norm_eps),
@@ -1472,12 +1615,11 @@ def replica_decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
                                                 li, pos, windows[li],
                                                 computed))
         if cfg.family == "hybrid":
-            y, st = _ssm_branch_seq(cfg, p, x, cache["ssm"][li], rep=rep)
+            y, st = _ssm_branch_seq(cfg, p, x, _at(cache["ssm"], li),
+                                    rep=rep)
             x = x + y
-            new_ssm.append(st)
+            _put(cache["ssm"], li, st)
         x = x + _ffn_seq(cfg, rep, p, x, li)
-    if new_ssm:
-        cache["ssm"] = torch.stack(new_ssm)
     return _logits_seq(cfg, rep, x)
 
 

@@ -9,7 +9,8 @@ mesh of 32 fake cards, where each card has its own device index: every
 figure of replica 0's cards equal.  A small-mesh dry run's record puts
 1 / (data x model) of the cache on a card, and no card's peak passes its
 params, that share and one layer's part of K and V in f32 (the decode's
-f32 reads of a layer).  The layout notes list no cache departure.
+f32 reads of a layer).  The layout notes list no cache departure, the
+recurrent decode state's included.
 """
 
 import dataclasses
@@ -82,6 +83,9 @@ def test_a_batch_1_decode_spreads_its_cache(arch, tmp_path, monkeypatch):
                  dryrun.M.init_params(cfg, 0, device="meta")["blocks"]
                  .values()) + 2 * cfg.vocab_size * cfg.d_model * 2
     state = mem["cache_bytes"] - share
+    # Hymba's ssm lies hd over the 4 shards; Qwen2 has no state
+    ssm = cfg.n_layers * cfg.n_heads * cfg.hd * cfg.ssm_state * 4
+    assert mem["state_bytes"] == state == (ssm // 4 if cfg.ssm_state else 0)
     for card, held, new in (("controller", mem["cache_bytes"], state),
                             ("shard", share, 0)):
         fig = rec[card]
@@ -95,7 +99,8 @@ def test_a_batch_1_decode_spreads_its_cache(arch, tmp_path, monkeypatch):
 
 def test_layout_notes_list_no_cache_departure():
     """On the production mesh the notes keep the attention's and the
-    scans' departures and name no cache departure."""
+    prefill's and training forward's scans' departures and name no cache
+    departure: neither the K/V's nor the recurrent decode state's."""
     mesh = dryrun.fake_mesh(16, 16)
     for arch in list(ASSIGNED) + ["llama2-70b"]:
         cfg = get_config(arch)
@@ -105,5 +110,9 @@ def test_layout_notes_list_no_cache_departure():
         assert "cache lies" not in text and "cache's hd" not in text
         if cfg.family != "ssm" and not SH.kv_heads_shardable(cfg, 16):
             assert "attend on each replica's controller" in text, arch
+        assert "their state there" not in text and "shard the state" \
+            not in text, arch
         if cfg.family in ("ssm", "hybrid"):
-            assert "recurrent scans" in text, arch
+            assert "the prefill's and the training forward's recurrent " \
+                "scans" in text, arch
+            assert "each shard steps its part" in text, arch

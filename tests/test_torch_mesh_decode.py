@@ -12,7 +12,8 @@ cache copied into a longer one, as the reference's sequential engine
 does: the logits of each within ``LOGIT_RTOL`` x max |logit| in f32 at
 reduced size.  Also: a slice with no visible key (finite, within the
 same tolerance), whole KV heads keeping the port's layout, and the
-cache bytes on the busiest card of the production mesh.
+cache's K/V and recurrent state bytes on the busiest card of the
+production mesh.
 """
 
 import dataclasses
@@ -210,23 +211,47 @@ REFERENCE_GB = {("gemma3-12b", "decode_32k"): 6.4,
                 ("gemma2-27b", "long_500k"): 0.77}
 
 
+def _expected_state(cfg, info, mesh) -> int:
+    """The recurrent state's bytes on replica 0's controller: each leaf's
+    over the splits ``cache_shardings`` applies (the data axes on the
+    batch, model on hd or the largest dim of at least 4 x model); 0 for
+    the attention-only families."""
+    cache = M.init_decode_cache(cfg, info["batch"], 0, device="meta")
+    if cfg.family == "hybrid":
+        cache = {"ssm": cache["ssm"]}
+    elif cfg.family != "ssm":
+        return 0
+    total = 0
+    for group in cache.values():
+        for i, leaf in enumerate(group if isinstance(group, tuple)
+                                 else [group] if group is not None else []):
+            key = "ssm" if cfg.family == "hybrid" else str(i)
+            spec = sh.cache_shardings(cfg, {key: leaf}, mesh,
+                                      info["batch"])[key]
+            n = 16 if any(a not in (None, "model") for a in spec) else 1
+            total += leaf.nbytes // n // (16 if "model" in spec else 1)
+    return total
+
+
 def test_cache_bytes_on_the_busiest_card_of_the_production_mesh():
     """Every applicable decode shape of every assigned arch (and
     LLaMA2-70B) on the (16, 16) mesh of fake cards: the cache's K/V bytes
-    on the busiest card of replica 0 equal the whole cache's over the
-    splits that apply."""
+    and its recurrent state's on the busiest card of replica 0 equal the
+    whole cache's over the splits that apply."""
     mesh = dryrun.fake_mesh(16, 16)
     seen = set()
     for arch in list(ASSIGNED) + ["llama2-70b"]:
         cfg = get_config(arch)
-        if cfg.family == "ssm":
-            continue
         for shape in ("decode_32k", "long_500k"):
             if not specs.shape_applicable(cfg, shape)[0]:
                 continue
             fig = dryrun.cache_figures(cfg, shape, mesh)
-            want = _expected_kv(cfg, specs.SHAPES[shape], mesh)
+            info = specs.SHAPES[shape]
+            want = 0 if cfg.family == "ssm" else _expected_kv(cfg, info, mesh)
             assert fig["kv_cache_bytes"] == want, (arch, shape, fig, want)
+            state = _expected_state(cfg, info, mesh)
+            assert fig["state_bytes"] == state, (arch, shape, fig, state)
+            assert (state > 0) == (cfg.family in ("ssm", "hybrid"))
             if (arch, shape) in REFERENCE_GB:
                 gb = REFERENCE_GB[(arch, shape)]
                 assert round(want / 1e9, 2 if gb < 1 else 1) == gb
