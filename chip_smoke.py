@@ -76,20 +76,25 @@ Phases, each fatal on failure:
                main serve, row probe, chunk split, kernels vs plain and
                continuous vs sequential with the routes pinned,
                moe_capacity vs moe_dense, the profile;
+ phi       — Phi-3.5-MoE at full width and 4 of its 32 layers through
+               phase 16's chain but its capacity and tensor-parallel runs
+               (the row probe at its widths: q/o, k/v, the router, expert
+               0's gate/up (K 4096, N 6400) and down (K 6400));
  17. vlm     — InternVL2-1B at full width and 12 of its 24 layers: the
                main serve, chunk split,
                plain versions, a prefill with 256 patch embeddings;
- 18. xlstm   — xLSTM-1.3B at full width and 16 of its 48 blocks (a depth
+ 18. xlstm   — xLSTM-1.3B at full width and 8 of its 48 blocks (a depth
                cut, RECURRENT_LAYERS) through the sequential
                RAGServer, its state snapshots in the knowledge tree: 8
                requests cold, then 4 whose docs are cached (one through
                the pinned host tier) bit-identical to their cold results,
                every snapshot's checksum unchanged across the hits; billed
                and real tier bytes side by side; mlstm_chunkwise against
-               mlstm_scan on one full-width layer;
- 19. hymba   — Hymba-1.5B at full width and 8 of its 32 layers the same
+               mlstm_scan on one full-width layer; the row probe of the
+               mLSTM block's products (w_up, wq/wk/wv, w_down);
+ 19. hymba   — Hymba-1.5B at full width and 4 of its 32 layers the same
                way, its attention on the prefix kernel (R 5, windows of
-               1024 and a global layer), and the 8 cold requests through
+               1024), and the 8 cold requests through
                the plain
                versions, and in f32 through both (HYBRID_ARCH's eps
                rule); its profile is scripts/profile_recurrent.py;
@@ -99,12 +104,13 @@ Phases, each fatal on failure:
  21-23. large — Gemma3-12B (hd 256, its 1024 window binding on the main
                rows), Gemma2-27B (softcaps 50 and 30, a 4096 window the
                main rows do not reach) and Yi-34B (R 7) at full published
-               width and depth, one set of weights on the card at a time:
-               the main serve of 16 requests, the row probe, the chunk
-               split bit for bit, 2 requests through the plain versions,
-               the profile (Gemma3-12B only), and serve.main --full-size
-               --check-tokens tol:<eps> on 4 requests; eps is paper_eps
-               scaled by sqrt(layers / 32) (large_eps);
+               width and a quarter of their depth (LARGE_LAYERS), one set
+               of weights on the card at a time: the main serve of 16
+               requests, the row probe, the chunk split bit for bit, 2
+               requests through the plain versions, the profile
+               (Gemma3-12B only), and continuous against sequential on 8
+               requests in process; eps is paper_eps scaled by
+               sqrt(layers / 32) past 32 layers (large_eps);
  24. train   — run after phase 14, on Qwen2-0.5B's weights at full width
                and depth: training.train_lib.make_train_step for 20 AdamW
                steps of 8 x 1024 tokens of the synthetic stream (bf16
@@ -140,6 +146,13 @@ Phases, each fatal on failure:
                layers) at full width against the one-device step on the
                same batch (phase 24b's tolerances), the replicas' params
                equal after it;
+ recurrent_train — the scans' per-chunk recompute at full width over a
+               batch of 2 x 4096 tokens: xLSTM-1.3B's slstm_scan and
+               Hymba-1.5B's mamba_scan with 256-step chunks against one
+               chunk (outputs bit for bit, grads within tolerance, the
+               peak lower), then one train step of xLSTM-1.3B (8 blocks)
+               and Hymba-1.5B (2 layers), each peak beside the dry run's
+               one-device prediction;
  capacity_data2 — Mixtral-8x7B's first layer at full width with capacity
                dispatch: a (2, 1) mesh step whose 4096-token dispatch
                chunk straddles both data replicas, against the one-device
@@ -155,12 +168,17 @@ Phases, each fatal on failure:
                1024-token prefill, their recurrent state split over model
                as the reference lays it out (each shard stepping its
                part), Hymba's K/V over 2048 positions;
+ examples — examples/torch_quickstart.py, torch_rag_serving.py and
+               torch_train_tiny.py run on the card, each in a process of
+               its own: exit 0, their claim lines, the prefix kernel
+               launched;
  dryrun_cal — the compile analysis against the card: phase 24's
-               one-device step and phase 24b's mesh step dry-run on fake
-               cards in processes started at the beginning (their
-               prefix-kernel calls must equal the card's launches), the
-               predicted peak of the one-device step beside the card's
-               (their ratio printed), and qwen2-0.5b decode_32k on the
+               one-device step, phase 24b's mesh step and
+               recurrent_train's steps dry-run on fake cards in processes
+               started at the beginning (their prefix-kernel calls must
+               equal the card's launches), the predicted peak of each
+               one-device step beside the card's (their ratio printed),
+               and qwen2-0.5b decode_32k on the
                (16, 16) production mesh through launch/dryrun.py, its
                record printed.
 
@@ -284,6 +302,12 @@ MOE_LAYERS = 4
 # the pool (the tier's blocks + 64, clipped at 4096) holds every block the
 # tree budgets
 MOE_GPU_BYTES = 4032 * 16 * 4096 * MOE_LAYERS
+# phase phi: Phi-3.5-MoE (16 experts of d_ff 6400, top 2) at full published
+# width and 4 of its 32 layers (10.9e9 B of bf16 weights), through phase
+# 16's chain with Mixtral's tier (the same KV a token a layer), without
+# its capacity and tensor-parallel runs, which Mixtral shows on the card
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+PHI_LAYERS = 4
 # phase 16's capacity check: rows of one layer through moe_capacity and
 # moe_dense.  Rows both of whose experts kept them must agree within
 # CAPACITY_TOL x the largest |dense output| of those rows, four bf16 ulps
@@ -311,11 +335,11 @@ RECURRENT_REQUESTS = 8
 WARM_REQUESTS = 4
 TIER_TOKENS = (3000, 6000)
 XLSTM_ARCH = "xlstm-1.3b"
-# depth cuts that make room for phases 21-23 and the compile analysis's
-# phases: xLSTM-1.3B through 16 of its 48 blocks (2 periods of 7 mLSTM
-# blocks and an sLSTM block), Hymba-1.5B through 8 of its 32 layers (all
-# windowed)
-RECURRENT_LAYERS = {"xlstm-1.3b": 16, "hymba-1.5b": 8}
+# depth cuts that make room for phases 21-23, the compile analysis's
+# phases and phi, recurrent_train and examples: xLSTM-1.3B through 8 of its
+# 48 blocks (one period of 7 mLSTM blocks and an sLSTM block), Hymba-1.5B
+# through 4 of its 32 layers (all windowed)
+RECURRENT_LAYERS = {"xlstm-1.3b": 8, "hymba-1.5b": 4}
 # Hymba's comparisons of two bf16 serves take eps = max(paper_eps, 2 x F),
 # F the first-token L-inf of its plain-version serve in bf16 against the
 # same serve in f32, measured in the same run: each bf16 serve may lie F
@@ -339,18 +363,17 @@ MLSTM_TOL = 1e-4
 AUDIO_ARCH = "musicgen-large"
 AUDIO_TOKENS = 512
 AUDIO_STEPS = 8
-# phases 21-23: the rest of the dense family at full published width and
-# depth, one set of weights on the card at a time (Gemma3-12B 23.5e9 B,
-# Gemma2-27B 54.5e9 B, Yi-34B 68.8e9 B), on the main trace's first 16
-# requests with the paper models' tiers; Yi-34B's GPU tier is 5 GiB (1,365
-# blocks of its 245,760 B a token, where 7.5 GiB would be 2,048), so that
-# its weights, pool and prefill activations stay well inside the card.
-# serve.main --check-tokens runs 4 requests with a 2 GiB tier: it keeps the
-# continuous runtime's pool while the sequential engine serves.
+# phases 21-23: the rest of the dense family at full published width and a
+# quarter of their depth (LARGE_LAYERS: a depth cut that keeps the script
+# inside its limit on slow hosts; at full depth their weights are 23.5e9 /
+# 54.5e9 / 68.8e9 B), one set of weights on the card at a time, on the
+# main trace's first 16 requests with the paper models' tiers (Yi-34B's
+# 5 GiB); continuous against sequential runs in process, as Mixtral's
+# does.  Gemma3-12B's 12 layers hold two global ones.
 LARGE_DENSE = ("gemma3-12b", "gemma2-27b", "yi-34b")
+LARGE_LAYERS = {"gemma3-12b": 12, "gemma2-27b": 12, "yi-34b": 15}
 LARGE_REQUESTS = 16
 LARGE_GPU_BYTES = {"yi-34b": 5 * 2**30}
-LARGE_SEQ_GPU_BYTES = 2 * 2**30
 # requests of each through the plain versions (phase_check)
 LARGE_PLAIN = 2
 # the one of them profiled: the hd-256 kernels' share of device time
@@ -427,10 +450,11 @@ HOP_DOCS = 2
 TP_MODELS = {"qwen2-0.5b": (2,), "mistral-7b": (2, 4),
              "mixtral-8x7b": (2, 4)}
 TP_EXPERT_ROWS = (64, 512, 2048)
-# depth cuts that make room for Mixtral's tp runs and the training mesh
-# (phase 24b): Qwen2-0.5B's tp runs through the first 12 of its 24
-# layers, Mistral-7B's window phase through the first 2 of phase 15's 4
-TP_LAYERS = {"qwen2-0.5b": 12}
+# depth cuts that make room for the later phases: the tp runs go through
+# the first 6 of Qwen2-0.5B's 24 layers and the first 2 of the 4 that
+# phases 15-16 serve of Mistral-7B and Mixtral-8x7B; Mistral-7B's window
+# phase through the first 2 of phase 15's 4
+TP_LAYERS = {"qwen2-0.5b": 6, "mistral-7b": 2, "mixtral-8x7b": 2}
 WINDOW_LAYERS = 2
 TP_REQUESTS = 16
 TP_DECODE_REPS = 20
@@ -465,15 +489,14 @@ CAPACITY_BATCH = (2, 2048)
 # bf16 first-step L-inf within paper_eps.  The recurrent families lay their
 # state out as the reference does too (launch/sharding.py::state_layout:
 # xLSTM's leaves and Hymba's ssm split over model, each shard stepping its
-# part), at RECURRENT_LAYERS' depth and lengths of their own
+# part), at 16 / 8 layers and lengths of their own
 # (MESH_DECODE_RECURRENT: the state has no sequence to split, and Hymba's
 # per-token scan is launch-bound; Hymba's K/V still splits its positions
 # over both data slices); their bf16 first step is held to phase 19's
 # rule, max(paper_eps, 2 x the one-device bf16 step's L-inf from the f32
 # one)
 MESH_DECODE = {"qwen2-0.5b": ((2, 4), None), "gemma3-12b": ((2, 16), 4),
-               "xlstm-1.3b": ((2, 4), RECURRENT_LAYERS["xlstm-1.3b"]),
-               "hymba-1.5b": ((2, 4), RECURRENT_LAYERS["hymba-1.5b"])}
+               "xlstm-1.3b": ((2, 4), 16), "hymba-1.5b": ((2, 4), 8)}
 MESH_DECODE_LEN = 16384
 MESH_DECODE_PREFILL = 12000
 # arch -> (prefill tokens, cache positions)
@@ -481,6 +504,29 @@ MESH_DECODE_RECURRENT = {"xlstm-1.3b": (1024, 1024),
                          "hymba-1.5b": (1024, 2048)}
 MESH_DECODE_STEPS = 4
 MESH_DECODE_RTOL = 1e-4
+# phase recurrent_train: the scans' per-chunk recompute (the reference's
+# chunked_scan / jax.checkpoint(chunk_body)) at full width and batch
+# RECURRENT_TRAIN_BATCH: slstm_scan and mamba_scan at xLSTM-1.3B's and
+# Hymba-1.5B's shapes with chunk=256 against chunk=S (outputs and states bit
+# for bit, each input grad within TRAIN_GNORM_RTOL x its max |g|, the peak
+# lower), then one train step of each model at these depths (xLSTM: one
+# period of 7 mLSTM blocks and an sLSTM block), its peak beside the dry
+# run's one-device prediction (a ratio outside DRYRUN_PEAK_BAND recorded)
+RECURRENT_TRAIN = {"xlstm-1.3b": 8, "hymba-1.5b": 2}
+RECURRENT_TRAIN_BATCH = (2, 4096)
+SCAN_CHUNK = 256
+# phase examples: the port's twins of examples/*.py that run on the card,
+# each in a process of its own, the three at once within EXAMPLE_TIMEOUT
+# seconds, and the lines each must print
+EXAMPLE_TIMEOUT = 300
+EXAMPLES = {
+    "quickstart": ([], ["cold plan: cached=0 tokens, to compute=56",
+                        "warm plan: cached=48 tokens, to compute=8",
+                        "cold-vs-warm logits bit-identical: True (exact "
+                        "reuse)"]),
+    "rag_serving": ([], ["identical answers with/without cache: 10/10"]),
+    "train_tiny": (["--steps", "30"], []),
+}
 # where each kernel came from: (wrapper, source, TPU kernel it replaces)
 KERNELS = (
     ("paged_decode_attention", "src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -1836,30 +1882,41 @@ def phase_row_invariance(torch, cfg, params, tag="rows"):
     free = torch.cuda.mem_get_info()[0]
     rows_of = {"lm_logits": [m for m in PROBE_ROWS
                              if 16 * m * cfg.vocab_size <= free] or [1]}
+    return probe_rows(torch, ops, tag, cfg.name, rows_of)
+
+
+def probe_rows(torch, ops, tag, name, rows_of=None):
+    """Row 0 of each op in ``ops`` ((name, input, fn)) computed in calls of
+    PROBE_ROWS rows (``rows_of[name]`` for some), with the fixed-slab
+    helper off and on: prints each op's verdict and returns the ops still
+    row-variant with the helper on."""
+    from repro_torch.models import layers as L
+    rows_of = rows_of or {}
     slab = L.ROW_SLAB
     variant = []
     try:
-        for name, inp, fn in ops:
+        for op, inp, fn in ops:
             verdict = []
             for label, rows in (("without helper", 0), ("with helper", slab)):
                 L.ROW_SLAB = rows
                 ref0 = fn(inp[:1])[0]
                 diffs = {m: (fn(inp[:m])[0].float() - ref0.float())
                          .abs().max().item()
-                         for m in rows_of.get(name, PROBE_ROWS)}
+                         for m in rows_of.get(op, PROBE_ROWS)}
                 same = all(d == 0 for d in diffs.values())
                 verdict.append(f"{label}: bit-identical {same}" + (
                     "" if same else f" (max |diff| by rows {diffs})"))
                 if rows and not same:
-                    variant.append(name)
-            print(f"[{tag}] {name}: {'; '.join(verdict)}", flush=True)
+                    variant.append(op)
+            print(f"[{tag}] {op}: {'; '.join(verdict)}", flush=True)
     finally:
         L.ROW_SLAB = slab
     torch.cuda.synchronize()
-    print(f"[{tag}] {cfg.name}: row counts {PROBE_ROWS} (the logits "
-          f"{tuple(rows_of['lm_logits'])}), slabs of {slab} rows for the "
-          f"products layers.slabbed names; row-variant with the helper: "
-          f"{variant or 'none'}", flush=True)
+    logits = rows_of.get("lm_logits")
+    print(f"[{tag}] {name}: row counts {PROBE_ROWS}"
+          + (f" (the logits {tuple(logits)})" if logits else "")
+          + f", slabs of {slab} rows for the products layers.slabbed names; "
+          f"row-variant with the helper: {variant or 'none'}", flush=True)
     return variant
 
 
@@ -2961,8 +3018,9 @@ def phase_paper(torch, np, arch):
         out["window"] = phase_window(
             torch, np, *first_layers(cfg, params, WINDOW_LAYERS), eps, full)
     if arch in TP_MODELS:
-        out["tp"] = phase_tp(torch, np, cfg, params, corpus, idx, wl, args,
-                             TP_MODELS[arch], full)
+        out["tp"] = phase_tp(
+            torch, np, *first_layers(cfg, params, TP_LAYERS[arch]), corpus,
+            idx, wl, args, TP_MODELS[arch], full)
     phase_profile(torch, cfg, params, corpus, idx, wl, args,
                   tag=f"{arch} profile")
     out["seq"] = {"prefix_flash_attention": phase_seq_in_process(
@@ -3150,24 +3208,29 @@ def phase_capacity(torch, np, cfg, params, tag):
                 capacity_ms=cap_ms)
 
 
-def phase_moe(torch, np):
-    """Mixtral-8x7B at full published width and MOE_LAYERS layers, its
+def phase_moe(torch, np, arch=MOE_ARCH, layers=MOE_LAYERS, full=True):
+    """A MoE model at full published width and ``layers`` layers, its
     weights the only ones on the card: (a) the main serve, (d) the row
     probe (router and expert products included) and the chunk split, (c)
-    kernels against plain versions, moe_capacity against moe_dense,
-    continuous against sequential in this process, and the profile with
-    the experts' share.  Returns its figures and launch counts."""
+    kernels against plain versions and continuous against sequential in
+    this process, routes pinned, and the profile with the experts' share;
+    with ``full`` (Mixtral) also moe_capacity against moe_dense and the
+    tensor-parallel runs.  Returns its figures and launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
-    tag = MOE_ARCH
-    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
-    argv = paper_argv(MOE_ARCH, 32)
-    argv[argv.index("--gpu-cache-bytes") + 1] = str(MOE_GPU_BYTES)
+    tag = arch
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    # the tier's 4,032 blocks of the model's KV (MOE_GPU_BYTES at
+    # Mixtral's heads and depth)
+    gpu_bytes = 4032 * 16 * 2 * cfg.n_kv_heads * cfg.hd * 2 * layers
+    argv = paper_argv(arch, 32)
+    argv[argv.index("--gpu-cache-bytes") + 1] = str(gpu_bytes)
     args = serve.build_parser().parse_args(argv)
     cfg, params, corpus, idx, wl = model_setup(torch, args, cfg, tag)
     results, out = model_serve(torch, np, tag, cfg, params, corpus, idx,
                                wl, args)
+    out["gpu_bytes"] = gpu_bytes
     eps = out["eps"]
     variant = phase_row_invariance(torch, cfg, params, tag=f"{tag} rows")
     if variant:
@@ -3178,12 +3241,15 @@ def phase_moe(torch, np):
                                             idx, wl, args, eps,
                                             f"{tag} check")
     out["moe_eps"] = eps
-    out["capacity"] = phase_capacity(torch, np, cfg, params,
-                                     f"{tag} capacity")
+    if full:
+        out["capacity"] = phase_capacity(torch, np, cfg, params,
+                                         f"{tag} capacity")
     out["seq"] = phase_seq_in_process(torch, np, cfg, params, corpus, idx,
                                       wl, args, eps, f"{tag} seq")
-    out["tp"] = phase_tp(torch, np, cfg, params, corpus, idx, wl, args,
-                         TP_MODELS[MOE_ARCH], get_config(MOE_ARCH))
+    if full:
+        out["tp"] = phase_tp(
+            torch, np, *first_layers(cfg, params, TP_LAYERS[arch]), corpus,
+            idx, wl, args, TP_MODELS[arch], get_config(arch))
     phase_profile(torch, cfg, params, corpus, idx, wl, args,
                   tag=f"{tag} profile")
     del params, results
@@ -3486,6 +3552,33 @@ def phase_mlstm_forms(torch, cfg, tag):
     return err / top
 
 
+def mlstm_row_ops(torch, cfg, params):
+    """The row probe's ops of an mLSTM block's products, through
+    layers.proj at the model's widths: w_up (D -> 2 Dp), wq / wk / wv (Dp
+    -> Dp) and w_down (Dp -> D)."""
+    from repro_torch.models import layers as L
+    blk = params["blocks"]["mlstm"]
+
+    def first(w):
+        while w.dim() > 2:
+            w = w[0]
+        return w
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = max(PROBE_ROWS)
+    Dp = int(cfg.proj_factor * cfg.d_model)
+    x, xp = (torch.randn((n, d), generator=gen, device="cuda")
+             .to(cfg.tdtype) for d in (cfg.d_model, Dp))
+    ops = []
+    for name, inp in (("w_up", x), ("wq", xp), ("wk", xp), ("wv", xp),
+                      ("w_down", xp)):
+        w = first(blk[name])
+        ops.append((f"proj {name} (K {w.shape[0]}, N {w.shape[1]}"
+                    f"{', slabbed' if L.slabbed(w) else ''})", inp,
+                    lambda t, w=w: L.proj(t, w)))
+    return ops
+
+
 def phase_xlstm(torch, np):
     """Phase 18: xLSTM-1.3B at full published width and RECURRENT_LAYERS
     depth, its weights the only ones on the card: the cold and warm
@@ -3508,6 +3601,10 @@ def phase_xlstm(torch, np):
                                 wl, args)
     out["snapshot"] = snap
     out["mlstm_rel"] = phase_mlstm_forms(torch, cfg, f"{tag} mlstm")
+    variant = probe_rows(torch, mlstm_row_ops(torch, cfg, params),
+                         f"{tag} rows", cfg.name)
+    if variant:
+        die(f"[{tag}] row-variant with the helper: {variant}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3739,20 +3836,20 @@ def large_argv(arch, n_requests, gpu_bytes, *extra):
 
 def phase_large_dense(torch, np, arch):
     """One of the rest of the dense family at full published width and
-    depth, its weights the only ones on the card: the main serve of
-    LARGE_REQUESTS requests (for Gemma3-12B, rows past its 1024 window),
-    the row probe, the chunk split bit for bit, LARGE_PLAIN requests
-    through the plain versions, the profile (LARGE_PROFILE only), then
-    serve.main --full-size --check-tokens tol:<eps> on 4 requests, eps
-    from large_eps.  Returns its figures and launch counts."""
+    LARGE_LAYERS depth, its weights the only ones on the card: the main
+    serve of LARGE_REQUESTS requests (for Gemma3-12B, rows past its 1024
+    window), the row probe, the chunk split bit for bit, LARGE_PLAIN
+    requests through the plain versions, the profile (LARGE_PROFILE only),
+    then continuous against sequential in this process (eps from
+    large_eps).  Returns its figures and launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
     gpu = LARGE_GPU_BYTES.get(arch, PAPER_GPU_BYTES)
     args = serve.build_parser().parse_args(
         large_argv(arch, LARGE_REQUESTS, gpu))
-    cfg, params, corpus, idx, wl = model_setup(torch, args,
-                                               get_config(arch), arch)
+    cfg = dataclasses.replace(get_config(arch), n_layers=LARGE_LAYERS[arch])
+    cfg, params, corpus, idx, wl = model_setup(torch, args, cfg, arch)
     results, out = model_serve(torch, np, arch, cfg, params, corpus, idx,
                                wl, args)
     eps = out["eps"]
@@ -3783,19 +3880,9 @@ def phase_large_dense(torch, np, arch):
     if arch == LARGE_PROFILE:
         phase_profile(torch, cfg, params, corpus, idx, wl, args,
                       tag=f"{arch} profile")
+    out["seq"] = phase_seq_in_process(torch, np, cfg, params, corpus, idx,
+                                      wl, args, eps, f"{arch} seq")
     del params, results
-    gc.collect()
-    torch.cuda.empty_cache()
-    seq_out, seq, plain = run_main(
-        f"{arch} seq", large_argv(arch, 4, LARGE_SEQ_GPU_BYTES,
-                                  "--check-tokens", f"tol:{eps}"),
-        keep=("[continuous]", "[sequential]", "mean TTFT", "token check"),
-        flips_eps=eps)
-    if f"token check: all 4 requests within tol {eps:g}" not in seq_out:
-        die(f"[{arch}] serve.main printed no passing token-check line")
-    if seq["prefix_flash_attention"] <= 0 or plain:
-        die(f"[{arch}] sequential path: launches {seq}, plain calls {plain}")
-    out["seq"] = seq
     out["longest"] = max(lens)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4317,7 +4404,7 @@ def phase_hops(torch, np, cfg, params, corpus, idx, wl, args):
 # ---------------------------------------------------------------------------
 
 DRYRUN_WORKER = r'''
-import json, sys
+import dataclasses, json, sys
 sys.path.insert(0, "src")
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -4325,8 +4412,10 @@ from repro_torch.configs import get_config
 from repro_torch.launch import dryrun, op_analysis, specs
 from repro_torch.training import optimizer as O, train_lib as TL
 from repro_torch.training.data import DataConfig, make_batches
-cfg = get_config("qwen2-0.5b")
 which, B, S = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+cfg = get_config(sys.argv[4])
+if int(sys.argv[5]):
+    cfg = dataclasses.replace(cfg, n_layers=int(sys.argv[5]))
 if which == "one":
     host = next(make_batches(DataConfig(batch_size=B, seq_len=S,
                                         vocab_size=cfg.vocab_size), cfg))
@@ -4354,17 +4443,22 @@ print("RESULT" + json.dumps({"calls": calls, "peak": card.peak_bytes,
 def start_dryruns():
     """The compile analysis's runs, on the host's CPU while the card works:
     phase 24's one-device step and phase 24b's (2, 2) mesh step on fake
-    cards, and one production case through launch/dryrun.py."""
+    cards, phase recurrent_train's one-device steps, and one production
+    case through launch/dryrun.py."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = ROOT / "chiprun_out" / "dryrun_torch"
     out.mkdir(parents=True, exist_ok=True)
+    runs = {which: (which, TRAIN_BATCH, TRAIN_SEQ, "qwen2-0.5b", 0)
+            for which in ("one", "mesh")}
+    for arch, layers in RECURRENT_TRAIN.items():
+        runs[arch] = ("one", *RECURRENT_TRAIN_BATCH, arch, layers)
     procs = {}
-    for which in ("one", "mesh"):
-        procs[which] = subprocess.Popen(
-            [sys.executable, "-c", DRYRUN_WORKER, which, str(TRAIN_BATCH),
-             str(TRAIN_SEQ)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
+    for name, argv in runs.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_WORKER, *map(str, argv)], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
     procs["production"] = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          DRYRUN_CASE[0], "--shape", DRYRUN_CASE[1], "--out", str(out),
@@ -4380,37 +4474,44 @@ def start_dryruns():
     return procs, time.perf_counter()
 
 
-def train_step_peak(torch, cfg, params):
-    """One phase-24 step on the card from a clean allocator: (bytes of its
-    arguments, the most bytes allocated above what was held before it)."""
+def train_step_peak(torch, cfg, params, batch=None):
+    """One AdamW step of ``cfg`` on the card from a clean allocator, on
+    ``batch`` (phase 24's first batch by default): (bytes of its
+    arguments, the most bytes allocated above what was held before it,
+    its loss and grad norm, ms on the host clock)."""
     from repro_torch.training.optimizer import (AdamWConfig, init_state,
                                                 tree_leaves)
     from repro_torch.training.train_lib import make_train_step
     gc.collect()
     torch.cuda.empty_cache()
     state = init_state(params)
-    batch = train_batches(torch, cfg, 1)[0]
+    batch = batch or train_batches(torch, cfg, 1)[0]
     args = sum(t.numel() * t.element_size() for t in
                tree_leaves(params) + tree_leaves(state.m) + tree_leaves(
                    state.v) + [state.step] + list(batch.values()))
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     out = make_train_step(cfg, AdamWConfig())(params, state, batch)
     torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
     above = torch.cuda.max_memory_allocated() - held
+    metrics = (float(out[2]["loss"]), float(out[2]["grad_norm"]))
     del out, state, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return args, above
+    return args, above, metrics, ms
 
 
-def phase_dryrun_cal(torch, procs, t_started, train, train_tp, card_peak):
+def phase_dryrun_cal(torch, procs, t_started, train, train_tp, card_peak,
+                     recurrent):
     """Phase dryrun_cal: the fake runs against the card.  Their prefix-kernel
-    calls must equal phases 24 / 24b's launch counters; the predicted peak
-    of the one-device step is printed beside the card's (its arguments
-    plus the most allocated above what was held) and their ratio; the
-    production case's record is printed."""
+    calls must equal phases 24 / 24b's launch counters (and phase
+    recurrent_train's); the predicted peak of each one-device step is
+    printed beside the card's (its arguments plus the most allocated above
+    what was held) and their ratio; the production case's record is
+    printed."""
     t_phase = time.perf_counter()
     got = {}
     for name, p in procs.items():
@@ -4426,7 +4527,24 @@ def phase_dryrun_cal(torch, procs, t_started, train, train_tp, card_peak):
     waited = time.perf_counter() - t_phase
     res = {k: json.loads([ln for ln in got[k].splitlines()
                           if ln.startswith("RESULT")][0][len("RESULT"):])
-           for k in ("one", "mesh")}
+           for k in got if k != "production"}
+    ratios = {}
+    for arch, o in recurrent["runs"].items():
+        pred, card = res[arch]["peak"], o["args"] + o["above"]
+        ratios[arch] = pred / card
+        inside = DRYRUN_PEAK_BAND[0] <= ratios[arch] <= DRYRUN_PEAK_BAND[1]
+        print(f"[dryrun_cal] {arch} one-device step of "
+              f"{RECURRENT_TRAIN_BATCH}, {RECURRENT_TRAIN[arch]} layers: "
+              f"predicted peak {pred} B ({pred / 1e9:.2f} GB), the card's "
+              f"{card} B ({card / 1e9:.2f} GB); ratio {ratios[arch]:.4f} "
+              f"({'inside' if inside else 'OUTSIDE'} band "
+              f"{DRYRUN_PEAK_BAND}: recorded, not fatal); prefix calls "
+              f"{res[arch]['calls']} fake, {o['launches']} on the card; "
+              f"FLOPs {res[arch]['flops']:.6e}", flush=True)
+        if res[arch]["calls"] != o["launches"]:
+            die(f"[dryrun_cal] {arch}: the fake run counts "
+                f"{res[arch]['calls']} prefix-kernel calls, the card "
+                f"launched {o['launches']}")
     want = {"one": train["launches"], "mesh": train_tp["launches"]}
     for k in ("one", "mesh"):
         print(f"[dryrun_cal] {k}: fake run's prefix-kernel calls "
@@ -4464,7 +4582,7 @@ def phase_dryrun_cal(torch, procs, t_started, train, train_tp, card_peak):
           f"({waited:.1f}s waiting; the dry runs ran {wall:.1f}s beside "
           f"the card's phases)", flush=True)
     return dict(ratio=ratio, pred=pred, card=card, calls={
-        k: res[k]["calls"] for k in res}, record=rec)
+        k: res[k]["calls"] for k in res}, record=rec, recurrent=ratios)
 
 
 def cut_params(torch, cfg, n_layers, seed=0):
@@ -4884,6 +5002,202 @@ def phase_mesh_decode(torch, np):
     return dict(runs=out, wall=wall)
 
 
+def scan_run(torch, fn, inputs, cot, chunk):
+    """One forward and backward of ``fn(*leaves, chunk=chunk)`` -> (out,
+    states) from fresh leaves of ``inputs``, the loss sum(out * cot) +
+    sum(states): (out, states, the leaves' grads, the most bytes allocated
+    above what was held before, inputs included, ms on the host clock)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, states = fn(*leaves, chunk=chunk)
+    loss = (out.float() * cot).sum() + sum(s.sum() for s in states)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - held
+    return out.detach(), [t.detach() for t in states], grads, peak, ms
+
+
+def scan_ab(torch, tag, fn, inputs, names, hd):
+    """A scan with chunk=SCAN_CHUNK against chunk=S at the same inputs:
+    outputs and final states bit for bit, each input's grad within
+    TRAIN_GNORM_RTOL x its max |g| (its largest |d| and whether its bits
+    are equal printed), and the chunked peak below the unchunked one."""
+    B, S, H = inputs[0].shape[:3]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cot = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    runs = {c: scan_run(torch, fn, inputs, cot, c) for c in (S, SCAN_CHUNK)}
+    (out, st, grads, peak, ms), (out0, st0, grads0, peak0, ms0) = \
+        runs[SCAN_CHUNK], runs[S]
+    bits = torch.equal(out, out0) and all(torch.equal(a, b)
+                                          for a, b in zip(st, st0))
+    rows = []
+    for name, g, g0 in zip(names, grads, grads0):
+        d = float((g.float() - g0.float()).abs().max())
+        top = float(g0.float().abs().max())
+        rows.append((name, d, top, torch.equal(g, g0)))
+    print(f"[{tag}] chunk={SCAN_CHUNK} vs chunk={S}, inputs "
+          f"{[tuple(t.shape) for t in inputs]}: outputs and final states "
+          f"bit-identical {bits}; peak above the inputs {peak} B vs {peak0} "
+          f"B; {ms:.1f} vs {ms0:.1f} ms forward and backward (host clock)",
+          flush=True)
+    for name, d, top, same in rows:
+        print(f"[{tag}]   grad {name}: max |d| {d:.4e} of max |g| "
+              f"{top:.4e} ({d / top if top else 0.0:.3e}; tol "
+              f"{TRAIN_GNORM_RTOL:g}); bits equal {same}", flush=True)
+    if not bits:
+        die(f"[{tag}] chunked outputs differ from the unchunked ones")
+    bad = [n for n, d, top, _ in rows if not d <= TRAIN_GNORM_RTOL * top]
+    if bad:
+        die(f"[{tag}] grads past tolerance: {bad}")
+    if peak >= peak0:
+        die(f"[{tag}] the chunked peak {peak} B is not below {peak0} B")
+    return dict(peak=peak, peak_whole=peak0, ms=ms, ms_whole=ms0,
+                grads=rows)
+
+
+def recurrent_step(torch, cfg, params, batch):
+    """train_step_peak on ``batch``, through the kernels only: (loss, grad
+    norm, bytes of its arguments, the most bytes allocated above them,
+    ms, prefix-kernel launches)."""
+    reset_counts()
+    args, above, (loss, gnorm), ms = train_step_peak(torch, cfg, params,
+                                                     batch)
+    launches, plain = read_counts()
+    if plain:
+        die(f"[recurrent_train] {cfg.name}: the plain versions ran ({plain})")
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        die(f"[recurrent_train] {cfg.name}: loss / grad norm {loss}, {gnorm}")
+    return loss, gnorm, args, above, ms, launches["prefix_flash_attention"]
+
+
+def phase_recurrent_train(torch):
+    """Phase recurrent_train: xLSTM-1.3B's sLSTM and Hymba-1.5B's SSM scans
+    at full width over RECURRENT_TRAIN_BATCH, chunked (the reference's
+    per-chunk recompute) against unchunked (scan_ab), then one train step
+    of each model at its RECURRENT_TRAIN depth: loss, grad norm, peak."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    t_phase = time.perf_counter()
+    B, S = RECURRENT_TRAIN_BATCH
+    out = {}
+    for arch, layers in RECURRENT_TRAIN.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, params = cut_params(torch, get_config(arch), layers)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        H = cfg.n_heads
+        if cfg.family == "ssm":
+            hd = cfg.d_model // H
+            zifo = torch.randn((B, S, H, 4 * hd), generator=gen,
+                               device="cuda").to(cfg.tdtype)
+            r_w = params["blocks"]["slstm"]["r_w"][0]
+            ab = scan_ab(torch, f"recurrent_train {arch} slstm_scan",
+                         lambda z, r, chunk: L.slstm_scan(z, r, chunk=chunk),
+                         [zifo, r_w], ["zifo", "r_w"], hd)
+            del zifo
+        else:
+            hd, N = cfg.hd, cfg.ssm_state
+            p = {k: params["blocks"][k][0] for k in ("ssm_A", "ssm_D")}
+            x = F.silu(torch.randn((B, S, H, hd), generator=gen,
+                                   device="cuda")).to(cfg.tdtype)
+            delta = F.softplus(torch.randn((B, S, H), generator=gen,
+                                           device="cuda"))
+            Bm, Cm = (torch.randn((B, S, N), generator=gen, device="cuda")
+                      .to(cfg.tdtype) for _ in range(2))
+
+            def mamba(x, d, A, Bm, Cm, D, chunk):
+                y, h = L.mamba_scan(x, d, A, Bm, Cm, D, chunk=chunk)
+                return y, (h,)
+
+            ab = scan_ab(torch, f"recurrent_train {arch} mamba_scan", mamba,
+                         [x, delta, p["ssm_A"], Bm, Cm, p["ssm_D"]],
+                         ["x", "delta", "A", "B", "C", "D"], hd)
+            del x, delta, Bm, Cm
+        batch = family_batch(torch, cfg, B, S, seed=43)
+        loss, gnorm, args, above, ms, launches = recurrent_step(
+            torch, cfg, params, batch)
+        print(f"[recurrent_train] {arch}: full width, {layers} of "
+              f"{get_config(arch).n_layers} layers, batch "
+              f"{RECURRENT_TRAIN_BATCH}: one train step loss {loss:.6f}, "
+              f"grad norm {gnorm:.6f}, {ms:.1f} ms (host clock, first "
+              f"step); peak {args + above} B = arguments {args} B + "
+              f"{above} B max allocated above them; prefix launches "
+              f"{launches}; {card_line(torch)}", flush=True)
+        out[arch] = dict(ab=ab, loss=loss, gnorm=gnorm, args=args,
+                         above=above, ms=ms, launches=launches)
+        del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[recurrent_train] phase wall {wall:.1f}s", flush=True)
+    return dict(runs=out, wall=wall)
+
+
+def phase_examples(torch):
+    """Phase examples: the port's twins of examples/*.py that use the card
+    (EXAMPLES), each run as a user runs it (``--device cuda``) in a process
+    of its own, the three at once: exit 0, its last line OK, its claim
+    lines printed, the prefix kernel launched and no plain version called;
+    train_tiny's loss must fall."""
+    import os
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"torch_{name}.py"),
+         "--device", "cuda", *argv], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (argv, _) in EXAMPLES.items()}
+    out = {}
+    try:
+        for name, (_, claims) in EXAMPLES.items():
+            try:
+                stdout, stderr = procs[name].communicate(
+                    timeout=max(1.0, EXAMPLE_TIMEOUT
+                                - (time.perf_counter() - t_phase)))
+            except subprocess.TimeoutExpired:
+                die(f"[examples] {name} passed {EXAMPLE_TIMEOUT}s")
+            lines = stdout.splitlines()
+            for ln in lines:
+                print(f"[examples] {name} | {ln}", flush=True)
+            rc = procs[name].returncode
+            if rc != 0 or not lines or lines[-1] != "OK":
+                die(f"[examples] {name} exited {rc}: {stderr[-2000:]}")
+            missing = [c for c in claims if c not in lines]
+            counts = re.search(r"^device cuda\S*: prefix kernel launches "
+                               r"(\d+), plain version calls (\d+)$", stdout,
+                               re.M)
+            if missing or not counts:
+                die(f"[examples] {name}: claim lines missing: "
+                    f"{missing or 'the kernel counts'}")
+            launches, plain = int(counts.group(1)), int(counts.group(2))
+            if not launches or plain:
+                die(f"[examples] {name}: {launches} prefix launches, {plain} "
+                    f"plain-version calls")
+            if name == "train_tiny":
+                loss = re.search(r"^loss ([\d.]+) -> ([\d.]+)$", stdout,
+                                 re.M)
+                if not loss or float(loss.group(2)) >= float(loss.group(1)):
+                    die("[examples] train_tiny: the loss did not fall")
+            print(f"[examples] {name}: exit 0 and its claims; prefix kernel "
+                  f"launches {launches}, plain versions 0", flush=True)
+            out[name] = dict(launches=launches)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t_phase
+    print(f"[examples] phase wall {wall:.1f}s", flush=True)
+    return dict(runs=out, wall=wall)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -4917,13 +5231,14 @@ def main() -> None:
     hops = phase_hops(torch, np, cfg, params, corpus, idx, wl, args)
     train = phase_train(torch, np, cfg, params)
     train_tp = phase_train_tp(torch, np, cfg, params)
-    card_peak = train_step_peak(torch, cfg, params)
+    card_peak = train_step_peak(torch, cfg, params)[:2]
     tp_qwen = phase_tp(torch, np,
                        *first_layers(cfg, params, TP_LAYERS[cfg.name]),
                        corpus, idx, wl, args, TP_MODELS[cfg.name], cfg)
     del params, results
     paper = {arch: phase_paper(torch, np, arch) for arch in PAPER_MODELS}
     moe = phase_moe(torch, np)
+    phi = phase_moe(torch, np, PHI_ARCH, PHI_LAYERS, full=False)
     vlm = phase_vlm(torch, np)
     xlstm = phase_xlstm(torch, np)
     hybrid = phase_hybrid(torch, np)
@@ -4931,10 +5246,12 @@ def main() -> None:
     large = {arch: phase_large_dense(torch, np, arch) for arch in LARGE_DENSE}
     seqpar = phase_seqpar(torch)
     families = phase_train_mesh_families(torch)
+    rtrain = phase_recurrent_train(torch)
     cap2 = phase_capacity_data2(torch)
     mdec = phase_mesh_decode(torch, np)
+    examples = phase_examples(torch)
     cal = phase_dryrun_cal(torch, dry_procs, dry_t0, train, train_tp,
-                           card_peak)
+                           card_peak, rtrain)
     for arch, o in paper.items():
         print(f"[paper] {arch} ({PAPER_LAYERS[arch]} layers): "
               f"{o['blocks']} pool blocks, host tier {PAPER_HOST_BYTES} B; "
@@ -4999,13 +5316,14 @@ def main() -> None:
                 o["window"]["decode"]
             by_path["paged_prefill_attention"][f"{arch} window"] = \
                 o["window"]["prefill"]
-    for arch, o in ((MOE_ARCH, moe), (VLM_ARCH, vlm), *large.items()):
+    for arch, o in ((MOE_ARCH, moe), (PHI_ARCH, phi), (VLM_ARCH, vlm),
+                    *large.items()):
         for name, n in o["launches"].items():
             if name != "prefix_flash_attention":
                 by_path[name][f"{arch} main serve"] = n
     for arch, o in large.items():
         by_path["prefix_flash_attention"][f"{arch} sequential check"] = \
-            o["seq"]["prefix_flash_attention"]
+            o["seq"]
         print(f"[large] {arch}: {o['blocks']} pool blocks; doc hit rate "
               f"{o['doc_hit_rate']:.4f}; tier hit tokens {o['tier']}; "
               f"{o['stats'][0]:.1f} tokens/s, TTFT p50 {o['stats'][1]:.1f} "
@@ -5016,6 +5334,14 @@ def main() -> None:
               f"wall {o['wall']:.1f}s", flush=True)
     by_path["prefix_flash_attention"][f"{MOE_ARCH} sequential check"] = \
         moe["seq"]
+    by_path["prefix_flash_attention"][f"{PHI_ARCH} sequential check"] = \
+        phi["seq"]
+    for name, o in examples["runs"].items():
+        by_path["prefix_flash_attention"][f"examples/torch_{name}.py"] = \
+            o["launches"]
+    by_path["prefix_flash_attention"][f"{HYBRID_ARCH} train step, "
+                                      f"{RECURRENT_TRAIN_BATCH}"] = \
+        rtrain["runs"][HYBRID_ARCH]["launches"]
     by_path["prefix_flash_attention"][f"{VLM_ARCH} patch prefill"] = \
         vlm["patches"]
     by_path["prefix_flash_attention"][f"{HYBRID_ARCH} serve"] = \
@@ -5030,6 +5356,22 @@ def main() -> None:
           f"capacity dropped "
           f"{moe['capacity']['dropped']} of {CAPACITY_ROWS} rows; phase "
           f"wall {moe['wall']:.1f}s", flush=True)
+    print(f"[phi] {PHI_ARCH} ({PHI_LAYERS} layers): GPU tier "
+          f"{phi['gpu_bytes']} B = {phi['blocks']} pool blocks; doc hit rate "
+          f"{phi['doc_hit_rate']:.4f}; tier hit tokens {phi['tier']}; "
+          f"{phi['stats'][0]:.1f} tokens/s, TTFT p50 {phi['stats'][1]:.1f} "
+          f"ms; paper eps {phi['eps']:g}, MoE eps {phi['moe_eps']:.4f}; "
+          f"phase wall {phi['wall']:.1f}s", flush=True)
+    for arch, o in rtrain["runs"].items():
+        ab = o["ab"]
+        rel = max(d / t if t else 0.0 for _, d, t, _ in ab["grads"])
+        print(f"[recurrent_train] {arch}: scan peak chunk={SCAN_CHUNK} "
+              f"{ab['peak']} B vs unchunked {ab['peak_whole']} B; grads max "
+              f"|d| / max |g| {rel:.3e}; step loss {o['loss']:.6f}, peak "
+              f"{o['args'] + o['above']} B, dry run / card "
+              f"{cal['recurrent'][arch]:.4f}; phase wall "
+              f"{rtrain['wall']:.1f}s; [examples] phase wall "
+              f"{examples['wall']:.1f}s", flush=True)
     for arch, o in ((XLSTM_ARCH, xlstm), (HYBRID_ARCH, hybrid)):
         print(f"[recurrent] {arch}: cold {o['tokens_per_s']:.2f} tokens/s, "
               f"peak {o['peak']} B; warm requests {o['warm']} bit-identical, "

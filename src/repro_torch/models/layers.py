@@ -39,8 +39,13 @@ products need it was measured by chip_smoke.py's row-invariance probe
               7168) and Gemma2's tied logits, and none of those showed a
               difference with the rule applied.
 
-Phi-3.5-MoE's gate and up (K 4096, N 6400) and down (K 6400) are not
-measured on the card; the rule slabs only the down.
+  Phi-3.5-MoE  k and v (K 4096, N 1024, from 64 rows on) and each
+              expert's gate and up (K 4096, N 6400, from 8 rows on); not
+              q, o, the experts' down (K 6400, slabbed by depth), the
+              router (N 16, slabbed as Mixtral's) or the logits (N 32064).
+              No depth or width rule separates its gate and up from the
+              invariant K-4096 products of the others (N 3840 to 32000),
+              so SLAB_WIDTHS names them.
 
 Where a tensor-parallel mesh's column products run in column slabs
 (``col_proj``), the row rule is taken on each slab's (K, N / slabs).  scripts/probe_slab_rows.py,
@@ -53,8 +58,9 @@ invariant in slabs of rows; Mistral-7B's gate and up slabs (K 4096, N
 3584), Gemma3-12B's (K 3840, N 3840) and the tied logits' slabs of Qwen2-
 0.5B (K 896), Gemma3-12B (K 3840) and Gemma2-27B (K 4608) were not.
 
-``slabbed`` holds that rule: deeper than SLAB_MIN_K, or at least
-SLAB_NARROW_K deep with at most SLAB_NARROW_N outputs (deep and narrow
+``slabbed`` holds that rule: deeper than SLAB_MIN_K, the (K, N) of
+SLAB_WIDTHS, or at least SLAB_NARROW_K deep with at most SLAB_NARROW_N
+outputs (deep and narrow
 products, for which cuBLAS splits the contraction across CTAs by a count
 it picks from the rows; SLAB_NARROW_N sits between LLaMA2-7B's variant
 gate/up slabs, N 2752, and Mistral-7B's invariant ones, N 3584; no
@@ -78,12 +84,21 @@ select where the reference multiplies by the causal mask: past ~128 steps
 a chunk's masked weights overflow to inf there, and inf x 0 made the
 reference's outputs NaN (ROADMAP.md Queue C); wherever the reference is
 finite the two agree.  The mask is applied to the weights' exponent as
-well, so the backward does not meet that inf either.  On fake tensors (the compile analysis,
-``launch/op_analysis.py``) ``slstm_scan`` and ``mamba_scan`` run their
-step's ops once over every step together (``_slstm_shapes``,
-``_mamba_shapes``): the same products with the same FLOPs, the same
-output shapes, in a handful of ops rather than a few per step; no value
-exists there, so the recurrence's order is not needed.  ``row_slabs``
+well, so the backward does not meet that inf either.  Under autograd the
+scans recompute chunk by chunk, as the reference's do: ``mlstm_chunkwise``
+runs each chunk under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint(chunk_body)``), and ``slstm_scan`` and ``mamba_scan`` run
+their steps through ``chunked_scan`` (the reference's, 256 steps a
+chunk), so the backward keeps the carries at chunk boundaries and the
+chunks' inputs, not every step's intermediates; ``mamba_scan`` then
+computes a chunk's decay and input at once and its readout step by step.
+Without autograd (serving) they run as one loop over all steps.  On fake
+tensors (the compile analysis, ``launch/op_analysis.py``) ``slstm_scan``
+and ``mamba_scan`` run a chunk's step ops once over its steps together
+(``_slstm_shapes``, ``_mamba_shapes``), under the same checkpoints: the
+same products with the same FLOPs, recompute included, the same output
+shapes, in a handful of ops rather than a few per step; no value exists
+there, so the recurrence's order is not needed.  ``row_slabs``
 makes its slabs' products one call there too, and ``flash_attention_bwd``
 runs one tile of each pass, counting the others' products
 (``op_analysis.note``).
@@ -96,6 +111,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.launch import op_analysis
@@ -109,6 +125,8 @@ ROW_SLAB = 512
 SLAB_MIN_K = 4096
 SLAB_NARROW_K = 3840
 SLAB_NARROW_N = 3072
+# (K, N) of products measured row-variant that the depth rule misses
+SLAB_WIDTHS = frozenset({(4096, 6400)})
 
 
 def row_slabs(fn, x: torch.Tensor) -> torch.Tensor:
@@ -177,10 +195,11 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 
 def slabbed(w: torch.Tensor) -> bool:
     """Whether ``proj`` runs the product with w (K, N) in fixed row slabs:
-    K > SLAB_MIN_K, or K >= SLAB_NARROW_K and N <= SLAB_NARROW_N (see the
-    module docstring)."""
+    K > SLAB_MIN_K, (K, N) in SLAB_WIDTHS, or K >= SLAB_NARROW_K and N <=
+    SLAB_NARROW_N (see the module docstring)."""
     K, N = w.shape[-2], w.shape[-1]
-    return K > SLAB_MIN_K or (K >= SLAB_NARROW_K and N <= SLAB_NARROW_N)
+    return (K > SLAB_MIN_K or (K, N) in SLAB_WIDTHS
+            or (K >= SLAB_NARROW_K and N <= SLAB_NARROW_N))
 
 
 def proj(x: torch.Tensor, w: torch.Tensor,
@@ -736,15 +755,46 @@ def mlstm_divisor(den, m):
     return torch.maximum(den, torch.exp(torch.clamp(-m, max=30.0)))
 
 
+def _records(*tensors) -> bool:
+    """Whether autograd records ops on any of ``tensors`` here."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def chunked_scan(f, carry, xs, chunk: int = 256):
+    """The reference's ``chunked_scan`` with ``remat`` (its callers'
+    setting): a scan over time in chunks of ``chunk`` steps, each chunk
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``),
+    so that the backward keeps only the carries at chunk boundaries and the
+    chunks' inputs and recomputes a chunk's steps when it reaches them.
+    ``f(carry, *xs_c)`` runs the steps of one chunk ``xs_c`` (time on dim
+    1 of each of ``xs``) and returns (carry, ys), ys with time on dim 1.  A
+    last chunk shorter than ``chunk`` runs as it is: the reference pads it
+    with masked steps, which leave the same carries.  S <= chunk: ``f``
+    over all steps, as the reference's plain scan."""
+    S = xs[0].shape[1]
+    if S <= chunk:
+        return f(carry, *xs)
+    body = functools.partial(checkpoint, f, use_reentrant=False)
+    ys = []
+    for c0 in range(0, S, chunk):
+        carry, y = body(carry, *(x[:, c0:c0 + chunk] for x in xs))
+        ys.append(y)
+    return carry, torch.cat(ys, dim=1)
+
+
 @full_f32()
 def mlstm_chunkwise(q, k, v, i_gate, f_gate, state=None, chunk: int = 256):
     """Chunkwise-parallel mLSTM: within a chunk (C x C) and (C x hd)
     products, across chunks only the (hd x hd) state.  Equal to
     ``mlstm_scan`` up to f32 association.  Time is padded to whole chunks
-    with steps that neither write (i = NEG_INF) nor decay (f = 80)."""
+    with steps that neither write (i = NEG_INF) nor decay (f = 80).  Under
+    autograd each chunk runs under ``torch.utils.checkpoint``, as the
+    reference's ``lax.scan(jax.checkpoint(chunk_body))``: the backward
+    keeps the states at chunk boundaries and the chunks' inputs, not a
+    chunk's scores and products."""
     B, S, H, hd = q.shape
-    C_in, n_in, m_in = (state if state is not None
-                        else mlstm_init(B, H, hd, q.device))
+    carry = (state if state is not None
+             else mlstm_init(B, H, hd, q.device))
     chunk = min(chunk, S)
     nc = -(-S // chunk)
     pad = nc * chunk - S
@@ -758,44 +808,55 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, state=None, chunk: int = 256):
     fg = padt(f_gate.float(), 80.0)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=q.device))
+    body = functools.partial(_mlstm_chunk, causal=causal)
+    if _records(q, k, v, i_gate, f_gate, *carry):
+        body = functools.partial(checkpoint, body, use_reentrant=False)
     hs = []
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
-        qi, ki, vi, ii, fi = qf[:, sl], kf[:, sl], vf[:, sl], ig[:, sl], \
-            fg[:, sl]
-        lf = _log_sigmoid(fi)                              # (B, C, H)
-        Fc = torch.cumsum(lf, dim=1)
-        g = ii - Fc
-        Mt = torch.maximum(m_in[:, None], torch.cummax(g, dim=1).values)
-        m_t = Fc + Mt
-        in_scale = torch.exp(m_in[:, None] - Mt)           # (B, C, H)
-        # intra-chunk scores A[t, s] = (q_t . k_s) exp(g_s - M_t), s <= t
-        qk = torch.einsum("bthd,bshd->bhts", qi, ki)
-        # the exponent is masked before exp: past ~128 steps the upper
-        # triangle's exp overflows to inf, and a select after it would pass
-        # its backward 0 x inf = NaN (the causal entries keep their bits)
-        wts = torch.exp(torch.where(
-            causal, g.transpose(1, 2)[:, :, None, :]
-            - Mt.transpose(1, 2)[:, :, :, None], NEG_INF))
-        A = torch.where(causal, qk * wts, 0.0)
-        Cq = torch.einsum("bhij,bthj->bthi", C_in, qi)
-        num = in_scale[..., None] * Cq + torch.einsum("bhts,bshd->bthd",
-                                                      A, vi)
-        nq = torch.einsum("bhj,bthj->bth", n_in, qi)
-        den = in_scale * nq + A.sum(dim=-1).transpose(1, 2)
-        floor = torch.exp(torch.clamp(-m_t, max=30.0))
-        hs.append(num / torch.maximum(torch.abs(den), floor)[..., None])
-        # the state at the chunk's end
-        MT = Mt[:, -1]                                     # (B, H)
-        state_scale = torch.exp(m_in - MT)
-        wk = torch.exp(g - MT[:, None])                    # (B, C, H)
-        C_in = state_scale[..., None, None] * C_in + torch.einsum(
-            "bshd,bsh,bshe->bhde", vi, wk, ki)
-        n_in = state_scale[..., None] * n_in + torch.einsum(
-            "bsh,bshd->bhd", wk, ki)
-        m_in = Fc[:, -1] + MT
+        carry, h = body(carry, qf[:, sl], kf[:, sl], vf[:, sl], ig[:, sl],
+                        fg[:, sl])
+        hs.append(h)
     h = torch.cat(hs, dim=1)[:, :S]
-    return h.to(q.dtype), (C_in, n_in, m_in)
+    return h.to(q.dtype), carry
+
+
+@full_f32()
+def _mlstm_chunk(carry, qi, ki, vi, ii, fi, *, causal):
+    """One chunk of ``mlstm_chunkwise``: its f32 inputs (B, C, H, ...)
+    (k scaled) and the state (C, n, m) at its start give (the state at its
+    end, h (B, C, H, hd) f32)."""
+    C_in, n_in, m_in = carry
+    lf = _log_sigmoid(fi)                                  # (B, C, H)
+    Fc = torch.cumsum(lf, dim=1)
+    g = ii - Fc
+    Mt = torch.maximum(m_in[:, None], torch.cummax(g, dim=1).values)
+    m_t = Fc + Mt
+    in_scale = torch.exp(m_in[:, None] - Mt)               # (B, C, H)
+    # intra-chunk scores A[t, s] = (q_t . k_s) exp(g_s - M_t), s <= t
+    qk = torch.einsum("bthd,bshd->bhts", qi, ki)
+    # the exponent is masked before exp: past ~128 steps the upper
+    # triangle's exp overflows to inf, and a select after it would pass
+    # its backward 0 x inf = NaN (the causal entries keep their bits)
+    wts = torch.exp(torch.where(
+        causal, g.transpose(1, 2)[:, :, None, :]
+        - Mt.transpose(1, 2)[:, :, :, None], NEG_INF))
+    A = torch.where(causal, qk * wts, 0.0)
+    Cq = torch.einsum("bhij,bthj->bthi", C_in, qi)
+    num = in_scale[..., None] * Cq + torch.einsum("bhts,bshd->bthd", A, vi)
+    nq = torch.einsum("bhj,bthj->bth", n_in, qi)
+    den = in_scale * nq + A.sum(dim=-1).transpose(1, 2)
+    floor = torch.exp(torch.clamp(-m_t, max=30.0))
+    h = num / torch.maximum(torch.abs(den), floor)[..., None]
+    # the state at the chunk's end
+    MT = Mt[:, -1]                                         # (B, H)
+    state_scale = torch.exp(m_in - MT)
+    wk = torch.exp(g - MT[:, None])                        # (B, C, H)
+    C_out = state_scale[..., None, None] * C_in + torch.einsum(
+        "bshd,bsh,bshe->bhde", vi, wk, ki)
+    n_out = state_scale[..., None] * n_in + torch.einsum(
+        "bsh,bshd->bhd", wk, ki)
+    return (C_out, n_out, Fc[:, -1] + MT), h
 
 
 def slstm_init(B: int, H: int, hd: int, device=None):
@@ -806,23 +867,36 @@ def slstm_init(B: int, H: int, hd: int, device=None):
 
 
 @full_f32()
-def slstm_scan(zifo, r_w, state=None):
+def slstm_scan(zifo, r_w, state=None, chunk: int = 256):
     """sLSTM: scalar memory, block-diagonal recurrence, exp gating, one step
     at a time.  zifo: (B, S, H, 4 hd) input pre-activations; r_w (H, hd,
-    4 hd).  Returns (h (B, S, H, hd), (c, n, h, m))."""
+    4 hd).  Under autograd the steps run through ``chunked_scan`` in
+    chunks of ``chunk``, as the reference's.  Returns (h (B, S, H, hd),
+    (c, n, h, m))."""
     B, S, H, hd4 = zifo.shape
-    c, n, h, m = (state if state is not None
-                  else slstm_init(B, H, hd4 // 4, zifo.device))
-    if op_analysis.is_fake(zifo):
-        return _slstm_shapes(zifo, r_w, (c, n, h, m))
-    xs = zifo.float()
-    rw = r_w.float()
+    state = (state if state is not None
+             else slstm_init(B, H, hd4 // 4, zifo.device))
+    steps = functools.partial(_slstm_steps, rw=r_w.float())
+    if _records(zifo, r_w, *state):
+        state, hs = chunked_scan(steps, state, (zifo.float(),), chunk)
+    else:
+        state, hs = steps(state, zifo.float())
+    return hs.to(zifo.dtype), state
+
+
+@full_f32()
+def _slstm_steps(state, xs, rw):
+    """``slstm_scan``'s steps over f32 ``xs`` (B, S, H, 4 hd) from
+    ``state``: (the last state, h (B, S, H, hd) f32)."""
+    if op_analysis.is_fake(xs):
+        return _slstm_shapes(xs, rw, state)
+    c, n, h, m = state
     hs = []
-    for t in range(S):
+    for t in range(xs.shape[1]):
         rec = torch.einsum("bhi,hio->bho", h, rw)
         c, n, h, m = slstm_cell(*(xs[:, t] + rec).chunk(4, dim=-1), c, n, m)
         hs.append(h)
-    return torch.stack(hs, dim=1).to(zifo.dtype), (c, n, h, m)
+    return (c, n, h, m), torch.stack(hs, dim=1)
 
 
 def slstm_cell(z, i, f, o, c, n, m):
@@ -840,46 +914,46 @@ def slstm_cell(z, i, f, o, c, n, m):
     return c, n, o * c / torch.clamp(n, min=1.0), m_new
 
 
-def _slstm_shapes(zifo, r_w, state):
-    """``slstm_scan`` on fake tensors: the recurrent products of every step
-    at once, the gates over every step; the loop's output shapes and
+def _slstm_shapes(xs, rw, state):
+    """``_slstm_steps`` on fake tensors: the recurrent products of every
+    step at once, the gates over every step; the loop's output shapes and
     dtypes.  The first step's product reads the given state and the
     others a stand-in for the previous steps' outputs (derived from
-    ``zifo``, so autograd carries it as the loop's), so the products'
+    ``xs``, so autograd carries it as the loop's), so the products'
     FLOPs forward and backward are the loop's."""
     c, n, h, m = state
     hd = h.shape[-1]
-    rw = r_w.float()
-    prev = torch.tanh(zifo[:, :-1, :, :hd].float())
+    prev = torch.tanh(xs[:, :-1, :, :hd])
     rec = torch.cat([torch.einsum("bhi,hio->bho", h, rw)[:, None],
                      torch.einsum("bshi,hio->bsho", prev, rw)], dim=1)
-    z, i, f, o = (zifo.float() + rec).chunk(4, dim=-1)
+    z, i, f, o = (xs + rec).chunk(4, dim=-1)
     log_f = _log_sigmoid(f)
     m_new = torch.maximum(log_f + m[:, None], i)
     c = torch.exp(log_f - m_new) * c[:, None] + torch.exp(i - m_new) \
         * torch.tanh(z)
     n = torch.exp(log_f - m_new) * n[:, None] + torch.exp(i - m_new)
     hs = torch.sigmoid(o) * c / torch.clamp(n, min=1.0)
-    last = (c[:, -1], n[:, -1], hs[:, -1], m_new[:, -1])
-    return hs.to(zifo.dtype), last
+    return (c[:, -1], n[:, -1], hs[:, -1], m_new[:, -1]), hs
 
 
-def _mamba_shapes(decay, inp, Cs, D, xs, dtype):
+def _mamba_shapes(decay, inp, Cs, D, xs):
     """``mamba_scan``'s states on fake tensors: one elementwise op over
     every step (the loop's ops are elementwise: no FLOPs are lost), then
-    the readout as the loop's."""
+    the readout as the loop's.  Returns (y f32, the last state)."""
     hs = decay * inp
     y = torch.einsum("sbhdn,bsn->bshd", hs, Cs) + D.float() * xs
-    return y.to(dtype), hs[-1].clone()
+    return y, hs[-1].clone()
 
 
 @full_f32()
-def mamba_scan(x, delta, A, Bm, Cm, D, state=None):
+def mamba_scan(x, delta, A, Bm, Cm, D, state=None, chunk: int = 256):
     """Selective SSM: h_t = exp(delta_t A) h_{t-1} + delta_t (B_t (x) x_t),
     y_t = C_t . h_t + D x_t.  x (B, S, H, hd), delta (B, S, H), A (H, hd,
     N), Bm/Cm (B, S, N), D (H, hd); state (B, H, hd, N) f32, the Hymba
-    document snapshot.  The step's decay and input are computed for every
-    step at once and the readout after the loop, elementwise as the
+    document snapshot.  Under autograd the steps run through
+    ``chunked_scan`` in chunks of ``chunk`` (``_mamba_steps``), as the
+    reference's.  Without it the step's decay and input are computed for
+    every step at once and the readout after the loop, elementwise as the
     reference computes them per step.  Returns (y, new_state)."""
     Bb, S, H, hd = x.shape
     N = A.shape[-1]
@@ -887,25 +961,45 @@ def mamba_scan(x, delta, A, Bm, Cm, D, state=None):
          else torch.zeros((Bb, H, hd, N), device=x.device))
     xs, ds = x.float(), delta.float()
     Bs, Cs = Bm.float(), Cm.float()
-    # time-major (S, B, H, hd, N)
-    decay = torch.exp(ds.transpose(0, 1)[..., None, None] * A.float())
-    inp = (ds[..., None] * xs).transpose(0, 1)[..., None] \
-        * Bs.transpose(0, 1)[:, :, None, None, :]
+    if _records(x, delta, A, Bm, Cm, D, h):
+        steps = functools.partial(_mamba_steps, A=A.float(), D=D.float())
+        h, y = chunked_scan(steps, h, (xs, ds, Bs, Cs), chunk)
+        return y.to(x.dtype), h
+    decay, inp = _mamba_terms(xs, ds, Bs, A.float())
     if op_analysis.is_fake(x):
-        return _mamba_shapes(decay, inp + h, Cs, D, xs, x.dtype)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, delta, A, Bm, Cm, D, h)):
-        # autograd records no ``out=`` product: the same steps, stacked
-        steps = []
-        for t in range(S):
-            h = decay[t] * h + inp[t]
-            steps.append(h)
-        hs = torch.stack(steps)
-    else:
-        hs = torch.empty_like(decay)
-        for t in range(S):
-            h = torch.mul(decay[t], h, out=hs[t])
-            h += inp[t]
+        y, h = _mamba_shapes(decay, inp + h, Cs, D, xs)
+        return y.to(x.dtype), h
+    hs = torch.empty_like(decay)
+    for t in range(S):
+        h = torch.mul(decay[t], h, out=hs[t])
+        h += inp[t]
     y = torch.einsum("sbhdn,bsn->bshd", hs, Cs) + D.float() * xs
     # a copy: the last step's view would keep every step's state alive
     return y.to(x.dtype), h.clone()
+
+
+def _mamba_terms(xs, ds, Bs, A):
+    """The steps' decay exp(delta A) and input delta (B (x) x) from f32
+    x (B, S, H, hd), delta (B, S, H), B (B, S, N) and A (H, hd, N), time-
+    major (S, B, H, hd, N)."""
+    decay = torch.exp(ds.transpose(0, 1)[..., None, None] * A)
+    inp = (ds[..., None] * xs).transpose(0, 1)[..., None] \
+        * Bs.transpose(0, 1)[:, :, None, None, :]
+    return decay, inp
+
+
+@full_f32()
+def _mamba_steps(h, xs, ds, Bs, Cs, A, D):
+    """A chunk of ``mamba_scan``'s steps under autograd, f32 inputs with
+    time on dim 1: the chunk's decay and input at once, then per step the
+    state and its readout C_t . h_t + D x_t, as the reference's step.
+    Returns (the last state, y (B, C, H, hd) f32)."""
+    decay, inp = _mamba_terms(xs, ds, Bs, A)
+    if op_analysis.is_fake(xs):
+        y, h = _mamba_shapes(decay, inp + h, Cs, D, xs)
+        return h, y
+    ys = []
+    for t in range(xs.shape[1]):
+        h = decay[t] * h + inp[t]
+        ys.append(torch.einsum("bhdn,bn->bhd", h, Cs[:, t]) + D * xs[:, t])
+    return h, torch.stack(ys, dim=1)

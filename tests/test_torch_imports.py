@@ -142,6 +142,8 @@ def test_slice_module_is_guarded(mod):
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")]
+    + [str(p.relative_to(REPO))
+       for p in (REPO / "examples").glob("torch_*.py")]
     + ["chip_smoke.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     src = (REPO / path).read_text()

@@ -445,9 +445,13 @@ def test_unported_families_raise(change):
 # widths.  On the card (chip_smoke.py's probe, Mixtral-8x7B) k and every
 # expert's down projection were row-variant without the slabs; the router
 # (N 8) was not, and is slabbed all the same (a 512 x 4096 x 8 product).
-# Phi-3.5-MoE's widths are not measured on the card.
+# Phi-3.5-MoE's probe (phase phi) found k, v and each expert's gate and up
+# (K 4096, N 6400) row-variant without the slabs, and its down (K 6400),
+# router (N 16), q, o and logits not: the depth rule missed gate and up,
+# so layers.SLAB_WIDTHS adds their (K, N) and Phi's set gains them.
 SLABBED = {"mixtral-8x7b": {"k", "v", "down", "router"},
-           "phi3.5-moe-42b-a6.6b": {"k", "v", "down", "router"}}
+           "phi3.5-moe-42b-a6.6b": {"k", "v", "gate", "up", "down",
+                                    "router"}}
 
 
 @pytest.mark.parametrize("arch", sorted(SLABBED))
