@@ -31,6 +31,15 @@ just the launches.  Retrieval stages advance their own per-request lanes by
 max(measured stage wall time, analytic stage cost).  TTFT is therefore
 max(search_end, prefill_end) - arrival.
 
+Spans (``RuntimeMetrics``, always on): each handler's body
+(``runtime.<kind>``), each engine step (``engine.decode`` /
+``engine.prefill``) split into issuing it (``.plan``, ``.pack``,
+``.launch``) and waiting for the device (``.wait``), each tier copy
+(``tree.demote`` / ``.promote`` / ``.spill`` / ``.fetch``) and each staged
+search (``retrieval.search``), on ``time.perf_counter_ns``: the virtual
+clock's own measurements are untouched.  ``LATEST`` keeps the metrics of
+the runtime that last entered ``serve()``.
+
 ``mode="cag"`` preloads the whole corpus KV into the disk tier at start-up,
 each doc computed standalone through the dense prefill, and serves with
 zero retrieval stages.
@@ -61,7 +70,9 @@ dense family's pool, backend and copies.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import heapq
 import itertools
 import time
@@ -69,6 +80,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as autograd_profiler
 
 from repro_torch.core.controller import RAGController, effective_recompute
 from repro_torch.core.knowledge_tree import (CacheBackend, EvictionError,
@@ -92,6 +104,12 @@ from repro_torch.serving.scheduler import (DECODE, PREEMPT, PREFILL,
 
 WAITING, RUNNING, FINISHED = "waiting", "running", "finished"
 
+SPAN_CAPACITY = 65536          # newest spans a RuntimeMetrics keeps
+
+# the RuntimeMetrics of the runtime that last entered serve(); it outlives
+# the runtime, for an exporter that reads the spans afterwards
+LATEST: Optional["RuntimeMetrics"] = None
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card; the CPU only when asked for."""
@@ -113,45 +131,167 @@ def pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.pin_memory() if device.type == "cuda" else t
 
 
+def host_bytes(node) -> int:
+    """Bytes of a node's host copy (K and V), the size of every tier hop."""
+    return node.payload_host["k"].nbytes + node.payload_host["v"].nbytes
+
+
+class Span:
+    """One span, its own record once closed: a name, a start and a
+    duration on ``time.perf_counter_ns`` (this module's clock, not the
+    runtime's virtual one), a few int / float ``attrs`` (rows, bytes, ...),
+    and whether a torch profiler was recording.  Two clock reads and one
+    append; while a profiler records, a ``record_function`` range named
+    ``host:<name>`` besides, which puts the span on the kernels' timeline.
+    A closed span holds numbers only."""
+    __slots__ = ("name", "start_ns", "dur_ns", "attrs", "profiled",
+                 "_metrics", "_range")
+
+    def __init__(self, metrics: "RuntimeMetrics", name: str):
+        self._metrics, self.name, self.attrs = metrics, name, {}
+
+    def __enter__(self) -> "Span":
+        # a rebound module global, so read through the module every time
+        self._range = None
+        if autograd_profiler._is_profiler_enabled:
+            self._range = autograd_profiler.record_function(
+                "host:" + self.name)
+            self._range.__enter__()
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.dur_ns = time.perf_counter_ns() - self.start_ns
+        rng, m = self._range, self._metrics
+        self.profiled = rng is not None
+        if rng is not None:
+            rng.__exit__(*exc)
+        self._range = self._metrics = None
+        if len(m.spans) == m.spans.maxlen:
+            m.spans_dropped += 1
+        m.spans.append(self)
+
+
+class RuntimeMetrics(ServingMetrics):
+    """The continuous runtime's ``ServingMetrics``: the shared timelines and
+    counters (``serving/metrics.py``, a copy of the reference's) plus the
+    port's spans, a bounded record of where the host spent each handler,
+    engine step (issuing it, then waiting for the device), retrieval search
+    and tier copy, and two counters the spans need beside them."""
+
+    def __init__(self):
+        super().__init__()
+        # tokens computed for prefills dropped as stale: finished ones
+        # (wasted_prefills) and those cancelled at a chunk boundary
+        self.wasted_prefill_tokens = 0
+        self.pool_blocks_peak = 0      # most pool blocks in use after a step
+        # spans, oldest first; spans_dropped counts those pushed out
+        self.spans: collections.deque = collections.deque(
+            maxlen=SPAN_CAPACITY)
+        self.spans_dropped = 0
+        self.serve_ns: Optional[int] = None   # the latest serve()'s start
+
+    def span(self, name: str) -> Span:
+        """``with metrics.span(name) as sp: ...``; set ``sp.attrs`` inside."""
+        return Span(self, name)
+
+    def stamp_serve(self) -> None:
+        """A ``serve()`` begins: stamp it, and make these the LATEST."""
+        global LATEST
+        LATEST = self
+        self.serve_ns = time.perf_counter_ns()
+
+    def summary(self) -> Dict[str, object]:
+        s = super().summary()
+        s["wasted_prefill_tokens"] = self.wasted_prefill_tokens
+        s["pool_blocks_peak"] = self.pool_blocks_peak
+        return s
+
+    def format_report(self) -> str:
+        """The shared report, then the two counters and a line a span name:
+        its count, mean and p95 over the spans kept."""
+        lines = [super().format_report(),
+                 f"wasted prefill tokens   : {self.wasted_prefill_tokens}",
+                 f"pool blocks peak in use : {self.pool_blocks_peak}"]
+        by_name: Dict[str, List[int]] = {}
+        for sp in self.spans:
+            by_name.setdefault(sp.name, []).append(sp.dur_ns)
+        for name, durs in sorted(by_name.items()):
+            a = np.asarray(durs, np.float64) / 1e6
+            lines.append(f"span {name:<27}: n {len(a):>6}  mean "
+                         f"{a.mean():9.3f}  p95 "
+                         f"{np.percentile(a, 95):9.3f} ms")
+        if self.spans_dropped:
+            lines.append(f"spans dropped           : {self.spans_dropped} "
+                         f"(the oldest; {len(self.spans)} kept)")
+        return "\n".join(lines)
+
+
+def _handler_span(handler):
+    """Runs an ``_on_<kind>`` handler's body under the span
+    ``runtime.<kind>``: whatever wraps the method from outside (a pacing
+    wait) stays outside the span."""
+    name = "runtime." + handler.__name__[len("_on_"):]
+
+    @functools.wraps(handler)
+    def run(self, payload):
+        with self.metrics.span(name):
+            return handler(self, payload)
+    return run
+
+
 class PagedBackend(CacheBackend):
     """Tree payloads are PagedSegments in the shared device store; the host
     tier holds dense (pinned, on a CUDA store) CPU tensor copies; the
     optional disk tier holds one file per node.  Transfer seconds are
-    measured."""
+    measured, and each copy is a span of ``metrics`` (``tree.demote``,
+    ``tree.promote``, ``tree.spill``, ``tree.fetch``), with the bytes of
+    the host copy it moves."""
 
     def __init__(self, store: PagedKVStore,
-                 disk: Optional[DiskSegmentStore] = None):
+                 disk: Optional[DiskSegmentStore] = None,
+                 metrics: Optional[RuntimeMetrics] = None):
         self.store = store
         self.disk = disk
+        self.metrics = metrics if metrics is not None else RuntimeMetrics()
 
     def swap_out(self, node):
-        t0 = time.perf_counter()
-        k, v = self.store.gather(node.payload_gpu)
-        node.payload_host = {"k": to_host(k), "v": to_host(v)}
-        return time.perf_counter() - t0
+        with self.metrics.span("tree.demote") as sp:
+            t0 = time.perf_counter()
+            k, v = self.store.gather(node.payload_gpu)
+            node.payload_host = {"k": to_host(k), "v": to_host(v)}
+            sp.attrs = {"bytes": host_bytes(node)}
+            return time.perf_counter() - t0
 
     def load(self, node):
-        t0 = time.perf_counter()
-        try:
-            node.payload_gpu = self.store.put(node.payload_host["k"],
-                                              node.payload_host["v"])
-        except OutOfBlocks as e:
-            raise EvictionError(str(e))   # promote() degrades to recompute
-        self.store.sync()
-        return time.perf_counter() - t0
+        with self.metrics.span("tree.promote") as sp:
+            sp.attrs = {"bytes": host_bytes(node)}
+            t0 = time.perf_counter()
+            try:
+                node.payload_gpu = self.store.put(node.payload_host["k"],
+                                                  node.payload_host["v"])
+            except OutOfBlocks as e:
+                raise EvictionError(str(e))   # promote() degrades to
+                                              # recompute
+            self.store.sync()
+            return time.perf_counter() - t0
 
     def spill(self, node):
-        t0 = time.perf_counter()
-        node.payload_disk = self.disk.write(node.payload_host["k"],
-                                            node.payload_host["v"])
-        return time.perf_counter() - t0
+        with self.metrics.span("tree.spill") as sp:
+            sp.attrs = {"bytes": host_bytes(node)}
+            t0 = time.perf_counter()
+            node.payload_disk = self.disk.write(node.payload_host["k"],
+                                                node.payload_host["v"])
+            return time.perf_counter() - t0
 
     def fetch(self, node):
-        t0 = time.perf_counter()
-        k, v = self.disk.read(node.payload_disk)
-        node.payload_host = {"k": pinned(k, self.store.device),
-                             "v": pinned(v, self.store.device)}
-        return time.perf_counter() - t0
+        with self.metrics.span("tree.fetch") as sp:
+            t0 = time.perf_counter()
+            k, v = self.disk.read(node.payload_disk)
+            node.payload_host = {"k": pinned(k, self.store.device),
+                                 "v": pinned(v, self.store.device)}
+            sp.attrs = {"bytes": host_bytes(node)}
+            return time.perf_counter() - t0
 
     def free_gpu(self, node):
         if node.payload_gpu is not None:
@@ -177,19 +317,22 @@ class ShardedPagedBackend(PagedBackend):
     """
 
     def swap_out(self, node):
-        t0 = time.perf_counter()
-        seg = node.payload_gpu
-        host = {}
-        for name, pieces in zip(("k", "v"), self.store.gather_shards(seg)):
-            L, _, T, n, hd = pieces[0].shape
-            h = torch.empty((L, 1, T, n * len(pieces), hd),
-                            dtype=pieces[0].dtype,
-                            pin_memory=pieces[0].is_cuda)
-            for i, piece in enumerate(pieces):
-                h[..., i * n:(i + 1) * n, :].copy_(piece)
-            host[name] = h
-        node.payload_host = host
-        return time.perf_counter() - t0
+        with self.metrics.span("tree.demote") as sp:
+            t0 = time.perf_counter()
+            seg = node.payload_gpu
+            host = {}
+            for name, pieces in zip(("k", "v"),
+                                    self.store.gather_shards(seg)):
+                L, _, T, n, hd = pieces[0].shape
+                h = torch.empty((L, 1, T, n * len(pieces), hd),
+                                dtype=pieces[0].dtype,
+                                pin_memory=pieces[0].is_cuda)
+                for i, piece in enumerate(pieces):
+                    h[..., i * n:(i + 1) * n, :].copy_(piece)
+                host[name] = h
+            node.payload_host = host
+            sp.attrs = {"bytes": host_bytes(node)}
+            return time.perf_counter() - t0
 
 
 @dataclasses.dataclass
@@ -390,6 +533,8 @@ class ContinuousRuntime:
         self._scratch_block = self.store.pool.alloc(1)[0]  # dummy-row sink
         self.disk = make_disk_store(config.disk_cache_dir,
                                     config.disk_cache_bytes)
+        self.metrics = RuntimeMetrics()
+        self.metrics.prefill_token_budget = config.max_prefill_tokens
         self.tree = KnowledgeTree(
             config.gpu_cache_bytes, config.host_cache_bytes,
             config.disk_cache_bytes if self.disk is not None else 0,
@@ -398,7 +543,7 @@ class ContinuousRuntime:
                 lambda a, b: 1e-4 * b + 2e-8 * b * (a + b),
                 (0, 64, 256, 1024), (1, 32, 128, 512, 1024)),
             backend=(ShardedPagedBackend if tp > 1
-                     else PagedBackend)(self.store, self.disk),
+                     else PagedBackend)(self.store, self.disk, self.metrics),
             bytes_per_token=max(kv_bytes, 1),
         )
         self.controller = RAGController(self.tree)
@@ -415,8 +560,6 @@ class ContinuousRuntime:
                             prefill_chunk=config.prefill_chunk,
                             max_prefill_tokens=config.max_prefill_tokens),
             viable=self._job_viable, admit=self._job_admissible)
-        self.metrics = ServingMetrics()
-        self.metrics.prefill_token_budget = config.max_prefill_tokens
         self._partial_jobs: List[_Job] = []   # jobs with live chunk state
         self._n_slots = 0
         self._n_tbl = 0               # run-table width
@@ -508,6 +651,7 @@ class ContinuousRuntime:
 
     def serve(self, requests: Sequence[Request],
               max_new_tokens: int = 4) -> List[RuntimeResult]:
+        self.metrics.stamp_serve()
         self.max_new_tokens = max_new_tokens
         self.admission.decode_reserve = max_new_tokens
         max_doc = int(max(self.corpus.doc_lengths))
@@ -557,6 +701,7 @@ class ContinuousRuntime:
     # arrivals & staged retrieval (host-CPU lanes, one per request)
     # ------------------------------------------------------------------
 
+    @_handler_span
     def _on_arrival(self, r: Request) -> None:
         tl = self.metrics.timeline(next(self._seq), self.now)
         tl.req_id = r.req_id
@@ -587,17 +732,24 @@ class ContinuousRuntime:
         # materialize stages, measuring the real scan cost of each stage;
         # the per-request search lane advances by max(measured, analytic)
         t = self.now
-        it = iter(self.index.staged_search(r.query_vec, k))
-        while True:
-            t0 = time.perf_counter()
-            try:
-                stage = next(it)
-            except StopIteration:
-                break
-            wall = time.perf_counter() - t0
-            t += max(wall, stage.seconds) * self.search_time_scale
-            self._push(t, "stage", (st, stage))
+        n, measured, floor = 0, 0.0, 0.0
+        with self.metrics.span("retrieval.search") as sp:
+            it = iter(self.index.staged_search(r.query_vec, k))
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    stage = next(it)
+                except StopIteration:
+                    break
+                wall = time.perf_counter() - t0
+                t += max(wall, stage.seconds) * self.search_time_scale
+                self._push(t, "stage", (st, stage))
+                n, measured = n + 1, measured + wall
+                floor += float(stage.seconds)
+            sp.attrs = {"stages": n, "measured_s": measured,
+                        "floor_s": floor}
 
+    @_handler_span
     def _on_stage(self, payload) -> None:
         st, stage = payload
         self.metrics.retrieval_stages += 1
@@ -721,43 +873,59 @@ class ContinuousRuntime:
         """One engine iteration: execute the next chunk of every job the
         scheduler packed, as ONE ragged batched paged-prefill call.  Real
         compute is measured (ending in a device synchronise) and billed as
-        one iteration on the virtual clock."""
+        one iteration on the virtual clock.  Span ``engine.prefill``; its
+        ``.plan`` phase is the planning loop, promotions included (the
+        dense A/B path computes there too), and ``_run_paged_rows`` takes
+        ``.pack``, ``.launch`` and ``.wait``."""
         self.engine_busy = True
-        t0 = time.perf_counter()
-        outcomes = []                  # (job, finished)
-        executed = 0
-        rows = []
-        for ch in chunks:
-            job = ch.item
-            if not self._job_viable(job):
-                # went stale in this very event-loop instant; nothing ran
-                if job.cs is not None:
-                    self._abort_chunked(job)
-                else:
-                    self.sched.abort_prefill(job)
-                continue
-            if job.cs is None:
-                self._begin_chunked(job)
-            if self.attn == "paged":
-                row = self._prep_paged_chunk(job)
-                if row is None:
-                    continue           # OutOfBlocks: job aborted + requeued
-                rows.append(row)
-                executed += row[-1]
-            else:
-                n = self._run_chunk(job)
-                if n < 0:
-                    continue           # paging the partial KV failed: job
-                                       # aborted + requeued in place
-                executed += n
-            outcomes.append((job, not job.cs.pieces))
-        if rows:
-            self._run_paged_rows(rows)
-        dt = time.perf_counter() - t0
-        if outcomes:
-            self.metrics.record_iteration("prefill", 1)
-            self.metrics.record_prefill_batch(len(outcomes), executed)
-        self._push(self.now + dt, "prefill_batch_done", outcomes)
+        with self.metrics.span("engine.prefill") as step:
+            t0 = time.perf_counter()
+            outcomes = []                  # (job, finished)
+            executed = 0
+            rows = []
+            with self.metrics.span("engine.prefill.plan"):
+                for ch in chunks:
+                    job = ch.item
+                    if not self._job_viable(job):
+                        # went stale in this very event-loop instant;
+                        # nothing ran
+                        if job.cs is not None:
+                            self._abort_chunked(job)
+                        else:
+                            self.sched.abort_prefill(job)
+                        continue
+                    if job.cs is None:
+                        self._begin_chunked(job)
+                    if self.attn == "paged":
+                        row = self._prep_paged_chunk(job)
+                        if row is None:
+                            continue       # OutOfBlocks: job aborted +
+                                           # requeued
+                        rows.append(row)
+                        executed += row[-1]
+                    else:
+                        n = self._run_chunk(job)
+                        if n < 0:
+                            continue       # paging the partial KV failed:
+                                           # job aborted + requeued in place
+                        executed += n
+                    outcomes.append((job, not job.cs.pieces))
+            if rows:
+                self._run_paged_rows(rows)
+            dt = time.perf_counter() - t0
+            if outcomes:
+                self.metrics.record_iteration("prefill", 1)
+                self.metrics.record_prefill_batch(len(outcomes), executed)
+            self._push(self.now + dt, "prefill_batch_done", outcomes)
+            step.attrs = {"rows": len(outcomes), "tokens": executed,
+                          "blocks": self._note_pool()}
+
+    def _note_pool(self) -> int:
+        """Pool blocks in use now, noted towards the peak."""
+        used = self.store.pool.n_blocks - self.store.pool.free_blocks
+        self.metrics.pool_blocks_peak = max(self.metrics.pool_blocks_peak,
+                                            used)
+        return used
 
     def _begin_chunked(self, job: _Job) -> None:
         """First chunk: plan the request, promote the hit prefix, and build
@@ -1049,41 +1217,47 @@ class ContinuousRuntime:
         the shapes a captured CUDA graph could replay; padding rows/tokens
         write into the scratch block and are fully masked (q_len), so every
         real row's output is independent of what shares the batch."""
-        B = max(self.sched.config.max_prefill_bs, len(rows))
-        Sq = max(8, 1 << (max(r[-1] for r in rows) - 1).bit_length())
-        T = self._n_tbl
-        toks = np.zeros((B, Sq), np.int32)
-        wblk = np.full((B, Sq), self._scratch_block, np.int32)
-        wslot = np.zeros((B, Sq), np.int32)
-        tables = np.full((B, T), self._scratch_block, np.int32)
-        counts = np.zeros((B, T), np.int32)
-        starts = np.zeros((B, T), np.int32)
-        q_start = np.zeros((B,), np.int32)
-        q_len = np.zeros((B,), np.int32)
-        for i, (job, t, wb, ws, qs, tb, cn, st_, n) in enumerate(rows):
-            toks[i, :n] = t
-            wblk[i, :n] = wb
-            wslot[i, :n] = ws
-            tables[i] = tb
-            counts[i] = cn
-            starts[i] = st_
-            q_start[i] = qs
-            q_len[i] = n
-        logits = M.paged_prefill_step(
-            self.cfg, self.params, self._tensor(toks), self.store.k_planes,
-            self.store.v_planes,
-            self._tensor(tables), self._tensor(counts),
-            self._tensor(starts), self._tensor(q_start), self._tensor(q_len),
-            self._tensor(wblk), self._tensor(wslot), attn_impl=self.attn_impl,
-            mesh=self._mesh)
-        last = logits[:len(rows), -1]                       # (n_rows, V)
-        first = last.argmax(dim=-1).cpu().numpy()
-        host = last.cpu().numpy()
-        self.store.sync()
+        m = self.metrics
+        with m.span("engine.prefill.pack"):
+            B = max(self.sched.config.max_prefill_bs, len(rows))
+            Sq = max(8, 1 << (max(r[-1] for r in rows) - 1).bit_length())
+            T = self._n_tbl
+            toks = np.zeros((B, Sq), np.int32)
+            wblk = np.full((B, Sq), self._scratch_block, np.int32)
+            wslot = np.zeros((B, Sq), np.int32)
+            tables = np.full((B, T), self._scratch_block, np.int32)
+            counts = np.zeros((B, T), np.int32)
+            starts = np.zeros((B, T), np.int32)
+            q_start = np.zeros((B,), np.int32)
+            q_len = np.zeros((B,), np.int32)
+            for i, (job, t, wb, ws, qs, tb, cn, st_, n) in enumerate(rows):
+                toks[i, :n] = t
+                wblk[i, :n] = wb
+                wslot[i, :n] = ws
+                tables[i] = tb
+                counts[i] = cn
+                starts[i] = st_
+                q_start[i] = qs
+                q_len[i] = n
+        with m.span("engine.prefill.launch") as sp:
+            logits = M.paged_prefill_step(
+                self.cfg, self.params, self._tensor(toks),
+                self.store.k_planes, self.store.v_planes,
+                self._tensor(tables), self._tensor(counts),
+                self._tensor(starts), self._tensor(q_start),
+                self._tensor(q_len), self._tensor(wblk), self._tensor(wslot),
+                attn_impl=self.attn_impl, mesh=self._mesh)
+            sp.attrs = {"B": B, "Sq": Sq}
+        with m.span("engine.prefill.wait"):
+            last = logits[:len(rows), -1]                   # (n_rows, V)
+            first = last.argmax(dim=-1).cpu().numpy()
+            host = last.cpu().numpy()
+            self.store.sync()
         for i, row in enumerate(rows):
             row[0].cs.first_token = int(first[i])
             row[0].cs.logits = host[i]
 
+    @_handler_span
     def _on_prefill_batch_done(self, payload) -> None:
         self.engine_busy = False
         for job, finished in payload:
@@ -1110,6 +1284,8 @@ class ContinuousRuntime:
                 for n in cs.plan.hit_nodes:   # unpin without committing
                     n.pinned = False
                 self.metrics.wasted_prefills += 1
+                self.metrics.wasted_prefill_tokens += sum(
+                    len(s) for s in cs.segs)
                 continue
             res = _PrefillResult(
                 docs=job.docs, cache=cs.cache, first_token=cs.first_token,
@@ -1163,6 +1339,7 @@ class ContinuousRuntime:
         prefix, and account the chunk tokens that were never computed."""
         cs = job.cs
         saved = sum(cs.pieces) if cs is not None else 0
+        computed = sum(len(s) for s in cs.segs) - saved if cs else 0
         if cs is not None:
             for n in cs.plan.hit_nodes:
                 n.pinned = False
@@ -1172,6 +1349,7 @@ class ContinuousRuntime:
             # a requeued job recomputes everything later — only genuine
             # cancellations (stale speculation / finished request) save work
             self.metrics.record_chunk_cancel(saved)
+            self.metrics.wasted_prefill_tokens += computed
         if requeue:
             # paged-pool pressure, not staleness: recompute later — force a
             # decode iteration first so running requests free blocks
@@ -1411,24 +1589,43 @@ class ContinuousRuntime:
     def _warm_up_decode(self) -> None:
         """Run the single decode shape once before serving (dummy rows
         decode token 0 into the scratch block, exactly like a padding row),
-        so one-time device set-up never lands on the serving clock."""
-        self._decode([])
+        so one-time device set-up never lands on the serving clock, nor in
+        the spans (its own go to a scratch ``RuntimeMetrics``)."""
+        serving, self.metrics = self.metrics, RuntimeMetrics()
+        try:
+            self._decode([])
+        finally:
+            self.metrics = serving
 
     def _decode(self, batch) -> np.ndarray:
         """One batched decode iteration; returns the next token of every
-        row (padding rows included)."""
-        if self.attn == "paged":
-            (toks, tables, counts, starts, pos, write_blk,
-             write_slot) = self._paged_decode_args(batch)
-            logits = M.paged_decode_step(
-                self.cfg, self.params, toks, self.store.k_planes,
-            self.store.v_planes,
-                tables, counts, starts, write_blk, write_slot, pos,
-                attn_impl=self.attn_impl, mesh=self._mesh)
-        else:
-            logits = self._dense_decode(*self._dense_decode_args(batch))
-        next_toks = logits[:, -1].argmax(dim=-1).cpu().numpy()
-        self.store.sync()
+        row (padding rows included).  Span ``engine.decode``: ``.pack``
+        the run tables, ``.launch`` the step, ``.wait`` the next tokens'
+        readback and the synchronise."""
+        m = self.metrics
+        with m.span("engine.decode") as step:
+            if self.attn == "paged":
+                with m.span("engine.decode.pack"):
+                    (toks, tables, counts, starts, pos, write_blk,
+                     write_slot) = self._paged_decode_args(batch)
+                with m.span("engine.decode.launch"):
+                    logits = M.paged_decode_step(
+                        self.cfg, self.params, toks, self.store.k_planes,
+                        self.store.v_planes,
+                        tables, counts, starts, write_blk, write_slot, pos,
+                        attn_impl=self.attn_impl, mesh=self._mesh)
+            else:
+                with m.span("engine.decode.pack"):
+                    args = self._dense_decode_args(batch)
+                with m.span("engine.decode.launch"):
+                    logits = self._dense_decode(*args)
+            with m.span("engine.decode.wait"):
+                next_toks = logits[:, -1].argmax(dim=-1).cpu().numpy()
+                self.store.sync()
+            step.attrs = {"rows": len(batch),
+                          "longest": max((st.length + 1 for st in batch),
+                                         default=0),
+                          "blocks": self._note_pool()}
         return next_toks
 
     def _dense_decode(self, toks, blk_map, slot_map, lengths):
@@ -1504,6 +1701,7 @@ class ContinuousRuntime:
         self._push(self.now + dt, "decode_done",
                    (batch, [int(t) for t in next_toks[:len(batch)]]))
 
+    @_handler_span
     def _on_decode_done(self, payload) -> None:
         batch, toks = payload
         self.engine_busy = False
